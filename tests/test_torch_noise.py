@@ -1,0 +1,100 @@
+"""Port parity: the noise machinery and kernel A (noise probe).
+
+The plain Box-Muller is held against the JAX package's Pallas noise probe
+(interpret mode, injected uniforms); the mantissa-trick uniform against a
+NumPy oracle bit for bit; the host Philox4x32-10 against the published
+known-answer vectors.  The CUDA kernel is held against the plain version on
+the card in ``test_torch_kernels_gpu.py``.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from gymnasium_planar_robotics_tpu.ops import pallas_step
+from gymnasium_planar_robotics_tpu_torch.ops import kernels
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import noise
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_box_muller_matches_pallas_probe():
+    """Same uniforms into the Pallas probe (interpret, injected) and the
+    port's plain probe: equal up to the libm differences of log/cos/sin
+    (tolerance rtol 2e-6, atol 2e-6, a few f32 ulp of values up to ~5.6)."""
+    draws, b = 4, 256
+    u = np.random.default_rng(0).random((2 * draws, b), dtype=np.float32)
+    u[0, :3] = [0.0, np.float32(1.0) - np.float32(2**-23), 0.5]  # log(1), log(2^-23) edges
+    probe = pallas_step.make_noise_probe(draws=draws, interpret=True, inject_noise=True)
+    want = np.asarray(probe(0, noise=jnp.asarray(u)))
+    got = noise.noise_probe(draws, b, 'cpu', uniforms=torch.from_numpy(u)).numpy()
+    assert got.dtype == np.float32 and got.shape == (2 * draws, b)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+def test_mantissa_uniform_bit_exact_and_below_one():
+    rng = np.random.default_rng(1)
+    bits = rng.integers(0, 2**32, size=65536, dtype=np.uint64).astype(np.uint32)
+    bits[:4] = [0, 0xFFFFFFFF, 0x1FF, 0x200]
+    oracle = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    got = noise.uniform_from_bits(torch.from_numpy(bits.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), oracle.view(np.uint32))
+    assert got.max() < 1.0 and got.min() >= 0.0
+    assert got[1] == np.float32(1.0) - np.float32(2**-23) and got[0] == 0.0 and got[2] == 0.0
+
+
+@pytest.mark.parametrize('ctr, key, want', [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    """Random123's Philox4x32-10 known-answer vectors."""
+    out = noise.philox4x32_10(np.array(ctr, np.uint32).reshape(4, 1), key)
+    assert tuple(int(x) for x in out[:, 0]) == want
+
+
+def test_philox_stream_layout():
+    """Draw d of env e is word d % 4 of the block at counter (d // 4, e)."""
+    seed = (7 << 32) | 12345
+    bits = noise.philox_bits(seed, 10, 3)
+    assert bits.shape == (10, 3)
+    for d in (0, 3, 4, 9):
+        for e in range(3):
+            blk = noise.philox4x32_10(np.array([[d // 4], [e], [0], [0]], np.uint32), (12345, 7))
+            assert bits[d, e] == blk[d % 4, 0]
+
+
+def test_generator_normals_have_standard_moments():
+    g = torch.Generator().manual_seed(0)
+    z = noise.noise_probe(8, 4096, 'cpu', generator=g).double().reshape(-1)  # 65k samples
+    assert abs(float(z.mean())) < 0.02 and abs(float(z.std()) - 1.0) < 0.02
+    assert abs(float((z.abs() > 2).double().mean()) - 0.0455) < 0.006
+    # the host copy of the kernels' Philox stream gives the same moments
+    zp = noise.noise_probe_plain(noise.philox_uniforms(3, 16, 4096)).double().reshape(-1)
+    assert abs(float(zp.mean())) < 0.02 and abs(float(zp.std()) - 1.0) < 0.02
+
+
+def test_uniform_stream_asserts_its_draw_count():
+    s = noise.UniformStream(torch.zeros((3, 4)))
+    s.normal_pair()
+    with pytest.raises(AssertionError, match='drew 2 noise planes but 3'):
+        s.finalize()
+    s.uniform()
+    s.finalize()
+    with pytest.raises(AssertionError, match='drew more'):
+        s.uniform()
+
+
+def test_dispatch_rejects_mixed_devices():
+    with pytest.raises(ValueError, match='must all be on the CPU'):
+        kernels.on_cuda(torch.zeros(1), torch.zeros(1, device='meta'))
