@@ -12,18 +12,41 @@ phase:
 2. kernel A (noise probe) against its plain PyTorch version on injected
    uniforms and on the host copy of its Philox stream, plus the moments of
    262,144 Philox normals;
-3. kernels B, C and D against their plain versions at 4096 envs, injected
-   uniforms, from states with the mover planted at the object;
-4. the public serving path: ``make_pushing_env`` -> ``init_batch(4096)`` ->
+3. kernels B, C and D against their plain versions at 4096 envs, from
+   states with the mover planted at the object, in both noise modes:
+   injected uniforms, and the kernel's own Philox stream (seed 7, the mode
+   the public path launches) against the plain version fed the host copy
+   of that stream (``noise.philox_uniforms``);
+4. the public pushing path: ``make_pushing_env`` -> ``init_batch(4096)`` ->
    ``make_fused_step`` and ``make_fused_step_autoreset`` for a few steps ->
    ``make_fused_rollout`` for 64 steps at K=1 and K=32 (Philox noise), with
-   every launch counter read before and after; K=32 against K=1 at
+   every launch counter set to 0 before and read after; K=32 against K=1 at
    ``std_noise=0`` on envs that never restart;
-5. env-steps/s of ``make_fused_rollout`` at 4096 and 65,536 envs, kernels
-   against the plain versions on the card, at K=1 and K=32 (CUDA events).
+5. env-steps/s of the pushing ``make_fused_rollout`` at 4096 and 65,536
+   envs, kernels against the plain versions on the card, at K=1 and K=32;
+6. kernels E, F and G (single-mover planning) against their plain versions
+   at 4096 envs, in both noise modes as in 3., on four configurations:
+   circle and box collision shapes on the full 3x3 table and on a holed
+   layout, a quarter of the envs driven into a wall;
+7. the public planning path: ``make_planning_env(np.ones((3, 3)), 1)`` ->
+   ``init_batch(4096)`` -> ``make_fused_step`` x3 ->
+   ``make_fused_step_autoreset`` x5 -> ``make_fused_rollout`` T=64 at K=1
+   and K=32, counters set to 0 before and read after; K=32 against K=1 at
+   ``std_noise=0`` on envs that never restart;
+8. env-steps/s of the planning ``make_fused_rollout`` at 4096 and 65,536
+   envs, T=64, K=1 and K=32, five alternating repeats each (median), plus
+   the plain versions once.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
+Times are CUDA-event times.  The line before the last is a JSON object with
+one entry per kernel (A-G): its launches on its path, its largest error
+against the plain version (both noise modes), its time in the mode its path
+launches (Philox), the plain version's time, and its bound in that mode:
+the larger of its bytes (state, action and output planes; the Philox mode
+reads no uniforms) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
+counted from this run's inputs (Philox's integer work is not counted, so
+the bound is a floor).  The phase lines also give the injected mode's time
+and bound, which count the uniform planes.  The last line is
+``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero.  A full report goes to ``chiprun_out/chip_smoke.json``.  Without a
 CUDA device, or outside a checkout, the script exits non-zero and prints no
 result.
@@ -32,6 +55,7 @@ result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -51,6 +75,39 @@ KERNELS = {
     'pushing_cycles': ('csrc/pushing_cycles.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:903'),
     'pushing_autoreset': ('csrc/pushing_autoreset.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1034'),
     'pushing_rollout': ('csrc/pushing_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1083'),
+    'planning_cycles': ('csrc/planning_cycles.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:569'),
+    'planning_autoreset': ('csrc/planning_autoreset.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1545'),
+    'planning_rollout': ('csrc/planning_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1587'),
+}
+PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
+PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
+
+# the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
+# bytes/s and f32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+# f32 operations per env, counted from the CUDA sources (one per add, mul,
+# compare, select, min/max, logic op; one per division, square root, log,
+# cos and sin, which are also counted apart as "special").  Per control
+# cycle: pushing (velocity noise, clamp chain, contact, mover z, object
+# friction, noisy full-layout wall check, latch); planning by actuation and
+# collision shape with the full-layout rule, plus the extra of the holed
+# rule (nine cells' cover tests and one covered cell's edge tests; the
+# missing-corner segment tests are not counted, so the count is a floor).
+OPS = {
+    'normal_pair': (5, 4),
+    'pushing_cycle': (268, 30),
+    'pushing_step_extra': (110, 26),  # observations, termination, restart selects
+    'pushing_candidate': (16, 1),  # one object candidate of the restart (all cand_k are drawn and tested)
+    'planning_cycle_acc': (87, 13),
+    'planning_cycle_jerk': (116, 20),
+    'planning_box_extra': (103, 11),
+    'planning_holed_extra_circle': (72, 0),
+    'planning_holed_extra_box': (95, 0),
+    'planning_step_extra': (67, 17),  # observations, termination, restart selects
+    'planning_candidate_circle': (36, 0),  # one tested start/goal candidate
+    'planning_candidate_box': (89, 0),
 }
 
 
@@ -94,6 +151,30 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    for this work, the larger of bytes over the HBM rate and operations
+    over the f32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def ops_total(*terms) -> float:
+    """Sum of ``count * OPS[name]`` over (count, name) terms, special
+    functions included."""
+    return float(sum(n * sum(OPS[name]) for n, name in terms))
+
+
+def planning_cycle_ops(box: bool, full: bool, jerk: bool) -> tuple:
+    """(count, name) terms of one planning control cycle."""
+    terms = [(1, 'planning_cycle_jerk' if jerk else 'planning_cycle_acc')]
+    if box:
+        terms.append((1, 'planning_box_extra'))
+    if not full:
+        terms.append((1, 'planning_holed_extra_box' if box else 'planning_holed_extra_circle'))
+    return terms
 
 
 def planted_state(P, config, params, b: int, gen, vel=(0.4, 0.0)):
@@ -176,6 +257,10 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    def philox(seed, n, b):
+        """The uniforms a kernel launched with ``seed`` draws, on the card."""
+        return noise.philox_uniforms(seed, n, b).to(dev)
+
     # -- 2. kernel A ---------------------------------------------------------
     @phase('kernel_A_noise_probe')
     def _():
@@ -196,18 +281,32 @@ def main() -> int:
         require(ok_ph, f'Philox stream disagrees with its host copy: {err_ph}')
         require(abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(tail - 0.0455) < 0.003,
                 f'Philox normal moments off: mean {mean} std {std} P(|z|>2) {tail}')
-        # time at the main path's shape (observation noise: 3 pairs per env)
+        # at the main path's shape (observation noise: 3 pairs per env), in
+        # the Philox mode the path launches
+        got_m = noise.noise_probe_cuda(3, B_MAIN, dev, seed=7)
+        err_m, ok_m = compare(got_m, noise.noise_probe_plain(noise.philox_uniforms(7, 6, B_MAIN).to(dev)), 2e-6, 2e-6)
+        require(ok_m, f'Philox stream at the main shape disagrees with its host copy: {err_m}')
         u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
-        ms = time_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 50)
+        ms = time_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7), 50)
+        injected_ms = time_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 50)
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
-        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph), ms=ms, plain_ms=plain_ms)
-        return {'max_abs_err_injected': err_inj, 'max_abs_err_philox': err_ph, 'tol': 'atol 2e-6 + rtol 2e-6',
-                'philox_samples': 2 * n_env, 'mean': mean, 'std': std, 'p_abs_gt_2': tail,
-                'ms': ms, 'plain_ms': plain_ms}
+        ops = ops_total((3 * B_MAIN, 'normal_pair'))
+        bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
+        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph, err_m), ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+        return {'max_abs_err_injected': err_inj, 'max_abs_err_philox': max(err_ph, err_m),
+                'tol': 'atol 2e-6 + rtol 2e-6', 'philox_samples': 2 * n_env, 'mean': mean, 'std': std,
+                'p_abs_gt_2': tail, 'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
+                'injected_ms': injected_ms, 'injected_bound_ms': bound(12 * 4 * B_MAIN, ops)[0]}
 
     # -- 3. kernels B, C, D ---------------------------------------------------
     config, params = P.make_pushing_env(device=dev)
     kc = kp.make_kernel_consts(config, params, 32)
+    def pushing_step_ops():
+        """f32 operations of one pushing autoreset step of one env."""
+        return ops_total((kc.num_cycles, 'pushing_cycle'), (1, 'pushing_step_extra'),
+                         (kc.cand_k, 'pushing_candidate'))
+
     # per-plane tolerances, by class: positions, goals and observations at
     # rtol 3e-5, atol 3e-6 (nvcc contracts multiply-adds, PyTorch's
     # elementwise ops do not, and contact amplifies one ulp); object velocity
@@ -241,12 +340,20 @@ def main() -> int:
         moved = float((got[8:10] - planes[8:10]).abs().max())
         require(not bad, f'planes {bad} disagree: {[errs[i] for i in bad]}')
         require(moved > 1e-5, 'contact never moved an object')
-        ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kc, u), 20)
+        n_noise = kp.cycles_noise_planes(kc.num_cycles)
+        got_p = kp.pushing_cycles_cuda(planes, kc, None, 7)
+        err_p, bad_p, _ = plane_compare(got_p, kp.pushing_cycles_plain(planes, kc, philox(7, n_noise, B_MAIN)))
+        require(not bad_p, f'Philox mode: planes {bad_p} disagree')
+        injected_ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kc, u), 20)
         plain_ms = time_ms(lambda: kp.pushing_cycles_plain(planes, kc, u), 3)
-        philox_ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kc, None, 7), 20)
-        kstats['pushing_cycles'].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        return {'max_abs_err': err, 'per_plane': errs, 'object_moved': moved,
-                'ms': ms, 'plain_ms': plain_ms, 'philox_ms': philox_ms}
+        ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kc, None, 7), 20)
+        ops = ops_total((B_MAIN * kc.num_cycles, 'pushing_cycle'))
+        bound_ms, bound_by = bound((18 + 17) * 4 * B_MAIN, ops)
+        kstats['pushing_cycles'].update(max_abs_err=max(err, err_p), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        return {'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'object_moved': moved,
+                'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
+                'injected_ms': injected_ms, 'injected_bound_ms': bound((18 + n_noise + 17) * 4 * B_MAIN, ops)[0]}
 
     @phase('kernel_C_pushing_autoreset')
     def _():
@@ -263,12 +370,20 @@ def main() -> int:
         restarts = int(((got[18] == 0) & (st[18] > 0)).sum())
         require(not bad, f'planes {bad} disagree: {[errs[i] for i in bad]}')
         require(restarts > 0, 'no restart fired')
-        ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kc, u), 20)
+        n_noise = kp.autoreset_noise_planes(kc.num_cycles, kc.cand_k)
+        got_p = kp.pushing_autoreset_cuda(st, act, kc, None, 7)
+        err_p, bad_p, _ = plane_compare(got_p, kp.pushing_autoreset_plain(st, act, kc, philox(7, n_noise, B_MAIN)))
+        require(not bad_p, f'Philox mode: planes {bad_p} disagree')
+        injected_ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kc, u), 20)
         plain_ms = time_ms(lambda: kp.pushing_autoreset_plain(st, act, kc, u), 3)
-        philox_ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kc, None, 7), 20)
-        kstats['pushing_autoreset'].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        return {'max_abs_err': err, 'per_plane': errs, 'restarts': restarts,
-                'ms': ms, 'plain_ms': plain_ms, 'philox_ms': philox_ms}
+        ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kc, None, 7), 20)
+        ops = B_MAIN * pushing_step_ops()
+        bound_ms, bound_by = bound((21 + 36) * 4 * B_MAIN, ops)
+        kstats['pushing_autoreset'].update(max_abs_err=max(err, err_p), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by)
+        return {'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'restarts': restarts,
+                'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
+                'injected_ms': injected_ms, 'injected_bound_ms': bound((21 + n_noise + 36) * 4 * B_MAIN, ops)[0]}
 
     @phase('kernel_D_pushing_rollout')
     def _():
@@ -277,27 +392,39 @@ def main() -> int:
         acts = ((torch.rand((K_MAIN, 2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
         n = K_MAIN * kp.autoreset_noise_planes(kc.num_cycles, kc.cand_k)
         u = torch.rand((n, B_MAIN), generator=gen, device=dev)
-        got_st, got_sig = kp.pushing_rollout_cuda(st, acts, kc, u)
-        ref_st, ref_sig = kp.pushing_rollout_plain(st, acts, kc, u)
-        # over K steps of chaotic contact, ulp differences can grow and flip a
-        # wall check; count the envs whose whole trajectory agrees
-        # (the per-step plane tolerances, x10 for the K steps)
-        d_state = (got_st - ref_st).abs()
         rtol = torch.tensor([plane_tol(i)[0] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
         atol = torch.tensor([plane_tol(i)[1] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
-        env_ok = ((d_state <= atol + rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0))
-        frac = float(env_ok.double().mean())
-        err = float(d_state.max())
-        err_ok = float(d_state[:, env_ok].max()) if env_ok.any() else float('inf')
-        require(bool(torch.isfinite(got_st).all()), 'kernel D state is not finite')
-        require(frac >= 0.99, f'only {frac:.4f} of envs agree over {K_MAIN} steps')
-        ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, u), 5)
+
+        def agreement(got_st, got_sig, ref_st, ref_sig):
+            # over K steps of chaotic contact, ulp differences can grow and
+            # flip a wall check; count the envs whose whole trajectory agrees
+            # (the per-step plane tolerances, x10 for the K steps)
+            require(bool(torch.isfinite(got_st).all()), 'kernel D state is not finite')
+            d_state = (got_st - ref_st).abs()
+            env_ok = ((d_state <= atol + rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0))
+            frac = float(env_ok.double().mean())
+            require(frac >= 0.99, f'only {frac:.4f} of envs agree over {K_MAIN} steps')
+            err_ok = float(d_state[:, env_ok].max()) if env_ok.any() else float('inf')
+            return frac, err_ok, float(d_state.max())
+
+        got_st, got_sig = kp.pushing_rollout_cuda(st, acts, kc, u)
+        frac, err_ok, err = agreement(got_st, got_sig, *kp.pushing_rollout_plain(st, acts, kc, u))
+        frac_p, err_ok_p, _ = agreement(*kp.pushing_rollout_cuda(st, acts, kc, None, 7),
+                                        *kp.pushing_rollout_plain(st, acts, kc, philox(7, n, B_MAIN)))
+        injected_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, u), 5)
         plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kc, u), 1)
-        philox_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, None, 7), 5)
-        kstats['pushing_rollout'].update(max_abs_err=err_ok, ms=ms, plain_ms=plain_ms)
-        return {'K': K_MAIN, 'envs_agreeing': frac, 'max_abs_err_agreeing_envs': err_ok,
-                'max_abs_err_all_envs': err, 'restarts_kernel': int((got_sig[2] > 0.5).sum() + (got_sig[0] > 0.5).sum()),
-                'ms': ms, 'plain_ms': plain_ms, 'philox_ms': philox_ms}
+        ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, None, 7), 5)
+        ops = K_MAIN * B_MAIN * pushing_step_ops()
+        bound_ms, bound_by = bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_MAIN, ops)
+        kstats['pushing_rollout'].update(max_abs_err=max(err_ok, err_ok_p), ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+        return {'K': K_MAIN, 'envs_agreeing': frac, 'envs_agreeing_philox': frac_p,
+                'max_abs_err_agreeing_envs': err_ok, 'max_abs_err_agreeing_envs_philox': err_ok_p,
+                'max_abs_err_all_envs': err,
+                'restarts_kernel': int((got_sig[2] > 0.5).sum() + (got_sig[0] > 0.5).sum()),
+                'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
+                'injected_ms': injected_ms, 'injected_bound_ms': bound((19 + K_MAIN * (2 + n // K_MAIN + 3) + 19) * 4
+                                                                       * B_MAIN, ops)[0]}
 
     # -- 4. the public serving path --------------------------------------------
     @phase('main_path')
@@ -325,7 +452,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
 
-        require(all(v > 0 for v in launches.values()), f'a kernel of the path never launched: {launches}')
+        require(all(launches[k] > 0 for k in PUSHING_KERNELS), f'a kernel of the path never launched: {launches}')
         checks = {}
         for K, (fs, rew, term, trunc) in outs.items():
             for name in ('pos', 'vel', 'obj_pos', 'obj_vel', 'goal', 'mover_z', 'obj_yaw'):
@@ -398,14 +525,322 @@ def main() -> int:
                 }
         return {'T': T_ROLL, 'card': card, 'rates': rates}
 
+    # -- 6. planning kernels E, F, G -------------------------------------------
+    import numpy as np
+
+    from gymnasium_planar_robotics_tpu_torch.models import planning as PL
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kpl
+
+    box_coll = {'shape': 'box', 'size': np.array([0.09, 0.08])}
+    # the main configuration first: circle on the full 3x3 table (the JAX
+    # package's planning bench, bench.py:213, :262)
+    plan_configs = {
+        'circle_full': (np.ones((3, 3)), {}),
+        'circle_holed': (np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]]), {}),
+        'box_full': (np.ones((3, 3)), box_coll),
+        'box_holed': (np.array([[1, 1, 0], [1, 1, 1], [0, 1, 1]]), box_coll),
+    }
+    # kernel vs plain: the kernels round each operation as the plain
+    # versions' eager ops do, so flags, steps and trials must be equal and
+    # the other planes agree to rtol 1e-6 / atol 1e-7 (in practice exactly)
+    plan_rtol, plan_atol = 1e-6, 1e-7
+
+    def plan_env(name, **kw):
+        layout, coll = plan_configs[name]
+        return PL.make_planning_env(layout, 1, collision_params=coll, device=dev, **kw)
+
+    def wall_state(cfg, prm, b, seed, spread_steps=False):
+        """init_batch; a quarter of the envs at the +x edge moving out at
+        1 m/s (wall hits), every 8th about to truncate."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        state, _, _ = PL.init_batch(cfg, prm, b, g)
+        q = b // 4
+        state.pos[:q, 0, 0] = torch.linspace(0.56, 0.62, q, device=dev)
+        state.vel[:q, 0] = torch.tensor([1.0, 0.1], device=dev)
+        if spread_steps:
+            state.steps = torch.randint(0, cfg.max_episode_steps, (b,), generator=g, device=dev, dtype=torch.int32)
+        state.steps[::8] = cfg.max_episode_steps - 1
+        return state
+
+    def planes_check(got, ref, exact):
+        """(largest |err| over the non-flag planes, planes that disagree)."""
+        errs, bad = [], []
+        for i in range(got.shape[0]):
+            if i in exact:
+                if not torch.equal(got[i], ref[i]):
+                    bad.append(i)
+                continue
+            e, ok = compare(got[i], ref[i], plan_rtol, plan_atol)
+            errs.append(e)
+            if not ok:
+                bad.append(i)
+        return max(errs), bad
+
+    def plan_step_ops(kc, candidates: float) -> float:
+        """f32 operations of one autoreset step over the batch: every env
+        runs the cycles and the observations; ``candidates`` start and goal
+        candidates are tested in all (this run's data: done envs only)."""
+        cycle = planning_cycle_ops(kc.box, kc.rule.full, kc.learn_jerk)
+        per_env = ops_total(*[(kc.num_cycles * n, name) for n, name in cycle], (1, 'planning_step_extra'))
+        holed = [] if kc.rule.full else [(1, 'planning_holed_extra_box' if kc.box else 'planning_holed_extra_circle')]
+        cand = ops_total((1, 'planning_candidate_box' if kc.box else 'planning_candidate_circle'), *holed)
+        return per_env * B_MAIN + cand * candidates
+
+    @phase('kernel_E_planning_cycles')
+    def _():
+        res = {}
+        for name in plan_configs:
+            jerk = name.startswith('box')
+            cfg, prm = plan_env(name, learn_jerk=jerk)
+            kc = kpl.make_kernel_consts(cfg, prm)
+            state = wall_state(cfg, prm, B_MAIN, 10)
+            act = (torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0)
+            planes = torch.cat([PL.state_to_planes(cfg, state)[:6], act]).contiguous()
+            n_noise = kpl.cycles_noise_planes(cfg.num_cycles, kc.box)
+            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+            err, walls, errs_p = 0.0, {}, {}
+            for mode, got, ref in (
+                    ('injected', kpl.planning_cycles_cuda(planes, kc, u), kpl.planning_cycles_plain(planes, kc, u)),
+                    ('philox', kpl.planning_cycles_cuda(planes, kc, None, 7),
+                     kpl.planning_cycles_plain(planes, kc, philox(7, n_noise, B_MAIN)))):
+                e, bad = planes_check(got, ref, exact=(6,))
+                walls[mode] = int((got[6] > 0).sum())
+                require(not bad, f'{name} ({mode}): planes {bad} disagree')
+                require(0 < walls[mode] < B_MAIN, f'{name} ({mode}): {walls[mode]} wall hits')
+                err = max(err, e)
+            injected_ms = time_ms(lambda: kpl.planning_cycles_cuda(planes, kc, u), 20)
+            ms = time_ms(lambda: kpl.planning_cycles_cuda(planes, kc, None, 7), 20)
+            plain_ms = time_ms(lambda: kpl.planning_cycles_plain(planes, kc, u), 1)
+            ops = ops_total(*[(B_MAIN * cfg.num_cycles * n, nm) for n, nm in planning_cycle_ops(kc.box, kc.rule.full,
+                                                                                                 jerk)])
+            bound_ms, bound_by = bound((8 + 7) * 4 * B_MAIN, ops)
+            res[name] = {'jerk': jerk, 'max_abs_err': err, 'wall_hits': walls, 'ms': ms, 'bound_ms': bound_ms,
+                         'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
+                         'injected_bound_ms': bound((8 + n_noise + 7) * 4 * B_MAIN, ops)[0]}
+        main = res['circle_full']
+        kstats['planning_cycles'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()), ms=main['ms'],
+                                         plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                                         bound_by=main['bound_by'])
+        return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'configs': res}
+
+    @phase('kernel_F_planning_autoreset')
+    def _():
+        res = {}
+        for name in plan_configs:
+            jerk = name.endswith('holed')
+            cfg, prm = plan_env(name, learn_jerk=jerk)
+            kc = kpl.make_kernel_consts(cfg, prm)
+            state = wall_state(cfg, prm, B_MAIN, 11, spread_steps=True)
+            act = ((torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0))
+            act = act.contiguous()
+            st = PL.state_to_planes(cfg, state)
+            n_noise = kpl.autoreset_noise_planes(cfg.num_cycles, kc.cand_k, kc.box)
+            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+            entry = {'jerk': jerk, 'max_abs_err': 0.0}
+            for mode, got, ref in (
+                    ('injected', kpl.planning_autoreset_cuda(st, act, kc, u),
+                     kpl.planning_autoreset_plain(st, act, kc, u)),
+                    ('philox', kpl.planning_autoreset_cuda(st, act, kc, None, 7),
+                     kpl.planning_autoreset_plain(st, act, kc, philox(7, n_noise, B_MAIN)))):
+                e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
+                restarts = int(((got[8] == 0) & (st[8] > 0)).sum())
+                walls = int((got[19] > 0).sum())
+                require(not bad, f'{name} ({mode}): planes {bad} disagree')
+                require(restarts > 0 and walls > 0, f'{name} ({mode}): {restarts} restarts, {walls} wall hits')
+                entry['max_abs_err'] = max(entry['max_abs_err'], e)
+                entry[mode] = {'restarts': restarts, 'wall_hits': walls, 'stalled': int(got[21].sum()),
+                               'candidates_tested': int(got[22].sum())}
+            injected_ms = time_ms(lambda: kpl.planning_autoreset_cuda(st, act, kc, u), 20)
+            ms = time_ms(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7), 20)
+            plain_ms = time_ms(lambda: kpl.planning_autoreset_plain(st, act, kc, u), 1)
+            bound_ms, bound_by = bound((11 + 23) * 4 * B_MAIN,
+                                       plan_step_ops(kc, entry['philox']['candidates_tested']))
+            entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+                         injected_bound_ms=bound((11 + n_noise + 23) * 4 * B_MAIN,
+                                                 plan_step_ops(kc, entry['injected']['candidates_tested']))[0])
+            res[name] = entry
+        main = res['circle_full']
+        kstats['planning_autoreset'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()), ms=main['ms'],
+                                            plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                                            bound_by=main['bound_by'])
+        return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'configs': res}
+
+    @phase('kernel_G_planning_rollout')
+    def _():
+        res = {}
+        for name in plan_configs:
+            cfg, prm = plan_env(name)
+            kc = kpl.make_kernel_consts(cfg, prm)
+            st = PL.state_to_planes(cfg, wall_state(cfg, prm, B_MAIN, 12))
+            acts = ((torch.rand((K_MAIN, 2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 10.0).contiguous()
+            n_noise = kpl.autoreset_noise_planes(cfg.num_cycles, kc.cand_k, kc.box)
+            u = torch.rand((K_MAIN * n_noise, B_MAIN), generator=gen, device=dev)
+            entry = {'max_abs_err': 0.0}
+            for mode, (got_st, got_sig), (ref_st, ref_sig) in (
+                    ('injected', kpl.planning_rollout_cuda(st, acts, kc, u),
+                     kpl.planning_rollout_plain(st, acts, kc, u)),
+                    ('philox', kpl.planning_rollout_cuda(st, acts, kc, None, 7),
+                     kpl.planning_rollout_plain(st, acts, kc, philox(7, K_MAIN * n_noise, B_MAIN)))):
+                d_state = (got_st - ref_st).abs()
+                env_ok = (d_state <= plan_atol + plan_rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0)
+                frac = float(env_ok.double().mean())
+                require(bool(torch.isfinite(got_st).all()), f'{name} ({mode}): kernel G state is not finite')
+                require(frac >= 0.99, f'{name} ({mode}): only {frac:.4f} of envs agree over {K_MAIN} steps')
+                ends = int(((got_sig[0] > 0.5) | (got_sig[1] > 0.5) | (got_sig[2] > 0.5)).sum())
+                entry['max_abs_err'] = max(entry['max_abs_err'], float(d_state.max()))
+                entry[mode] = {'envs_agreeing': frac, 'episode_ends': ends}
+            if name == 'circle_full':
+                injected_ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, u), 5)
+                ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), 5)
+                plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1)
+
+                def ops(ends):
+                    # a floor: each episode end tests at least one start and one goal candidate
+                    return (K_MAIN - 1) * plan_step_ops(kc, 0.0) + plan_step_ops(kc, 2.0 * ends)
+
+                bound_ms, bound_by = bound((9 + K_MAIN * (2 + 3) + 9) * 4 * B_MAIN,
+                                           ops(entry['philox']['episode_ends']))
+                entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+                             injected_bound_ms=bound((9 + K_MAIN * (2 + n_noise + 3) + 9) * 4 * B_MAIN,
+                                                     ops(entry['injected']['episode_ends']))[0])
+                kstats['planning_rollout'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            res[name] = entry
+        kstats['planning_rollout'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
+        return {'B': B_MAIN, 'K': K_MAIN, 'tol': f'signals exact, state rtol {plan_rtol} atol {plan_atol}',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'configs': res}
+
+    # -- 7. the public planning path ----------------------------------------------
+    def far_goals(state):
+        """Goals in the sampling box's corner farthest from each start."""
+        state.goals = torch.where(state.pos < 0.36, 0.6, 0.12).to(state.pos.dtype)
+        return state
+
+    @phase('planning_main_path')
+    def _():
+        cfg, prm = PL.make_planning_env(np.ones((3, 3)), 1, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        kernels.reset_launches()
+        state, obs, info = PL.init_batch(cfg, prm, B_MAIN, g)
+        step = PL.make_fused_step(cfg, prm)
+        s = state
+        for _ in range(3):
+            s, o, r, te, tr, inf = step(s, torch.full((B_MAIN, 2), 3.0, device=dev), generator=g)
+        step_ar = PL.make_fused_step_autoreset(cfg, prm)
+        s = state
+        rewards = []
+        for _ in range(5):
+            a = (torch.rand((B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0
+            s, o, r, te, tr, inf = step_ar(s, a, generator=g)
+            rewards.append(r)
+        acts = (torch.rand((T_ROLL, B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0
+        outs = {K: PL.make_fused_rollout(cfg, prm, steps_per_launch=K)(s, acts, 100 + K) for K in (1, K_MAIN)}
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+
+        require(all(launches[k] > 0 for k in PLANNING_KERNELS), f'a kernel of the path never launched: {launches}')
+        require(bool(~info['reset_stalled'].any()), 'init_batch stalled')
+        require(set(torch.cat(rewards).unique().tolist()) <= {50.0, -50.0, -1.0}, 'per-step rewards')
+        checks = {}
+        for K, (fs, rew, term, trunc) in outs.items():
+            for name in ('pos', 'vel', 'acc', 'goals'):
+                require(bool(torch.isfinite(getattr(fs, name)).all()), f'K={K}: {name} not finite')
+            require(set(torch.unique(rew).tolist()) <= {50.0, -50.0, -1.0}, f'K={K}: rewards {torch.unique(rew)}')
+            speed = torch.linalg.vector_norm(fs.vel, dim=-1)
+            require(float(speed.max()) <= float(prm.v_max) * 1.01, f'K={K}: |v| {float(speed.max())}')
+            require(bool(((fs.pos >= 0.0) & (fs.pos <= 0.72)).all()), f'K={K}: mover off the table')
+            require(bool(((fs.goals >= prm.min_xy) & (fs.goals <= prm.max_xy)).all()), f'K={K}: goal')
+            require(bool(((fs.steps >= 0) & (fs.steps <= cfg.max_episode_steps)).all()), f'K={K}: steps')
+            require(bool((term | trunc).any()), f'K={K}: no episode ended in {T_ROLL} steps')
+            checks[K] = {'terminations': int(term.sum()), 'truncations': int(trunc.sum()),
+                         'successes': int((rew == 50.0).sum()), 'wall_hits': int((rew == -50.0).sum()),
+                         'reward_mean': float(rew.mean())}
+
+        # K=32 against K=1 at std_noise=0 on envs that never restart: 40
+        # steps (one chunk of 32 + a tail of 8) of a cosine drive, whose
+        # swing from rest is bounded, toward far goals
+        cfg0, prm0 = PL.make_planning_env(np.ones((3, 3)), 1, std_noise=0.0, device=dev)
+        s0 = far_goals(PL.init_batch(cfg0, prm0, B_MAIN, g)[0])
+        T0 = 40
+        ph = 2 * torch.pi * torch.arange(T0, device=dev) / 20
+        a0 = torch.stack([2.0 * torch.cos(ph), -2.0 * torch.cos(ph)], -1)[:, None].expand(T0, B_MAIN, 2)
+        r1 = PL.make_fused_rollout(cfg0, prm0, steps_per_launch=1)(s0, a0, 5)
+        r32 = PL.make_fused_rollout(cfg0, prm0, steps_per_launch=K_MAIN)(s0, a0, 5)
+        live = ~(r1[2].any(0) | r1[3].any(0) | r32[2].any(0) | r32[3].any(0))
+        require(int(live.sum()) > B_MAIN // 4, f'too many episode ends: {int(live.sum())} live')
+        errs = {}
+        for name in ('pos', 'vel', 'acc', 'goals'):
+            e, ok = compare(getattr(r32[0], name)[live], getattr(r1[0], name)[live], 3e-5, 3e-6)
+            errs[name] = e
+            require(ok, f'K={K_MAIN} vs K=1 {name}: {e}')
+        return {'launches': launches, 'rollouts': checks, 'k32_vs_k1_live_envs': int(live.sum()),
+                'k32_vs_k1_max_abs_err': errs, 'tol': 'rtol 3e-5 atol 3e-6'}
+
+    planning_launches = report['phases']['planning_main_path'].get('launches', {})
+
+    # -- 8. planning rollout rate ----------------------------------------------------
+    @phase('planning_rollout_rate')
+    def _():
+        rates = {}
+        for b in (B_MAIN, B_LARGE):
+            cfg, prm = PL.make_planning_env(np.ones((3, 3)), 1, device=dev)
+            g = torch.Generator(device=dev).manual_seed(4)
+            state, _, _ = PL.init_batch(cfg, prm, b, g)
+            acts = (torch.rand((T_ROLL, b, 2), generator=g, device=dev) * 2 - 1) * 10.0
+            kcb = kpl.make_kernel_consts(cfg, prm)
+            n_step = kpl.autoreset_noise_planes(cfg.num_cycles, kcb.cand_k, kcb.box)
+            rolls = {K: PL.make_fused_rollout(cfg, prm, steps_per_launch=K) for K in (1, K_MAIN)}
+            for K in rolls:  # warm-up
+                rolls[K](state, acts, 1)
+            torch.cuda.synchronize()
+            event_ms, host_ms = {1: [], K_MAIN: []}, {1: [], K_MAIN: []}
+            for rep in range(5):  # alternating repeats
+                for K in (1, K_MAIN):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    rolls[K](state, acts, 3 + rep)
+                    host_ms[K].append((time.perf_counter() - t0) * 1e3)
+                    end.record()
+                    torch.cuda.synchronize()
+                    event_ms[K].append(start.elapsed_time(end))
+
+            def plain_step(planes, action, seed, n_step=n_step, kcb=kcb, b=b):
+                return kpl.planning_autoreset_plain(planes, action, kcb, torch.rand((n_step, b), device=dev))
+
+            def plain_chunk(planes, actions, seed, n_step=n_step, kcb=kcb, b=b):
+                u = torch.rand((actions.shape[0] * n_step, b), device=dev)
+                return kpl.planning_rollout_plain(planes, actions, kcb, u)
+
+            for K in (1, K_MAIN):
+                plain = PL._make_rollout(cfg, prm, K, plain_step, plain_chunk)
+                t_p = time_ms(lambda plain=plain: plain(state, acts, 3), 1, warmup=0)
+                med = statistics.median(event_ms[K])
+                rates[f'B={b},K={K}'] = {
+                    'kernel_ms_runs': event_ms[K], 'host_enqueue_ms_runs': host_ms[K], 'kernel_ms_median': med,
+                    'kernel_env_steps_per_s': b * T_ROLL / (med / 1e3), 'plain_ms': t_p,
+                    'plain_env_steps_per_s': b * T_ROLL / (t_p / 1e3),
+                }
+        return {'T': T_ROLL, 'card': card, 'repeats': 5, 'rates': rates}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
         st = kstats[name]
+        # each kernel's launches on its own path: A-D on the pushing main
+        # path, E-G on the planning main path
+        path_launches = planning_launches if name in PLANNING_KERNELS else main_launches
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
-            'launches': int(main_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),
-            'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'),
+            'launches': int(path_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),
+            'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'), 'bound_ms': st.get('bound_ms'),
+            'bound_by': st.get('bound_by'),
+            # no single PyTorch call computes any of these functions
+            'library_ms': None,
         })
     report['kernels'] = kernel_rows
     out_dir = ROOT / 'chiprun_out'

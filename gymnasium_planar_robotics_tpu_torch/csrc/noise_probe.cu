@@ -12,7 +12,7 @@
 // The eager functions of the port (reset, observation noise) draw their
 // normals through this kernel on the card.
 
-#include "pushing.cuh"
+#include "common.cuh"
 
 namespace gprt {
 

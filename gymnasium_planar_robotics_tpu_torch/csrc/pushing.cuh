@@ -1,9 +1,6 @@
-// Device functions shared by the pushing kernels (noise probe, pushing
-// cycles, pushing autoreset step, K-step rollout).
-//
-// Layout: one thread per env; every input and output is an f32 plane of
-// B envs stored structure-of-arrays as [planes, B], so neighbouring threads
-// read neighbouring addresses.  The tail block masks envs >= B.
+// Device functions of the pushing kernels (pushing cycles, pushing
+// autoreset step, K-step rollout); noise, the clamp chain and the wall rule
+// come from common.cuh and walls.cuh.
 //
 // Arithmetic follows gymnasium_planar_robotics_tpu/ops/pallas_step.py
 // expression by expression (same operand order; JAX's "where(dx == 0, 1,
@@ -11,20 +8,13 @@
 // f32 rounding of the value the Pallas kernel bakes in at trace time; sums
 // the Pallas kernel forms in Python float64 (e.g. 1 + dt*damping/mass) are
 // formed the same way on the host and arrive here already rounded.
-//
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
-// --use_fast_math (sqrtf, division, logf, cosf and sinf stay IEEE / libm
-// accurate so the card agrees with the plain PyTorch versions).
 
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
+#include "walls.cuh"
 
 namespace gprt {
-
-constexpr int kThreads = 128;
-constexpr float kTwoPi = 6.28318530717958647692f;
 
 // The constants struct, passed by value to every pushing kernel.  The field
 // order is the contract with the Python side (CONST_FIELDS in
@@ -46,106 +36,6 @@ struct Consts {
   GPRT_CONST_FIELDS(GPRT_DECLARE_FIELD)
 };
 #undef GPRT_DECLARE_FIELD
-
-// ---------------------------------------------------------------------------
-// noise sources: uniform() returns the next uniform in [0, 1) of this env
-// ---------------------------------------------------------------------------
-
-// Pre-drawn uniforms [N, B]: draw d of env e is p[d * B + e], in the order
-// the Pallas kernel's _InjectedNoise consumes its planes.
-struct InjectedNoise {
-  const float* p;
-  int64_t stride;
-  __device__ InjectedNoise(const float* base, int64_t batch, int64_t env) : p(base + env), stride(batch) {}
-  __device__ __forceinline__ float uniform() {
-    float u = *p;
-    p += stride;
-    return u;
-  }
-};
-
-// Philox4x32-10 (Salmon et al., SC'11), key = the launch seed, counter =
-// (draw / 4, env, 0, 0); word draw % 4 of the block becomes the uniform.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Mantissa-bitcast uniform (pallas_step._uniform): OR 23 random bits into
-// the mantissa of 1.0 to get [1, 2), subtract 1.  Never returns 1.0.
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
-
-struct PhiloxNoise {
-  uint2 key;
-  uint32_t env;
-  uint32_t block;
-  int word;
-  uint4 buf;
-  __device__ PhiloxNoise(uint64_t seed, int64_t env_)
-      : key(make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32))),
-        env(static_cast<uint32_t>(env_)), block(0), word(4), buf(make_uint4(0, 0, 0, 0)) {}
-  __device__ __forceinline__ float uniform() {
-    if (word == 4) {
-      buf = philox4x32_10(make_uint4(block++, env, 0u, 0u), key);
-      word = 0;
-    }
-    const uint32_t bits = word == 0 ? buf.x : word == 1 ? buf.y : word == 2 ? buf.z : buf.w;
-    ++word;
-    return bits_to_uniform(bits);
-  }
-};
-
-// Box-Muller (pallas_step._NoiseBase.normal_pair): u1 = 1 - u keeps the log
-// finite; draws u1's uniform first, then u2's.
-template <class Noise>
-__device__ __forceinline__ void normal_pair(Noise& noise, float& a, float& b) {
-  const float u1 = 1.0f - noise.uniform();
-  const float u2 = noise.uniform();
-  const float r = sqrtf(-2.0f * logf(u1));
-  const float th = kTwoPi * u2;
-  a = r * cosf(th);
-  b = r * sinf(th);
-}
-
-// ---------------------------------------------------------------------------
-// small helpers with JAX semantics
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
-
-// jnp.sign: -1, 0 or +1 (0 at 0, unlike copysignf)
-__device__ __forceinline__ float sign0(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
-
-// L2-ball clamp (pallas_step._clamp_norm2): inclusive >=, max*v/norm order
-__device__ __forceinline__ bool clamp_norm2(float x, float y, float max_val, float& cx, float& cy) {
-  const float norm = sqrtf(x * x + y * y);
-  const bool clamp = norm >= max_val;
-  const float safe = norm > 0.0f ? norm : 1.0f;
-  cx = clamp ? max_val * x / safe : x;
-  cy = clamp ? max_val * y / safe : y;
-  return clamp;
-}
-
-// Circle wall validity on a fully populated layout (pallas_step.
-// _make_wall_valid, full-layout branch): centre above the table and the
-// inflated circle strictly inside the outer rectangle, or centre above the
-// interior rectangle of complete 3x3 cells.
-__device__ __forceinline__ bool wall_valid(const Consts& c, float px, float py, float r) {
-  const bool above = (px >= c.x0) & (px <= c.x1) & (py >= c.y0) & (py <= c.y1);
-  const bool inside = (px - r > c.x0) & (px + r < c.x1) & (py - r > c.y0) & (py + r < c.y1);
-  bool res = above & inside;
-  if (c.has_fast != 0.0f) res = ((px >= c.fx0) & (px <= c.fx1) & (py >= c.fy0) & (py <= c.fy1)) | res;
-  return res;
-}
 
 // ---------------------------------------------------------------------------
 // one env step of pushing physics: num_cycles control cycles
@@ -173,29 +63,12 @@ __device__ float run_cycles(const Consts& c, Noise& noise, int num_cycles, Phys&
 
     float ctrl_x, ctrl_y, nkx, nky;
     if (kJerk) {
-      const float cax0 = s.ax + c.dt * ux, cay0 = s.ay + c.dt * uy;
-      float cax, cay;
-      const bool aclamp = clamp_norm2(cax0, cay0, c.a_max, cax, cay);
-      const float j1x = aclamp ? (cax - s.ax) / c.dt : ux;
-      const float j1y = aclamp ? (cay - s.ay) / c.dt : uy;
-      const float nx = vmx + c.dt * cax, ny = vmy + c.dt * cay;
-      float cnx, cny;
-      const bool vclamp = clamp_norm2(nx, ny, c.v_max, cnx, cny);
-      const float fax = vclamp ? (cnx - vmx) / c.dt : cax;
-      const float fay = vclamp ? (cny - vmy) / c.dt : cay;
-      const bool diff = (fax != cax) | (fay != cay);
-      const float jx = diff ? (fax - s.ax) / c.dt : j1x;
-      const float jy = diff ? (fay - s.ay) / c.dt : j1y;
-      nkx = s.kx + c.dt * jx;
-      nky = s.ky + c.dt * jy;
+      // measured acceleration: the last qacc; integrator state: act
+      clamp_chain<true>(c.v_max, c.a_max, c.dt, vmx, vmy, ux, uy, s.ax, s.ay, s.kx, s.ky, nkx, nky);
       ctrl_x = nkx;
       ctrl_y = nky;
     } else {
-      const float nx = vmx + c.dt * ux, ny = vmy + c.dt * uy;
-      float cnx, cny;
-      const bool vclamp = clamp_norm2(nx, ny, c.v_max, cnx, cny);
-      ctrl_x = vclamp ? (cnx - vmx) / c.dt : ux;
-      ctrl_y = vclamp ? (cny - vmy) / c.dt : uy;
+      clamp_chain<false>(c.v_max, c.a_max, c.dt, vmx, vmy, ux, uy, s.ax, s.ay, s.kx, s.ky, ctrl_x, ctrl_y);
       nkx = s.kx;
       nky = s.ky;
     }
@@ -278,7 +151,7 @@ __device__ float run_cycles(const Consts& c, Noise& noise, int num_cycles, Phys&
 
     float nwx, nwy;
     normal_pair(noise, nwx, nwy);
-    const float new_wall_f = wall_valid(c, npx + nwx * c.std_pos, npy + nwy * c.std_pos, c.wall_size) ? 0.0f : 1.0f;
+    const float new_wall_f = circle_valid_full(c, npx + nwx * c.std_pos, npy + nwy * c.std_pos, c.wall_size) ? 0.0f : 1.0f;
 
     if (!done) {
       s.px = npx; s.py = npy; s.vx = nvx_t; s.vy = nvy_t;
@@ -309,11 +182,6 @@ struct StepAux {
   float f_mpx, f_mpy, f_mvx, f_mvy, f_agx, f_agy, f_qax, f_qay;
   float wall, reached, trunc, stalled, trials;
 };
-
-template <class Noise>
-__device__ __forceinline__ float uniform_in(Noise& noise, float lo, float span) {
-  return lo + noise.uniform() * span;
-}
 
 // Cycles, termination, pre-reset observation (3 pairs), in-kernel restart
 // (mover 2, object 2 + 2*(cand_k-1) candidates, goal 2), post-reset
@@ -427,7 +295,5 @@ __device__ __forceinline__ void store_state(float* out, int64_t B, int64_t e, co
   out[17 * B + e] = st.gy;
   out[18 * B + e] = st.steps;
 }
-
-inline unsigned int num_blocks(int64_t B) { return static_cast<unsigned int>((B + kThreads - 1) / kThreads); }
 
 }  // namespace gprt

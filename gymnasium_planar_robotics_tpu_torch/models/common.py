@@ -4,8 +4,17 @@ from __future__ import annotations
 
 import torch
 
+IDENTITY_QUAT = (1.0, 0.0, 0.0, 0.0)
 
-def expand_c_size(c_size, num_movers: int, collision_shape: str, dtype, device=None) -> torch.Tensor:
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds its tensors on: the card unless the
+    caller names another (``device='cpu'``).  Without a GPU, building a
+    tensor on the default raises; nothing falls back to the CPU."""
+    return torch.device('cuda') if device is None else torch.device(device)
+
+
+def expand_c_size(c_size, num_movers: int, collision_shape: str, dtype, device) -> torch.Tensor:
     """Normalize the user-facing collision size to [M] (circle) / [M, 2] (box)."""
     c = torch.as_tensor(c_size, dtype=dtype, device=device)
     if collision_shape == 'circle':
@@ -13,3 +22,12 @@ def expand_c_size(c_size, num_movers: int, collision_shape: str, dtype, device=N
     if c.ndim <= 1:
         return c.reshape(1, 2).broadcast_to((num_movers, 2))
     return c.reshape(num_movers, 2)
+
+
+def min_goal_distance(c_size: torch.Tensor, c_offset: torch.Tensor, collision_shape: str) -> torch.Tensor:
+    """Minimum distance between any two sampled goals
+    (benchmark_planning_env.py:269-274; uses the first mover's size)."""
+    if collision_shape == 'circle':
+        return 2.0 * (c_size[0] + c_offset)
+    v = c_size[0] + c_offset
+    return 2.0 * torch.sqrt((v * v).sum().to(torch.float64)).to(v.dtype)

@@ -15,7 +15,9 @@ Differences from the JAX package, by design:
 - the configuration covers the fixed 3x3 table with the circle collision
   shape and box/cylinder movers; mesh movers and the box collision shape
   raise ``NotImplementedError``;
-- any batch size runs without padding (the kernels mask the tail block).
+- any batch size runs without padding (the kernels mask the tail block);
+- ``make_pushing_env`` and the numpy converters put their tensors on the
+  card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
 Public layouts follow the JAX package: ``[B, 2]`` pairs, ``[B]`` scalars,
 ``[T, B]`` rollout outputs.
@@ -31,8 +33,10 @@ import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import common
 from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid, make_tile_grid
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
-from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import draw_uniforms, noise_probe
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import circle_valid_full
 
 REWARD_WALL_COLLISION = -50.0
 
@@ -131,7 +135,9 @@ def make_pushing_env(
     device=None,
 ) -> tuple[PushingConfig, PushingParams]:
     """Constructor with the JAX package's kwargs and constants (fixed 3x3
-    layout, 1 mover).  Bounds are formed in float64 NumPy and then cast."""
+    layout, 1 mover).  Bounds are formed in float64 NumPy and then cast.
+    The tensors go to ``device``: the card unless the caller names another."""
+    device = common.resolve_device(device)
     mover_params = mover_params or {}
     collision_params = collision_params or {}
     unsupported = set(mover_params) - {'mass', 'size', 'shape', 'mesh'}
@@ -262,7 +268,9 @@ def params_to_numpy(params: PushingParams) -> dict:
 
 def params_from_numpy(d: dict, device=None) -> PushingParams:
     """Build the port's params from numpy leaves (e.g. the JAX package's
-    ``PushingParams`` leaves through ``np.asarray``)."""
+    ``PushingParams`` leaves through ``np.asarray``), on ``device`` (the
+    card unless named)."""
+    device = common.resolve_device(device)
     grid = TileGrid(**{f.name: torch.as_tensor(np.array(d['grid'][f.name]), device=device)
                        for f in dataclasses.fields(TileGrid)})
     leaves = {f.name: torch.as_tensor(np.array(d[f.name]), device=device)
@@ -275,7 +283,9 @@ def state_to_numpy(state: PushingState) -> dict:
 
 
 def state_from_numpy(d: dict, device=None) -> PushingState:
-    """Build a port state from numpy leaves; a JAX ``key`` leaf is dropped."""
+    """Build a port state from numpy leaves on ``device`` (the card unless
+    named); a JAX ``key`` leaf is dropped."""
+    device = common.resolve_device(device)
     return PushingState(**{f.name: torch.as_tensor(np.array(d[f.name]), device=device)
                            for f in dataclasses.fields(PushingState)})
 
@@ -398,7 +408,7 @@ def reset(
     c = float((params.c_size + params.c_offset_wall + params.c_offset).reshape(-1)[0])
     n = noise_probe(1, batch, device, generator=generator)
     std_pos = params.std_noise[0]
-    valid = kpush.wall_valid_plain(kc.f, mover_xy[:, 0] + n[0] * std_pos, mover_xy[:, 1] + n[1] * std_pos, c)
+    valid = circle_valid_full(kc.f, mover_xy[:, 0] + n[0] * std_pos, mover_xy[:, 1] + n[1] * std_pos, c)
     wall = ~valid
     obs = _get_obs(config, params, state, generator)
     info = _get_info(params, obs, wall)

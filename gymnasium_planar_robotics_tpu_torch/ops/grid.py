@@ -42,7 +42,8 @@ def make_tile_grid(
     """Build the static grid from a 0/1 layout array (host-side, NumPy).
 
     ``tile_size`` is the half-extent triple; the default is
-    0.24/2 x 0.24/2 x 0.0352/2."""
+    0.24/2 x 0.24/2 x 0.0352/2.  The tensors go to ``device``, the card
+    unless the caller names another."""
     layout = np.asarray(layout_tiles).astype(np.int32)
     assert layout.ndim == 2, 'layout_tiles must be 2D'
     assert np.isin(layout, (0, 1)).all(), 'layout_tiles must contain only 0 and 1'
@@ -81,6 +82,8 @@ def make_tile_grid(
 
     corner_onehot = np.stack(corner_onehots) if corner_onehots else np.zeros((0, tx, ty), dtype=bool)
     corner_xy = np.array(corner_xys, dtype=np.float64) if corner_xys else np.zeros((0, 2), dtype=np.float64)
+
+    device = torch.device('cuda') if device is None else torch.device(device)
 
     def t(x, dt=None):
         return torch.as_tensor(np.asarray(x), dtype=dt, device=device)

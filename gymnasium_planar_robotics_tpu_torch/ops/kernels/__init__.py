@@ -11,9 +11,13 @@ launches its kernel and nowhere else.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-LAUNCHES = {'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_rollout': 0}
+LAUNCHES = {
+    'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_rollout': 0,
+    'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0,
+}
 
 
 def reset_launches() -> None:
@@ -44,3 +48,46 @@ def check_plane(t: torch.Tensor, name: str, shape: tuple) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def draw_uniforms(n: int, batch: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
+    """``[n, batch]`` f32 uniforms from ``generator`` (drawn on the
+    generator's device, then moved to ``device``)."""
+    gdev = generator.device if generator is not None else torch.device('cpu')
+    return torch.rand((n, batch), generator=generator, device=gdev, dtype=torch.float32).to(device)
+
+
+def draw_seed(generator: torch.Generator | None = None) -> int:
+    gdev = generator.device if generator is not None else torch.device('cpu')
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator, device=gdev))
+
+
+def noise_ptr(uniforms: torch.Tensor | None, n: int, b: int, device) -> int | None:
+    """Address of injected uniforms ``[n, b]`` on ``device``; None selects
+    the kernel's Philox stream."""
+    if uniforms is None:
+        return None
+    check_plane(uniforms, 'uniforms', (n, b))
+    if uniforms.device != device:
+        raise ValueError(f'uniforms lie on {uniforms.device}, expected {device}')
+    return uniforms.data_ptr()
+
+
+def dispatch(inputs: tuple, n_noise: int, uniforms, seed: int | None, generator, plain, cuda):
+    """One kernel call by the device of its tensors.
+
+    CPU: ``plain(uniforms)``, with ``[n_noise, B]`` uniforms drawn from
+    ``generator`` when none are given.  CUDA: ``cuda(uniforms, seed)``;
+    without ``uniforms`` the kernel draws its Philox stream under ``seed``
+    (drawn from ``generator`` when not given)."""
+    if not on_cuda(*inputs, uniforms):
+        if uniforms is None:
+            uniforms = draw_uniforms(n_noise, inputs[0].shape[1], inputs[0].device, generator)
+        return plain(uniforms)
+    if uniforms is None and seed is None:
+        seed = draw_seed(generator)
+    return cuda(uniforms, seed or 0)

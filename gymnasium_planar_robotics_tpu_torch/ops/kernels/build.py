@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``gymnasium_planar_robotics_tpu_torch/csrc`` are compiled by
-``nvcc`` at first use into one shared library with a plain C interface,
-loaded with ``ctypes``.  The library lands in ``build/torch_kernels/`` at the
-root of the checkout (``GPRT_TORCH_BUILD_DIR`` overrides it), named by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-loads the cached file.  It is written under a temporary name and renamed, so
-a half-written library is never loaded.
+The sources in ``gymnasium_planar_robotics_tpu_torch/csrc`` (every ``*.cu``,
+with the ``*.cuh`` headers they include) are compiled by ``nvcc`` at first
+use into one shared library with a plain C interface, loaded with
+``ctypes``: one ``nvcc -c`` per source, all started together, then one link.
+The library lands in ``build/torch_kernels/`` at the root of the checkout
+(``GPRT_TORCH_BUILD_DIR`` overrides it), named by a hash of every source and
+header and the flags, so a changed file rebuilds and an unchanged tree loads
+the cached library.  It is written under a temporary name and renamed, so a
+half-written library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -19,22 +21,26 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / 'csrc'
-SOURCES = ('noise_probe.cu', 'pushing_cycles.cu', 'pushing_autoreset.cu', 'pushing_rollout.cu')
-HEADERS = ('pushing.cuh',)
-NVCC_FLAGS = (
-    '-gencode', 'arch=compute_90a,code=sm_90a',
-    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-)
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lib = None
 #: seconds the last build took (0.0 when the cached library was loaded) and
 #: the compiler's report (``-Xptxas -v``: registers, spills per kernel)
 build_info: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob('*.cu'))
+
+
+def headers() -> list[Path]:
+    return sorted(SRC_DIR.glob('*.cuh'))
 
 
 def build_dir() -> Path:
@@ -53,9 +59,9 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((SRC_DIR / name).read_bytes())
+    for path in sources() + headers():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -68,18 +74,34 @@ def build() -> Path:
     if lib_path.exists():
         build_info.update(seconds=0.0, log='(cached)', path=str(lib_path))
         return lib_path
-    tmp = out_dir / f'.{lib_path.name}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(SRC_DIR), '-o', str(tmp), *(str(SRC_DIR / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / 'build.log').write_text(' '.join(cmd) + '\n' + log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log[-4000:]}')
-    os.replace(tmp, lib_path)
-    build_info.update(seconds=seconds, log=log, path=str(lib_path))
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp_dir) / f'{src.stem}.o'
+            cmd = [nvcc, *NVCC_FLAGS, '-I', str(SRC_DIR), '-c', '-o', str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(' '.join(cmd) + '\n' + out)
+            if proc.returncode != 0:
+                failed.append(f'{cmd[-1]} ({proc.returncode})')
+        tmp = Path(tmp_dir) / lib_path.name
+        if not failed:
+            cmd = [nvcc, '-shared', '-gencode', 'arch=compute_90a,code=sm_90a', '-o', str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f'link ({proc.returncode})')
+        log = '\n'.join(logs)
+        (out_dir / 'build.log').write_text(log)
+        if failed:
+            raise RuntimeError(f'nvcc failed: {failed}\n{log[-6000:]}')
+        os.replace(tmp, lib_path)
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=str(lib_path))
     return lib_path
 
 
@@ -89,8 +111,9 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         p, i64, i32, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64
-        handle.gprt_const_names.restype = ctypes.c_char_p
-        handle.gprt_const_names.argtypes = []
+        for names in ('gprt_const_names', 'gprt_planning_const_names'):
+            getattr(handle, names).restype = ctypes.c_char_p
+            getattr(handle, names).argtypes = []
         handle.gprt_noise_probe.restype = i32
         handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p]
         handle.gprt_pushing_cycles.restype = i32
@@ -99,8 +122,19 @@ def lib() -> ctypes.CDLL:
         handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, i64, p, i32, i32, i32, u64, p]
         handle.gprt_pushing_rollout.restype = i32
         handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, u64, p]
-        # field names of gprt::Consts, in order
+        # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, stream)
+        handle.gprt_planning_cycles.restype = i32
+        handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p]
+        # (st, act, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, cand_k, seed, stream)
+        handle.gprt_planning_autoreset.restype = i32
+        handle.gprt_planning_autoreset.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, u64, p]
+        # (st, actions, noise, st_out, step_out, B, K, consts, table, n_cells, box, full, jerk, num_cycles,
+        #  cand_k, seed, stream)
+        handle.gprt_planning_rollout.restype = i32
+        handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p]
+        # field names of gprt::Consts and gprt::PlanningConsts, in order
         handle.const_names = tuple(handle.gprt_const_names().decode().rstrip(',').split(','))
+        handle.planning_const_names = tuple(handle.gprt_planning_const_names().decode().rstrip(',').split(','))
         _lib = handle
     return _lib
 

@@ -17,6 +17,7 @@ import torch
 
 from gymnasium_planar_robotics_tpu_torch.ops import kernels
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import build
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 
 TWO_PI = 2.0 * np.pi
 
@@ -34,7 +35,7 @@ def box_muller(u_a: torch.Tensor, u_b: torch.Tensor) -> tuple[torch.Tensor, torc
     """Two iid standard normals from two uniforms (``_NoiseBase.normal_pair``):
     ``u1 = 1 - u_a`` in (0, 1] keeps the log finite."""
     u1 = 1.0 - u_a
-    r = torch.sqrt(-2.0 * torch.log(u1))
+    r = sqrt(-2.0 * torch.log(u1))
     th = TWO_PI * u_b
     return r * torch.cos(th), r * torch.sin(th)
 
@@ -66,18 +67,6 @@ class UniformStream:
 
     def finalize(self) -> None:
         assert self.i == self.planes.shape[0], f'drew {self.i} noise planes but {self.planes.shape[0]} were given'
-
-
-def draw_uniforms(n: int, batch: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
-    """``[n, batch]`` f32 uniforms from ``generator`` (drawn on the
-    generator's device, then moved to ``device``)."""
-    gdev = generator.device if generator is not None else torch.device('cpu')
-    return torch.rand((n, batch), generator=generator, device=gdev, dtype=torch.float32).to(device)
-
-
-def draw_seed(generator: torch.Generator | None = None) -> int:
-    gdev = generator.device if generator is not None else torch.device('cpu')
-    return int(torch.randint(0, 2**31 - 1, (), generator=generator, device=gdev))
 
 
 # ---------------------------------------------------------------------------
@@ -171,10 +160,10 @@ def noise_probe(draws: int, batch: int, device, *, uniforms: torch.Tensor | None
     device = torch.device(device)
     if device.type == 'cpu':
         if uniforms is None:
-            uniforms = draw_uniforms(2 * draws, batch, device, generator)
+            uniforms = kernels.draw_uniforms(2 * draws, batch, device, generator)
         return noise_probe_plain(uniforms)
     if device.type != 'cuda':
         raise ValueError(f'unsupported device {device}')
     if uniforms is None and seed is None:
-        seed = draw_seed(generator)
+        seed = kernels.draw_seed(generator)
     return noise_probe_cuda(draws, batch, device, uniforms, seed or 0)

@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from gymnasium_planar_robotics_tpu_torch.ops import kernels
-from gymnasium_planar_robotics_tpu_torch.ops.kernels import build
-from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream, draw_seed, draw_uniforms
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, to_numpy
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain, scalar
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import circle_valid_full, full_layout_bounds, grid_np
 
 #: field order of ``gprt::Consts`` in ``csrc/pushing.cuh``
 CONST_FIELDS = (
@@ -62,50 +64,11 @@ def autoreset_noise_planes(num_cycles: int, cand_k: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def grid_np(params) -> dict:
-    """Static numpy snapshot of the tile grid (``pallas_step._grid_np``)."""
-    g = params.grid
-    return {
-        'layout': _np(g.layout),
-        'tile_x': _np(g.tile_x).astype(np.float64),
-        'tile_y': _np(g.tile_y).astype(np.float64),
-        'tsx': float(_np(g.tile_size)[0]),
-        'tsy': float(_np(g.tile_size)[1]),
-        'complete3x3': _np(g.complete3x3),
-        'corner_xy': _np(g.corner_xy).astype(np.float64),
-        'corner_onehot': _np(g.corner_onehot),
-    }
-
-
-def full_layout_bounds(g: dict):
-    """(outer rect, interior rect or None) of a fully populated layout
-    (``pallas_step._full_layout_bounds``)."""
-    tile_x, tile_y = g['tile_x'], g['tile_y']
-    tsx, tsy = g['tsx'], g['tsy']
-    tx, ty = g['layout'].shape
-    outer = (
-        float(tile_x[0, 0] - tsx), float(tile_x[tx - 1, ty - 1] + tsx),
-        float(tile_y[0, 0] - tsy), float(tile_y[tx - 1, ty - 1] + tsy),
-    )
-    if tx >= 3 and ty >= 3:
-        fast = (
-            float(tile_x[1, 1] - tsx), float(tile_x[tx - 2, ty - 2] + tsx),
-            float(tile_y[1, 1] - tsy), float(tile_y[tx - 2, ty - 2] + tsy),
-        )
-    else:
-        fast = None
-    return outer, fast
-
-
 def pushing_consts(config, params) -> dict:
     """The pushing kernels' trace-time constants (``pallas_step._pushing_consts``)."""
     if config.collision_shape != 'circle':
-        raise NotImplementedError('the port covers the circle collision shape; box comes with planning')
-    p = {f.name: _np(getattr(params, f.name)) for f in dataclasses.fields(params) if f.name != 'grid'}
+        raise NotImplementedError('the pushing kernels cover the circle collision shape (ROADMAP.md)')
+    p = {f.name: to_numpy(getattr(params, f.name)) for f in dataclasses.fields(params) if f.name != 'grid'}
     return dict(
         grid_np=grid_np(params),
         num_cycles=config.num_cycles,
@@ -155,13 +118,13 @@ def pushing_consts(config, params) -> dict:
 def reset_consts(config, params, cand_k: int) -> dict:
     """The autoreset kernel's restart constants
     (``make_fused_pushing_autoreset_cycles``)."""
-    std = _np(params.std_noise)
-    mn, mx = _np(params.min_xy), _np(params.max_xy)
-    omn, omx = _np(params.obj_min_xy), _np(params.obj_max_xy)
+    std = to_numpy(params.std_noise)
+    mn, mx = to_numpy(params.min_xy), to_numpy(params.max_xy)
+    omn, omx = to_numpy(params.obj_min_xy), to_numpy(params.obj_max_xy)
     return dict(
         std_pos=float(std[0]),
         std_vel=float(std[1]),
-        object_noise=float(_np(params.object_noise)),
+        object_noise=float(to_numpy(params.object_noise)),
         max_episode_steps=float(config.max_episode_steps),
         min_x=float(mn[0]),
         min_y=float(mn[1]),
@@ -171,8 +134,8 @@ def reset_consts(config, params, cand_k: int) -> dict:
         obj_min_y=float(omn[1]),
         obj_max_x=float(omx[0]),
         obj_max_y=float(omx[1]),
-        min_mo=float(_np(params.min_mo_dist)),
-        threshold=float(_np(params.threshold_pos)),
+        min_mo=float(to_numpy(params.min_mo_dist)),
+        threshold=float(to_numpy(params.threshold_pos)),
         cand_k=cand_k,
     )
 
@@ -197,7 +160,7 @@ def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
     rc = reset_consts(config, params, cand_k)
     g = pc['grid_np']
     if not g['layout'].all():
-        raise NotImplementedError('the port covers fully populated layouts; holed layouts come with planning')
+        raise NotImplementedError('the pushing kernels cover the fully populated 3x3 table (ROADMAP.md)')
     (x0, x1, y0, y1), fast = full_layout_bounds(g)
     # sums the Pallas kernel forms in Python float64 before rounding to f32
     v = dict(pc)
@@ -231,29 +194,11 @@ def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
 # ---------------------------------------------------------------------------
 
 
-def wall_valid_plain(f: dict, px: torch.Tensor, py: torch.Tensor, c: float) -> torch.Tensor:
-    """Circle wall validity on a full layout (``pallas_step._make_wall_valid``)."""
-    above = (px >= f['x0']) & (px <= f['x1']) & (py >= f['y0']) & (py <= f['y1'])
-    inside = (px - c > f['x0']) & (px + c < f['x1']) & (py - c > f['y0']) & (py + c < f['y1'])
-    res = above & inside
-    if f['has_fast']:
-        res = ((px >= f['fx0']) & (px <= f['fx1']) & (py >= f['fy0']) & (py <= f['fy1'])) | res
-    return res
-
-
-def _clamp_norm2(x, y, max_val):
-    norm = torch.sqrt(x * x + y * y)
-    clamp = norm >= max_val
-    safe = torch.where(norm > 0, norm, 1.0)
-    cx = max_val * x / safe
-    cy = max_val * y / safe
-    return torch.where(clamp, cx, x), torch.where(clamp, cy, y), clamp
-
-
 def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk: bool, phys, ux, uy):
     """``_make_pushing_cycles.run``: 16 physics planes in, 16 out + wall."""
     px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz = phys
     dt = f['dt']
+    dt_t = scalar(dt, px)
     done_f = torch.zeros_like(px)
     wall_f = torch.zeros_like(px)
     caxis = torch.full_like(px, -1.0)  # hysteretic normal axis, per step only
@@ -263,25 +208,11 @@ def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk
         vmx = vx + nvx * f['std_vel']
         vmy = vy + nvy * f['std_vel']
         if learn_jerk:
-            cax0, cay0 = ax + dt * ux, ay + dt * uy
-            cax, cay, aclamp = _clamp_norm2(cax0, cay0, f['a_max'])
-            j1x = torch.where(aclamp, (cax - ax) / dt, ux)
-            j1y = torch.where(aclamp, (cay - ay) / dt, uy)
-            nx, ny = vmx + dt * cax, vmy + dt * cay
-            cnx, cny, vclamp = _clamp_norm2(nx, ny, f['v_max'])
-            fax = torch.where(vclamp, (cnx - vmx) / dt, cax)
-            fay = torch.where(vclamp, (cny - vmy) / dt, cay)
-            diff = (fax != cax) | (fay != cay)
-            jx = torch.where(diff, (fax - ax) / dt, j1x)
-            jy = torch.where(diff, (fay - ay) / dt, j1y)
-            nkx = kx + dt * jx
-            nky = ky + dt * jy
+            # measured acceleration: the last qacc; integrator state: act
+            nkx, nky = clamp_chain(True, f['v_max'], f['a_max'], dt, dt_t, vmx, vmy, ux, uy, ax, ay, kx, ky)
             ctrl_x, ctrl_y = nkx, nky
         else:
-            nx, ny = vmx + dt * ux, vmy + dt * uy
-            cnx, cny, vclamp = _clamp_norm2(nx, ny, f['v_max'])
-            ctrl_x = torch.where(vclamp, (cnx - vmx) / dt, ux)
-            ctrl_y = torch.where(vclamp, (cny - vmy) / dt, uy)
+            ctrl_x, ctrl_y = clamp_chain(False, f['v_max'], f['a_max'], dt, dt_t, vmx, vmy, ux, uy, ax, ay, kx, ky)
             nkx, nky = kx, ky
 
         # corner-aware penalty contact from the pre-integration state
@@ -368,7 +299,7 @@ def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk
         noyaw = oyaw + dt * ow_t
 
         nwx, nwy = noise.normal_pair()
-        ok = wall_valid_plain(f, npx + nwx * f['std_pos'], npy + nwy * f['std_pos'], f['wall_size'])
+        ok = circle_valid_full(f, npx + nwx * f['std_pos'], npy + nwy * f['std_pos'], f['wall_size'])
         new_wall_f = torch.where(ok, 0.0, 1.0)
 
         px = torch.where(done, px, npx)
@@ -526,20 +457,11 @@ def _consts_ptr(kc: KernelConsts) -> int:
     return kc.vector.ctypes.data
 
 
-def _check_noise(uniforms, n: int, b: int, device):
-    if uniforms is not None:
-        kernels.check_plane(uniforms, 'uniforms', (n, b))
-        if uniforms.device != device:
-            raise ValueError(f'uniforms lie on {uniforms.device}, expected {device}')
-        return uniforms.data_ptr()
-    return None
-
-
 def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
     """Kernel B on the card."""
     b = planes.shape[1]
     kernels.check_plane(planes, 'planes', (18, b))
-    noise_ptr = _check_noise(uniforms, cycles_noise_planes(kc.num_cycles), b, planes.device)
+    noise_ptr = kernels.noise_ptr(uniforms, cycles_noise_planes(kc.num_cycles), b, planes.device)
     out = torch.empty((17, b), dtype=torch.float32, device=planes.device)
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_pushing_cycles(
@@ -556,7 +478,7 @@ def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed:
     b = state.shape[1]
     kernels.check_plane(state, 'state', (N_STATE, b))
     kernels.check_plane(action, 'action', (2, b))
-    noise_ptr = _check_noise(uniforms, autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
+    noise_ptr = kernels.noise_ptr(uniforms, autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
     out = torch.empty((N_AUTORESET_OUT, b), dtype=torch.float32, device=state.device)
     with torch.cuda.device(state.device):
         err = build.lib().gprt_pushing_autoreset(
@@ -574,7 +496,7 @@ def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: 
     k = actions.shape[0]
     kernels.check_plane(state, 'state', (N_STATE, b))
     kernels.check_plane(actions, 'actions', (k, 2, b))
-    noise_ptr = _check_noise(uniforms, k * autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
+    noise_ptr = kernels.noise_ptr(uniforms, k * autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
     st_out = torch.empty((N_STATE, b), dtype=torch.float32, device=state.device)
     step_out = torch.empty((3, k, b), dtype=torch.float32, device=state.device)
     with torch.cuda.device(state.device):
@@ -594,37 +516,22 @@ def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: 
 
 
 def pushing_cycles(planes, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
-    """Kernel B, or its plain version on CPU tensors (uniforms drawn from
-    ``generator`` when not given).  On the card without ``uniforms`` the
-    kernel draws its Philox stream under ``seed``."""
-    if not kernels.on_cuda(planes, uniforms):
-        if uniforms is None:
-            uniforms = draw_uniforms(cycles_noise_planes(kc.num_cycles), planes.shape[1], planes.device, generator)
-        return pushing_cycles_plain(planes, kc, uniforms)
-    if uniforms is None and seed is None:
-        seed = draw_seed(generator)
-    return pushing_cycles_cuda(planes, kc, uniforms, seed or 0)
+    """Kernel B, or its plain version on CPU tensors (``kernels.dispatch``)."""
+    return kernels.dispatch((planes,), cycles_noise_planes(kc.num_cycles), uniforms, seed, generator,
+                            lambda u: pushing_cycles_plain(planes, kc, u),
+                            lambda u, s: pushing_cycles_cuda(planes, kc, u, s))
 
 
 def pushing_autoreset(state, action, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
     """Kernel C, or its plain version on CPU tensors."""
-    if not kernels.on_cuda(state, action, uniforms):
-        if uniforms is None:
-            uniforms = draw_uniforms(autoreset_noise_planes(kc.num_cycles, kc.cand_k), state.shape[1],
-                                     state.device, generator)
-        return pushing_autoreset_plain(state, action, kc, uniforms)
-    if uniforms is None and seed is None:
-        seed = draw_seed(generator)
-    return pushing_autoreset_cuda(state, action, kc, uniforms, seed or 0)
+    return kernels.dispatch((state, action), autoreset_noise_planes(kc.num_cycles, kc.cand_k), uniforms, seed,
+                            generator, lambda u: pushing_autoreset_plain(state, action, kc, u),
+                            lambda u, s: pushing_autoreset_cuda(state, action, kc, u, s))
 
 
 def pushing_rollout(state, actions, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
     """Kernel D, or its plain version on CPU tensors."""
-    if not kernels.on_cuda(state, actions, uniforms):
-        if uniforms is None:
-            n = actions.shape[0] * autoreset_noise_planes(kc.num_cycles, kc.cand_k)
-            uniforms = draw_uniforms(n, state.shape[1], state.device, generator)
-        return pushing_rollout_plain(state, actions, kc, uniforms)
-    if uniforms is None and seed is None:
-        seed = draw_seed(generator)
-    return pushing_rollout_cuda(state, actions, kc, uniforms, seed or 0)
+    n = actions.shape[0] * autoreset_noise_planes(kc.num_cycles, kc.cand_k)
+    return kernels.dispatch((state, actions), n, uniforms, seed, generator,
+                            lambda u: pushing_rollout_plain(state, actions, kc, u),
+                            lambda u, s: pushing_rollout_cuda(state, actions, kc, u, s))

@@ -1,0 +1,55 @@
+"""The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
+
+Reads the source of every ``.py`` file of ``gymnasium_planar_robotics_tpu_torch``
+and of ``chip_smoke.py`` and checks every import statement (comments and
+docstrings may name the JAX package), then imports every module of the port
+in a fresh interpreter and checks that neither ``jax`` nor the JAX package
+(nor ``triton``) was loaded.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / 'gymnasium_planar_robotics_tpu_torch'
+FILES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+FORBIDDEN = ('jax', 'jaxlib', 'gymnasium_planar_robotics_tpu')
+
+
+def _imported(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, 'id', getattr(node.func, 'attr', None)) in (
+                'import_module', '__import__') and node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + '.') for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize('path', FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_import_of_jax_or_the_jax_package(path):
+    names = list(_imported(ast.parse(path.read_text(), filename=str(path))))
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_every_module_imports_without_jax():
+    modules = sorted('.'.join(p.relative_to(ROOT).with_suffix('').parts).removesuffix('.__init__')
+                     for p in PKG.rglob('*.py'))
+    code = (
+        'import importlib, sys\n'
+        f'for m in {modules!r}:\n'
+        '    importlib.import_module(m)\n'
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton',"
+        " 'gymnasium_planar_robotics_tpu')]\n"
+        'assert not bad, bad\n'
+    )
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)

@@ -79,7 +79,7 @@ def jax_raw_planes(out) -> np.ndarray:
 def test_plain_kernel_c_matches_pallas_plane_by_plane(learn_jerk):
     kw = dict(KW, learn_jerk=learn_jerk)
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **kw)
-    tcfg, tprm = tpush.make_pushing_env(**kw)
+    tcfg, tprm = tpush.make_pushing_env(**kw, device='cpu')
     b = 128
     state = episode_state(tcfg, tprm, b, seed=1)
     limit = 80.0 if learn_jerk else 8.0
@@ -114,7 +114,7 @@ def test_public_autoreset_step_matches_jax_over_three_steps():
     and its restart stalls by construction: the injected uniforms put the
     new mover and both object candidates at the same point."""
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **KW)
-    tcfg, tprm = tpush.make_pushing_env(**KW)
+    tcfg, tprm = tpush.make_pushing_env(**KW, device='cpu')
     b, stall_env = 200, 5
     state = episode_state(tcfg, tprm, b, seed=4)
     state.steps[stall_env] = tcfg.max_episode_steps - 1

@@ -68,7 +68,7 @@ def test_plain_kernel_b_matches_pallas_injected(learn_jerk):
     """std_noise > 0, the same injected uniforms into both kernels."""
     kw = dict(std_noise=[2e-4, 5e-3, 1e-5], num_cycles=10, learn_jerk=learn_jerk)
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **kw)
-    tcfg, tprm = tpush.make_pushing_env(**kw)
+    tcfg, tprm = tpush.make_pushing_env(**kw, device='cpu')
     b = 128
     state = planted_state(tcfg, tprm, b)
     limit = 80.0 if learn_jerk else 8.0
@@ -107,7 +107,7 @@ def test_plain_kernel_b_matches_xla_step_at_zero_noise(learn_jerk):
     tolerances of the JAX package's own fused-vs-XLA test)."""
     kw = dict(std_noise=0.0, learn_jerk=learn_jerk)
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **kw)
-    tcfg, tprm = tpush.make_pushing_env(**kw)
+    tcfg, tprm = tpush.make_pushing_env(**kw, device='cpu')
     b = 128
     state = planted_state(tcfg, tprm, b, seed=3)
     limit = 80.0 if learn_jerk else 8.0
@@ -123,7 +123,7 @@ def test_plain_kernel_b_matches_xla_step_at_zero_noise(learn_jerk):
 
 
 def test_kernel_b_wrapper_checks_noise_count_and_clips_actions():
-    cfg, prm = tpush.make_pushing_env(std_noise=0.0, num_cycles=3)
+    cfg, prm = tpush.make_pushing_env(std_noise=0.0, num_cycles=3, device='cpu')
     state, _, _ = tpush.init_batch(cfg, prm, 5, torch.Generator().manual_seed(0))
     step = tpush.make_fused_step(cfg, prm)
     with pytest.raises(AssertionError, match='drew 12 noise planes but 13'):

@@ -57,7 +57,7 @@ def jax_params_np(params) -> dict:
 def _pair(case):
     kw = CASES[case]
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **kw)
-    tcfg, tprm = tpush.make_pushing_env(**kw)
+    tcfg, tprm = tpush.make_pushing_env(**kw, device='cpu')
     return jcfg, jprm, tcfg, tprm
 
 
@@ -142,8 +142,10 @@ def test_const_fields_match_cuda_struct():
     src = (PKG / 'csrc' / 'pushing.cuh').read_text()
     block = src.split('#define GPRT_CONST_FIELDS(X)')[1].split('#define')[0]
     assert tuple(re.findall(r'X\((\w+)\)', block)) == kpush.CONST_FIELDS
-    for name in build.SOURCES + build.HEADERS:
-        assert (build.SRC_DIR / name).is_file(), name
+    # the build compiles every source and hashes every header it finds
+    names = {path.name for path in build.sources() + build.headers()}
+    assert {'noise_probe.cu', 'pushing_cycles.cu', 'pushing_autoreset.cu', 'pushing_rollout.cu',
+            'common.cuh', 'walls.cuh', 'pushing.cuh'} <= names, names
     assert 'arch=compute_90a,code=sm_90a' in build.NVCC_FLAGS
     assert '--use_fast_math' not in build.NVCC_FLAGS
 
@@ -152,7 +154,7 @@ def test_const_fields_match_cuda_struct():
 def test_numpy_round_trip_is_lossless(case):
     jcfg, jprm, tcfg, tprm = _pair(case)
     want = jax_params_np(jprm)
-    back = tpush.params_to_numpy(tpush.params_from_numpy(want))
+    back = tpush.params_to_numpy(tpush.params_from_numpy(want, device='cpu'))
     for name in want:
         if name == 'grid':
             for g in want['grid']:
@@ -164,7 +166,7 @@ def test_numpy_round_trip_is_lossless(case):
 
     jstate, _, _ = jpush.init_batch(jcfg, jprm, jax.random.PRNGKey(3), 16)
     jnp_state = {f.name: np.asarray(getattr(jstate, f.name)) for f in dataclasses.fields(jstate)}
-    port_state = tpush.state_from_numpy(jnp_state)  # drops the key
+    port_state = tpush.state_from_numpy(jnp_state, device='cpu')  # drops the key
     assert not hasattr(port_state, 'key')
     back = tpush.state_to_numpy(port_state)
     assert set(back) == set(jnp_state) - {'key'}
@@ -183,22 +185,22 @@ def test_numpy_round_trip_is_lossless(case):
 ])
 def test_unported_shapes_raise(kwargs):
     with pytest.raises(NotImplementedError, match='not ported yet'):
-        tpush.make_pushing_env(**kwargs)
+        tpush.make_pushing_env(**kwargs, device='cpu')
 
 
 def test_emit_features_raises():
-    cfg, prm = tpush.make_pushing_env(num_cycles=2)
+    cfg, prm = tpush.make_pushing_env(num_cycles=2, device='cpu')
     with pytest.raises(NotImplementedError, match='emit_features'):
         tpush.make_fused_step_autoreset(cfg, prm, emit_features=True)
 
 
 @pytest.mark.parametrize('make', [tpush.make_fused_step, tpush.make_fused_step_autoreset, tpush.make_fused_rollout])
 def test_fused_paths_reject_dense_reward(make):
-    cfg, prm = tpush.make_pushing_env(num_cycles=2, reward_mode='dense')
+    cfg, prm = tpush.make_pushing_env(num_cycles=2, reward_mode='dense', device='cpu')
     with pytest.raises(ValueError, match='sparse reward'):
         make(cfg, prm)
     with pytest.raises(ValueError, match='reward_mode'):
-        tpush.make_pushing_env(reward_mode='shaped')
+        tpush.make_pushing_env(reward_mode='shaped', device='cpu')
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -53,7 +53,7 @@ def planted(cfg, prm, b, seed, device='cpu'):
 def test_rollout_matches_jax_on_envs_that_never_restart(steps_per_launch):
     kw = dict(std_noise=0.0, num_cycles=10)
     jcfg, jprm = jpush.make_pushing_env(dtype=jnp.float32, **kw)
-    tcfg, tprm = tpush.make_pushing_env(**kw)
+    tcfg, tprm = tpush.make_pushing_env(**kw, device='cpu')
     b, T = 128, 3
     state = planted(tcfg, tprm, b, seed=8)
     state.steps[::16] = tcfg.max_episode_steps - 2  # truncation restarts in step 2
@@ -89,7 +89,7 @@ def test_rollout_matches_jax_on_envs_that_never_restart(steps_per_launch):
 def test_rollout_chunks_match_per_step_launches():
     """K=2 over T=5 (two chunks + a tail) agrees with K=1 on envs that
     never restarted (std_noise=0: only restarts consume the streams)."""
-    cfg, prm = tpush.make_pushing_env(std_noise=0.0, num_cycles=10)
+    cfg, prm = tpush.make_pushing_env(std_noise=0.0, num_cycles=10, device='cpu')
     b, T = 96, 5
     state = planted(cfg, prm, b, seed=9)
     acts = torch.tensor([1.0, -0.3]).expand(T, b, 2)
@@ -103,7 +103,7 @@ def test_rollout_chunks_match_per_step_launches():
 
 
 def test_init_batch_invariants_and_statistics():
-    cfg, prm = tpush.make_pushing_env()
+    cfg, prm = tpush.make_pushing_env(device='cpu')
     b = 4096
     state, obs, info = tpush.init_batch(cfg, prm, b, torch.Generator().manual_seed(0))
     lo, hi = prm.min_xy, prm.max_xy
@@ -134,7 +134,7 @@ def test_init_batch_invariants_and_statistics():
 
 
 def test_reset_options_pin_mover_and_goal():
-    cfg, prm = tpush.make_pushing_env(num_cycles=4)
+    cfg, prm = tpush.make_pushing_env(num_cycles=4, device='cpu')
     state, obs, info = tpush.reset(cfg, prm, 8, torch.Generator().manual_seed(1),
                                    mover_start_xy_pos=[0.2, 0.25], object_goal_xy_pos=[0.4, 0.35])
     assert (state.pos == torch.tensor([0.2, 0.25])).all()
