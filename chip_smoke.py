@@ -35,12 +35,26 @@ phase:
    ``std_noise=0`` on envs that never restart;
 8. env-steps/s of the planning ``make_fused_rollout`` at 4096 and 65,536
    envs, T=64, K=1 and K=32, five alternating repeats each (median), plus
-   the plain versions once.
+   the plain versions once;
+9. kernel H (M-mover planning) against its plain version at 4096 envs, in
+   both noise modes, on four configurations: circle and box on the full 4x4
+   table with 4 movers, per-mover radii on a holed 4x4 layout with 3 movers
+   (jerk), box on the L-shape with 2 movers (jerk); from states with a
+   quarter of the envs driven into a wall and a quarter with head-on pairs;
+10. the public M-mover path: ``make_planning_env(np.ones((4, 4)), 4)`` ->
+   ``init_batch(4096)`` -> ``make_fused_step_autoreset`` x5 ->
+   ``multi_agent.make_batched_parallel_step`` x3 -> ``make_fused_rollout``
+   T=64, counters set to 0 before and read after (72 launches of H);
+11. env-steps/s of the M=4 ``make_fused_rollout`` at 4096 and 65,536 envs,
+   T=64, five repeats (median, with the host's enqueue time), plus the
+   plain version once at 4096 envs.
 
-Times are CUDA-event times.  The line before the last is a JSON object with
-one entry per kernel (A-G): its launches on its path, its largest error
-against the plain version (both noise modes), its time in the mode its path
-launches (Philox), the plain version's time, and its bound in that mode:
+Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
+median of five groups of 20 launches, with the groups' spread.  The line
+before the last is a JSON object with one entry per kernel (A-H): its
+launches on its path, its largest error against the plain version (both
+noise modes), its time in the mode its path launches (Philox), the plain
+version's time, and its bound in that mode:
 the larger of its bytes (state, action and output planes; the Philox mode
 reads no uniforms) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 counted from this run's inputs (Philox's integer work is not counted, so
@@ -78,9 +92,13 @@ KERNELS = {
     'planning_cycles': ('csrc/planning_cycles.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:569'),
     'planning_autoreset': ('csrc/planning_autoreset.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1545'),
     'planning_rollout': ('csrc/planning_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1587'),
+    'planning_multi_autoreset': ('csrc/planning_multi_autoreset.cu',
+                                 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1767'),
 }
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
+MULTI_KERNELS = ('planning_multi_autoreset',)
+M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -108,6 +126,20 @@ OPS = {
     'planning_step_extra': (67, 17),  # observations, termination, restart selects
     'planning_candidate_circle': (36, 0),  # one tested start/goal candidate
     'planning_candidate_box': (89, 0),
+    # kernel H (csrc/planning_multi.cuh), per mover per cycle on top of a
+    # planning cycle (whose counts include the mover's wall check): the
+    # pair-test pose (a normal pair, two multiply-adds), for the box its
+    # noisy rotation (two normal pairs, quat_to_R2)
+    'multi_pair_pose': (9, 4),
+    'multi_pair_pose_box_extra': (50, 11),
+    'multi_pair_circle': (7, 1),  # one pair test per cycle
+    'multi_pair_box': (71, 0),  # SAT minus containment
+    'multi_step_mover': (43, 17),  # both observations and the goal test of one mover
+    'multi_step_env': (10, 0),  # termination, flags, trials
+    'multi_candidate_mover_circle': (34, 0),  # one mover of a tested candidate set: draws, wall test
+    'multi_candidate_mover_box': (87, 0),
+    'multi_candidate_pair_circle': (7, 1),  # one pair of a tested set (start or goal test)
+    'multi_candidate_pair_box': (21, 0),  # identity-orientation SAT (start sets)
 }
 
 
@@ -151,6 +183,19 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_groups(fn, groups: int = 5, iters: int = 20):
+    """(median, group means) of ``groups`` CUDA-event timings of ``iters``
+    calls each: a launch of tens of microseconds varies between groups
+    more than one mean resolves."""
+    runs = [time_ms(fn, iters) for _ in range(groups)]
+    return statistics.median(runs), runs
+
+
+def spread(runs) -> float:
+    """(max - min) / median of a list of timings."""
+    return (max(runs) - min(runs)) / statistics.median(runs)
 
 
 def bound(nbytes: float, ops: float):
@@ -248,7 +293,8 @@ def main() -> int:
         return {
             'card': card, 'torch': torch.__version__, 'cuda': torch.version.cuda,
             'device': torch.cuda.get_device_name(0), 'build_s': round(time.perf_counter() - t0, 3),
-            'nvcc_s': round(build.build_info.get('seconds', 0.0), 3), 'ptxas': regs,
+            'nvcc_s': round(build.build_info.get('seconds', 0.0), 3),
+            'source_s': build.build_info.get('source_seconds', {}), 'ptxas': regs,
         }
 
     if failed:
@@ -287,8 +333,8 @@ def main() -> int:
         err_m, ok_m = compare(got_m, noise.noise_probe_plain(noise.philox_uniforms(7, 6, B_MAIN).to(dev)), 2e-6, 2e-6)
         require(ok_m, f'Philox stream at the main shape disagrees with its host copy: {err_m}')
         u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
-        ms = time_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7), 50)
-        injected_ms = time_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 50)
+        ms, ms_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7))
+        injected_ms, _ = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
         ops = ops_total((3 * B_MAIN, 'normal_pair'))
         bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
@@ -296,7 +342,8 @@ def main() -> int:
                                      bound_ms=bound_ms, bound_by=bound_by)
         return {'max_abs_err_injected': err_inj, 'max_abs_err_philox': max(err_ph, err_m),
                 'tol': 'atol 2e-6 + rtol 2e-6', 'philox_samples': 2 * n_env, 'mean': mean, 'std': std,
-                'p_abs_gt_2': tail, 'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
+                'p_abs_gt_2': tail, 'ms': ms, 'ms_groups': ms_groups, 'ms_spread': spread(ms_groups),
+                'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
                 'injected_ms': injected_ms, 'injected_bound_ms': bound(12 * 4 * B_MAIN, ops)[0]}
 
     # -- 3. kernels B, C, D ---------------------------------------------------
@@ -608,13 +655,14 @@ def main() -> int:
                 require(not bad, f'{name} ({mode}): planes {bad} disagree')
                 require(0 < walls[mode] < B_MAIN, f'{name} ({mode}): {walls[mode]} wall hits')
                 err = max(err, e)
-            injected_ms = time_ms(lambda: kpl.planning_cycles_cuda(planes, kc, u), 20)
-            ms = time_ms(lambda: kpl.planning_cycles_cuda(planes, kc, None, 7), 20)
+            injected_ms, _ = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, u))
+            ms, ms_groups = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, None, 7))
             plain_ms = time_ms(lambda: kpl.planning_cycles_plain(planes, kc, u), 1)
             ops = ops_total(*[(B_MAIN * cfg.num_cycles * n, nm) for n, nm in planning_cycle_ops(kc.box, kc.rule.full,
                                                                                                  jerk)])
             bound_ms, bound_by = bound((8 + 7) * 4 * B_MAIN, ops)
-            res[name] = {'jerk': jerk, 'max_abs_err': err, 'wall_hits': walls, 'ms': ms, 'bound_ms': bound_ms,
+            res[name] = {'jerk': jerk, 'max_abs_err': err, 'wall_hits': walls, 'ms': ms, 'ms_groups': ms_groups,
+                         'ms_spread': spread(ms_groups), 'bound_ms': bound_ms,
                          'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
                          'injected_bound_ms': bound((8 + n_noise + 7) * 4 * B_MAIN, ops)[0]}
         main = res['circle_full']
@@ -652,12 +700,13 @@ def main() -> int:
                 entry['max_abs_err'] = max(entry['max_abs_err'], e)
                 entry[mode] = {'restarts': restarts, 'wall_hits': walls, 'stalled': int(got[21].sum()),
                                'candidates_tested': int(got[22].sum())}
-            injected_ms = time_ms(lambda: kpl.planning_autoreset_cuda(st, act, kc, u), 20)
-            ms = time_ms(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7), 20)
+            injected_ms, _ = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, u))
+            ms, ms_groups = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7))
             plain_ms = time_ms(lambda: kpl.planning_autoreset_plain(st, act, kc, u), 1)
             bound_ms, bound_by = bound((11 + 23) * 4 * B_MAIN,
                                        plan_step_ops(kc, entry['philox']['candidates_tested']))
-            entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+            entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
+                         bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
                          injected_bound_ms=bound((11 + n_noise + 23) * 4 * B_MAIN,
                                                  plan_step_ops(kc, entry['injected']['candidates_tested']))[0])
             res[name] = entry
@@ -827,13 +876,228 @@ def main() -> int:
                 }
         return {'T': T_ROLL, 'card': card, 'repeats': 5, 'rates': rates}
 
+    # -- 9. kernel H (M-mover planning) ----------------------------------------------
+    from gymnasium_planar_robotics_tpu_torch.models import multi_agent
+    from gymnasium_planar_robotics_tpu_torch.ops import collision
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmu
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls as kwalls
+
+    holed4 = np.array([[1, 1, 1, 1], [1, 1, 0, 1], [1, 1, 1, 1], [1, 1, 1, 1]])
+    lshape = np.array([[1, 1, 0], [1, 1, 1], [0, 1, 1]])
+    # name -> (layout, movers, collision params, jerk); the main configuration first
+    multi_configs = {
+        'circle_full_m4': (np.ones((4, 4)), M_MAIN, {}, False),
+        'box_full_m4': (np.ones((4, 4)), M_MAIN, box_coll, False),
+        'circle_holed_m3_jerk': (holed4, 3, {'size': np.array([0.11, 0.14, 0.12])}, True),
+        'box_lshape_m2_jerk': (lshape, 2, box_coll, True),
+    }
+
+    def multi_env(name, **kw):
+        layout, m, coll, jerk = multi_configs[name]
+        return PL.make_planning_env(layout, m, collision_params=coll, learn_jerk=jerk, device=dev, **kw)
+
+    def multi_planted(cfg, prm, b, seed):
+        """init_batch; envs [0, b/4): mover 0 at the -x wall moving out at
+        1 m/s; envs [b/4, b/2): movers 0 and 1 side by side 1 mm apart,
+        head-on at 1 m/s each; step counters spread, every 8th about to
+        truncate."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        state, _, _ = PL.init_batch(cfg, prm, b, g)
+        q = b // 4
+        hx = prm.c_size.reshape(cfg.num_movers, -1)[:, 0]
+        state.pos[:q, 0, 0] = torch.linspace(float(hx[0]) - 0.01, float(hx[0]) + 0.02, q, device=dev)
+        state.vel[:q, 0] = torch.tensor([-1.0, 0.1], device=dev)
+        state.pos[q:2 * q, 1] = state.pos[q:2 * q, 0] + torch.stack([hx[0] + hx[1] + 1e-3, torch.zeros_like(hx[0])])
+        state.vel[q:2 * q, 0] = torch.tensor([1.0, 0.0], device=dev)
+        state.vel[q:2 * q, 1] = torch.tensor([-1.0, 0.0], device=dev)
+        state.steps = torch.randint(0, cfg.max_episode_steps, (b,), generator=g, device=dev, dtype=torch.int32)
+        state.steps[::8] = cfg.max_episode_steps - 1
+        return state
+
+    def multi_step_ops(cfg, mc, sets_tested: float) -> float:
+        """f32 operations of one kernel H step over the batch: every env
+        runs M movers' cycles, the pair tests and the observations;
+        ``sets_tested`` candidate sets are tested in all (this run's data:
+        done envs only, up to the first accepted set)."""
+        kc, m = mc.base, cfg.num_movers
+        n_pairs = m * (m - 1) // 2
+        mover = planning_cycle_ops(kc.box, kc.rule.full, kc.learn_jerk) + [(1, 'multi_pair_pose')]
+        if kc.box:
+            mover.append((1, 'multi_pair_pose_box_extra'))
+        per_cycle = [(m * n, nm) for n, nm in mover] + [(n_pairs, 'multi_pair_box' if kc.box else 'multi_pair_circle')]
+        per_env = ops_total(*[(kc.num_cycles * n, nm) for n, nm in per_cycle], (m, 'multi_step_mover'),
+                            (1, 'multi_step_env'))
+        holed = [] if kc.rule.full else [(m, 'planning_holed_extra_box' if kc.box else 'planning_holed_extra_circle')]
+        per_set = ops_total((m, 'multi_candidate_mover_box' if kc.box else 'multi_candidate_mover_circle'),
+                            (n_pairs, 'multi_candidate_pair_box' if kc.box else 'multi_candidate_pair_circle'),
+                            *holed)
+        return per_env * B_MAIN + per_set * sets_tested
+
+    @phase('kernel_H_planning_multi_autoreset')
+    def _():
+        res = {}
+        for name in multi_configs:
+            cfg, prm = multi_env(name)
+            m = cfg.num_movers
+            mc = kmu.make_multi_kernel_consts(cfg, prm)
+            st = PL.state_to_planes(cfg, multi_planted(cfg, prm, B_MAIN, 13))
+            lim = 100.0 if cfg.learn_jerk else 10.0
+            act = ((torch.rand((2 * m, B_MAIN), generator=gen, device=dev) * 2 - 1) * lim).contiguous()
+            n_noise = kmu.multi_noise_planes(cfg.num_cycles, m, mc.base.cand_k, mc.base.box)
+            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+            exact = (8 * m, *range(18 * m + 1, 18 * m + 6))
+            entry = {'M': m, 'jerk': cfg.learn_jerk, 'max_abs_err': 0.0}
+            for mode, got, ref in (
+                    ('injected', kmu.planning_multi_autoreset_cuda(st, act, mc, u),
+                     kmu.planning_multi_autoreset_plain(st, act, mc, u)),
+                    ('philox', kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7),
+                     kmu.planning_multi_autoreset_plain(st, act, mc, philox(7, n_noise, B_MAIN)))):
+                e, bad = planes_check(got, ref, exact=exact)
+                restarts = int(((got[8 * m] == 0) & (st[8 * m] > 0)).sum())
+                walls_, movers = int((got[18 * m + 1] > 0).sum()), int((got[18 * m + 2] > 0).sum())
+                require(not bad, f'{name} ({mode}): planes {bad} disagree')
+                require(restarts > 0 and walls_ > 0 and movers > 0,
+                        f'{name} ({mode}): {restarts} restarts, {walls_} wall hits, {movers} mover hits')
+                entry['max_abs_err'] = max(entry['max_abs_err'], e)
+                entry[mode] = {'restarts': restarts, 'wall_hits': walls_, 'mover_hits': movers,
+                               'stalled': int(got[18 * m + 4].sum()), 'sets_tested': int(got[18 * m + 5].sum())}
+            if name == 'circle_full_m4':
+                injected_ms, injected_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, u))
+                ms, ms_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7))
+                plain_ms = time_ms(lambda: kmu.planning_multi_autoreset_plain(st, act, mc, u), 1)
+                bound_ms, bound_by = bound((10 * m + 1 + 18 * m + 6) * 4 * B_MAIN,
+                                           multi_step_ops(cfg, mc, entry['philox']['sets_tested']))
+                entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
+                             bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+                             injected_groups=injected_groups,
+                             injected_bound_ms=bound((10 * m + 1 + n_noise + 18 * m + 6) * 4 * B_MAIN,
+                                                    multi_step_ops(cfg, mc, entry['injected']['sets_tested']))[0])
+                kstats['planning_multi_autoreset'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                          bound_by=bound_by)
+            else:
+                entry['ms'], _ = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 10)
+            res[name] = entry
+        kstats['planning_multi_autoreset'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
+        return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'configs': res}
+
+    # -- 10. the public M-mover path ------------------------------------------------
+    @phase('multi_planning_main_path')
+    def _():
+        cfg, prm = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
+        m, g = cfg.num_movers, torch.Generator(device=dev).manual_seed(5)
+        # count the mover collisions the kernel reports on the path (its
+        # mover plane), beside the launch counters
+        launch, mover_hits = kmu.planning_multi_autoreset_cuda, []
+
+        def recording(*args, **kw):
+            out = launch(*args, **kw)
+            mover_hits.append(out[18 * m + 2].sum())
+            return out
+
+        kmu.planning_multi_autoreset_cuda = recording
+        try:
+            kernels.reset_launches()
+            state, obs, info = PL.init_batch(cfg, prm, B_MAIN, g)
+            step_ar = PL.make_fused_step_autoreset(cfg, prm)
+            s = state
+            infos = []
+            for _ in range(5):
+                s, o, r, te, tr, inf = step_ar(s, (torch.rand((B_MAIN, m, 2), generator=g, device=dev) * 2 - 1) * 10.0,
+                                               generator=g)
+                infos.append(inf)
+            par = multi_agent.make_batched_parallel_step(cfg, prm)
+            agent_rewards = []
+            for _ in range(3):
+                s, batch = par(s, (torch.rand((B_MAIN, m, 2), generator=g, device=dev) * 2 - 1) * 10.0, generator=g)
+                agent_rewards.append(batch.reward)
+            acts = (torch.rand((T_ROLL, B_MAIN, m, 2), generator=g, device=dev) * 2 - 1) * 10.0
+            n_before = len(mover_hits)
+            fs, rew, term, trunc = PL.make_fused_rollout(cfg, prm)(s, acts, 200)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            kmu.planning_multi_autoreset_cuda = launch
+        roll_mover_hits = int(sum(int(h) for h in mover_hits[n_before:]))
+
+        require(launches['planning_multi_autoreset'] == 5 + 3 + T_ROLL,
+                f'kernel H launched {launches["planning_multi_autoreset"]} times, expected {5 + 3 + T_ROLL}')
+        require(bool(~info['reset_stalled'].any()), 'init_batch stalled')
+        sizes = PL._sample_sizes(cfg, prm)
+        rule = kwalls.make_wall_rule(kwalls.grid_np(prm))
+        for i, size in enumerate(sizes):
+            require(bool(kwalls.sample_valid_at(rule, False, state.pos[:, i, 0], state.pos[:, i, 1], size).all()),
+                    f'init_batch: mover {i} wall-invalid')
+        require(not bool(collision.check_mover_collision(state.pos, prm.c_size + prm.c_offset).any()),
+                'init_batch: a start pair collides')
+        allowed = {50.0, -50.0} | {-float(k) for k in range(1, m + 1)}
+        require(set(torch.unique(rew).tolist()) <= allowed, f'rollout rewards {torch.unique(rew).tolist()}')
+        require(set(torch.unique(torch.stack(agent_rewards)).tolist()) <= {50.0, -50.0, 0.0, -1.0},
+                'per-agent rewards')
+        for name in ('pos', 'vel', 'acc', 'goals'):
+            require(bool(torch.isfinite(getattr(fs, name)).all()), f'{name} not finite')
+        speed = torch.linalg.vector_norm(fs.vel, dim=-1)
+        require(float(speed.max()) <= float(prm.v_max) * 1.01, f'|v| {float(speed.max())}')
+        require(bool(((fs.pos >= 0.0) & (fs.pos <= 0.96)).all()), 'a mover off the table')
+        require(bool(((fs.steps >= 0) & (fs.steps <= cfg.max_episode_steps)).all()), 'steps')
+        ends = int((term | trunc).sum())
+        require(ends > 0 and roll_mover_hits > 0, f'rollout: {ends} episode ends, {roll_mover_hits} mover collisions')
+        return {'launches': launches, 'init_trials_mean': float(info['reset_trials'].double().mean()),
+                'step_mover_collisions': int(sum(int(i['mover_collision'].sum()) for i in infos)),
+                'rollout': {'terminations': int(term.sum()), 'truncations': int(trunc.sum()),
+                            'mover_collisions': roll_mover_hits, 'successes': int((rew == 50.0).sum()),
+                            'collisions': int((rew == -50.0).sum()), 'reward_mean': float(rew.mean())}}
+
+    multi_launches = report['phases']['multi_planning_main_path'].get('launches', {})
+
+    # -- 11. M-mover rollout rate ----------------------------------------------------
+    @phase('multi_planning_rollout_rate')
+    def _():
+        rates = {}
+        for b in (B_MAIN, B_LARGE):
+            cfg, prm = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
+            g = torch.Generator(device=dev).manual_seed(6)
+            state, _, _ = PL.init_batch(cfg, prm, b, g)
+            acts = (torch.rand((T_ROLL, b, M_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0
+            roll = PL.make_fused_rollout(cfg, prm)
+            roll(state, acts, 1)  # warm-up
+            torch.cuda.synchronize()
+            event_ms, host_ms = [], []
+            for rep in range(5):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                roll(state, acts, 3 + rep)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                torch.cuda.synchronize()
+                event_ms.append(start.elapsed_time(end))
+            med = statistics.median(event_ms)
+            entry = {'kernel_ms_runs': event_ms, 'host_enqueue_ms_runs': host_ms, 'kernel_ms_median': med,
+                     'host_share_median': statistics.median(h / e for h, e in zip(host_ms, event_ms)),
+                     'kernel_env_steps_per_s': b * T_ROLL / (med / 1e3)}
+            if b == B_MAIN:
+                mc = kmu.make_multi_kernel_consts(cfg, prm)
+                n_step = kmu.multi_noise_planes(cfg.num_cycles, M_MAIN, mc.base.cand_k, mc.base.box)
+
+                def plain_step(planes, action, seed, mc=mc, n_step=n_step, b=b):
+                    return kmu.planning_multi_autoreset_plain(planes, action, mc, torch.rand((n_step, b), device=dev))
+
+                plain = PL._make_multi_rollout(cfg, prm, plain_step)
+                t_p = time_ms(lambda: plain(state, acts, 3), 1, warmup=0)
+                entry.update(plain_ms=t_p, plain_env_steps_per_s=b * T_ROLL / (t_p / 1e3))
+            rates[f'B={b}'] = entry
+        return {'T': T_ROLL, 'M': M_MAIN, 'card': card, 'repeats': 5, 'rates': rates}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
         st = kstats[name]
         # each kernel's launches on its own path: A-D on the pushing main
-        # path, E-G on the planning main path
-        path_launches = planning_launches if name in PLANNING_KERNELS else main_launches
+        # path, E-G on the planning main path, H on the M-mover main path
+        path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
+                         else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
             'launches': int(path_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),

@@ -4,6 +4,9 @@ from __future__ import annotations
 
 import torch
 
+from gymnasium_planar_robotics_tpu_torch.ops import collision
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
+
 IDENTITY_QUAT = (1.0, 0.0, 0.0, 0.0)
 
 
@@ -31,3 +34,23 @@ def min_goal_distance(c_size: torch.Tensor, c_offset: torch.Tensor, collision_sh
         return 2.0 * (c_size[0] + c_offset)
     v = c_size[0] + c_offset
     return 2.0 * torch.sqrt((v * v).sum().to(torch.float64)).to(v.dtype)
+
+
+def wall_collision_any(rule: walls.WallRule, xy: torch.Tensor, quat: torch.Tensor | None, sizes,
+                       collision_shape: str) -> torch.Tensor:
+    """True where any mover collides with a wall, by the layout's rule
+    (``walls.shape_valid``).  ``xy`` ``[..., M, 2]``, ``quat`` ``[..., M, 4]``
+    (box only), ``sizes`` one (sx, sy) per mover (radius in sx for the
+    circle, half-extents for the box)."""
+    box = collision_shape == 'box'
+    hit = torch.zeros(xy.shape[:-1], dtype=torch.bool, device=xy.device).any(-1)
+    for i, (sx, sy) in enumerate(sizes):
+        R = walls.quat_to_R2(*quat[..., i, :].unbind(-1)) if box else walls.IDENTITY_R
+        hit = hit | ~walls.shape_valid(rule, box, xy[..., i, 0], xy[..., i, 1], R, sx, sy)
+    return hit
+
+
+def mover_collision_any(xy: torch.Tensor, quat: torch.Tensor | None, c_size: torch.Tensor,
+                        collision_shape: str) -> torch.Tensor:
+    """True where any mover pair collides (``ops.collision``)."""
+    return collision.check_mover_collision(xy, c_size, quat=quat, collision_shape=collision_shape)

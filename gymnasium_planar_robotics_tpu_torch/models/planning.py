@@ -1,12 +1,14 @@
-"""BenchmarkPlanningEnv in PyTorch: collision-free goal reaching, 1 mover.
+"""BenchmarkPlanningEnv in PyTorch: collision-free goal reaching, M movers.
 
 Counterpart of ``gymnasium_planar_robotics_tpu/models/planning.py`` for the
-single-mover fused serving path: ``make_planning_env``, ``reset`` /
-``init_batch``, the per-step fused APIs ``make_fused_step`` (kernel E) and
-``make_fused_step_autoreset`` (kernel F), and the plane-form rollout
-``make_fused_rollout`` (kernel F per step, or kernel G over chunks of K
-steps).  The fused paths run the CUDA kernels of ``ops/kernels/planning``
-on CUDA tensors and their plain PyTorch versions on CPU tensors.
+fused serving paths: ``make_planning_env``, ``reset`` / ``init_batch``, the
+per-step fused APIs ``make_fused_step`` (kernel E, 1 mover) and
+``make_fused_step_autoreset`` (kernel F for 1 mover, kernel H for 2-8), and
+the plane-form rollout ``make_fused_rollout`` (1 mover: kernel F per step or
+kernel G over chunks of K steps; M movers: kernel H per step).  The fused
+paths run the CUDA kernels of ``ops/kernels/planning`` and
+``ops/kernels/planning_multi`` on CUDA tensors and their plain PyTorch
+versions on CPU tensors.
 
 Differences from the JAX package, by design:
 
@@ -18,12 +20,13 @@ Differences from the JAX package, by design:
 - ``make_planning_env`` and the numpy converters put their tensors on the
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
-Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): M > 1 movers
-on any path (kernel H), mesh movers, f64 on the fused paths, the eager
-step (``step``, ``step_autoreset``, ``batched_step``) and
-``make_reactive_rollout``.
+Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): more than 8
+movers (kernel H's instantiations), mesh movers, f64 on the fused paths,
+the eager step (``step``, ``step_autoreset``, ``batched_step``) and
+``make_reactive_rollout``.  ``make_fused_step`` covers 1 mover, as in the
+JAX package (``pallas_step.supports``).
 
-Public layouts follow the JAX package: ``[B, 1, 2]`` for pos, vel, acc, act
+Public layouts follow the JAX package: ``[B, M, 2]`` for pos, vel, acc, act
 and goals, ``[B]`` for steps, ``[T, B]`` rollout outputs.
 """
 
@@ -36,9 +39,11 @@ import numpy as np
 import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import common, validation
+from gymnasium_planar_robotics_tpu_torch.ops import collision
 from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid, make_tile_grid
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
@@ -80,11 +85,11 @@ class PlanningParams:
 
 @dataclasses.dataclass
 class PlanningState:
-    pos: torch.Tensor  # [B, 1, 2]
-    vel: torch.Tensor  # [B, 1, 2]
-    acc: torch.Tensor  # [B, 1, 2] last applied acceleration (qacc)
-    act: torch.Tensor  # [B, 1, 2] jerk-integrator activation
-    goals: torch.Tensor  # [B, 1, 2]
+    pos: torch.Tensor  # [B, M, 2]
+    vel: torch.Tensor  # [B, M, 2]
+    acc: torch.Tensor  # [B, M, 2] last applied acceleration (qacc)
+    act: torch.Tensor  # [B, M, 2] jerk-integrator activation
+    goals: torch.Tensor  # [B, M, 2]
     steps: torch.Tensor  # [B] int32
 
 
@@ -236,38 +241,46 @@ def state_from_numpy(d: dict, device=None) -> PlanningState:
 
 
 # ---------------------------------------------------------------------------
-# plane layout (kernels F and G: 9 state planes)
+# plane layout (kernels F and G: 9 state planes; kernel H: 8M + 1)
 # ---------------------------------------------------------------------------
 
 
 def _a_state(config: PlanningConfig, state: PlanningState) -> torch.Tensor:
-    """The kernels' control-space acceleration plane pair: the integrator
+    """The kernels' control-space acceleration ``[B, M, 2]``: the integrator
     activation in jerk mode, the last applied acceleration in acc mode."""
-    return (state.act if config.learn_jerk else state.acc)[:, 0]
+    return state.act if config.learn_jerk else state.acc
 
 
 def state_to_planes(config: PlanningConfig, state: PlanningState) -> torch.Tensor:
-    """The 9 f32 state planes ``[9, B]`` in the kernels' order."""
-    cols = []
-    for arr in (state.pos[:, 0], state.vel[:, 0], _a_state(config, state), state.goals[:, 0]):
-        cols += [arr[:, 0], arr[:, 1]]
-    cols.append(state.steps)
-    return torch.stack([c.to(torch.float32) for c in cols])
+    """The ``8M + 1`` f32 state planes in the kernels' order: positions,
+    velocities, accelerations and goals (``2M`` each, mover-major then x/y),
+    then the step counter."""
+    b = state.pos.shape[0]
+    blocks = [x.to(torch.float32).reshape(b, -1).T for x in (state.pos, state.vel, _a_state(config, state),
+                                                            state.goals)]
+    return torch.cat(blocks + [state.steps.to(torch.float32)[None]]).contiguous()
 
 
 def _pair(planes: torch.Tensor, i: int) -> torch.Tensor:
     return torch.stack([planes[i], planes[i + 1]], dim=-1)
 
 
-def planes_to_state(config: PlanningConfig, planes: torch.Tensor, accel_scale: float) -> PlanningState:
-    """The state from 9 kernel planes: qacc = accel_scale * act; ``act``
-    is the integrator state in jerk mode and zero in acc mode."""
-    act = _pair(planes, 4)[:, None]
+def _block(planes: torch.Tensor, i0: int, m: int) -> torch.Tensor:
+    """``2M`` planes from ``i0`` as ``[B, M, 2]``."""
+    return planes[i0:i0 + 2 * m].T.reshape(-1, m, 2)
+
+
+def planes_to_state(config: PlanningConfig, planes: torch.Tensor, accel_scale) -> PlanningState:
+    """The state from ``8M + 1`` kernel planes: qacc = accel_scale * act
+    (``accel_scale`` a float or one per mover); ``act`` is the integrator
+    state in jerk mode and zero in acc mode."""
+    m = config.num_movers
+    act = _block(planes, 4 * m, m)
+    scale = torch.as_tensor(accel_scale, dtype=act.dtype, device=act.device).reshape(-1, 1)
     return PlanningState(
-        pos=_pair(planes, 0)[:, None], vel=_pair(planes, 2)[:, None],
-        acc=act * accel_scale,
+        pos=_block(planes, 0, m), vel=_block(planes, 2 * m, m), acc=act * scale,
         act=act if config.learn_jerk else torch.zeros_like(act),
-        goals=_pair(planes, 6)[:, None], steps=planes[8].to(torch.int32),
+        goals=_block(planes, 6 * m, m), steps=planes[8 * m].to(torch.int32),
     )
 
 
@@ -281,20 +294,23 @@ def _norm2(d: torch.Tensor) -> torch.Tensor:
 
 
 def _obs_vec(config: PlanningConfig, vel: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    return torch.cat([vel, acc], dim=-1) if config.learn_jerk else vel
+    """``[B, 2M]`` velocities, or ``[B, 4M]`` velocities of all movers then
+    their accelerations in jerk mode, from ``[B, M, 2]`` (or ``[B, 2]``)."""
+    b = vel.shape[0]
+    return torch.cat([vel, acc], dim=1).reshape(b, -1) if config.learn_jerk else vel.reshape(b, -1)
 
 
 def _get_obs(config: PlanningConfig, params: PlanningParams, state: PlanningState, generator=None) -> dict:
     """Noisy velocities (+ accelerations in jerk mode), noisy positions as
     the achieved goal."""
-    b = state.pos.shape[0]
-    n = noise_probe(2, b, state.pos.device, generator=generator)  # pos pair, vel pair
-    pos_noisy = state.pos[:, 0] + n[0:2].T * params.std_noise[0]
-    vel_noisy = state.vel[:, 0] + n[2:4].T * params.std_noise[1]
+    b, m = state.pos.shape[0], config.num_movers
+    n = noise_probe(2 * m, b, state.pos.device, generator=generator)  # M pos pairs, then M vel pairs
+    pos_noisy = state.pos + n[:2 * m].T.reshape(b, m, 2) * params.std_noise[0]
+    vel_noisy = state.vel + n[2 * m:].T.reshape(b, m, 2) * params.std_noise[1]
     return {
-        'observation': _obs_vec(config, vel_noisy, state.acc[:, 0]),
-        'achieved_goal': pos_noisy,
-        'desired_goal': state.goals[:, 0],
+        'observation': _obs_vec(config, vel_noisy, state.acc),
+        'achieved_goal': pos_noisy.reshape(b, 2 * m),
+        'desired_goal': state.goals.reshape(b, 2 * m),
     }
 
 
@@ -333,70 +349,105 @@ def compute_reward(config: PlanningConfig, params: PlanningParams, achieved_goal
 # ---------------------------------------------------------------------------
 
 
-def _sample_sizes(config: PlanningConfig, params: PlanningParams):
-    """The reset checks' size c + offset_wall + offset, in the params' f32
-    arithmetic: a float radius or an (hx, hy) pair."""
-    c = (params.c_size + params.c_offset_wall + params.c_offset)[0].reshape(-1)
-    return (float(c[0]), float(c[1])) if config.collision_shape == 'box' else (float(c[0]),) * 2
+def _sample_sizes(config: PlanningConfig, params: PlanningParams) -> list:
+    """The reset checks' size c + offset_wall + offset per mover, in the
+    params' f32 arithmetic: (radius, radius) or (hx, hy)."""
+    c = params.c_size + params.c_offset_wall + params.c_offset
+    if config.collision_shape == 'box':
+        return [(float(x), float(y)) for x, y in c.reshape(-1, 2)]
+    return [(float(r),) * 2 for r in c.reshape(-1)]
 
 
-def _first_accepted(cands: torch.Tensor, accepts: torch.Tensor):
-    """First accepted of K candidates ``[K, B, 2]`` (the last one where none
-    is): (sample [B, 2], accepted [B], trials [B] int32), as the JAX
-    package's bounded rejection sampler with ``block=1`` returns them."""
+def _first_accepted(cands: torch.Tensor, accepts: torch.Tensor, block: int):
+    """First accepted of K candidate sets ``[K, B, M, 2]`` (the last one
+    where none is): (sample [B, M, 2], accepted [B], trials [B] int32), as
+    the JAX package's bounded rejection sampler returns them when it draws
+    ``block`` sets per round: trials count whole rounds, K on a stall."""
     k, b = accepts.shape
     ok = accepts.any(0)
     idx = torch.where(ok, torch.argmax(accepts.to(torch.int32), dim=0), k - 1)
-    sample = cands.gather(0, idx[None, :, None].expand(1, b, 2))[0]
-    return sample, ok, torch.where(ok, idx + 1, k).to(torch.int32)
+    sample = cands.gather(0, idx[None, :, None, None].expand(1, b, *cands.shape[2:]))[0]
+    return sample, ok, torch.where(ok, block * ((idx + block) // block), k).to(torch.int32)
 
 
 def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator: torch.Generator | None = None,
           start_xy=None, goals_xy=None):
-    """Reset ``batch`` envs: start and goal each the first wall-valid of
-    ``max_reset_trials`` uniform draws over ``[min_xy, max_xy]`` (identity
-    orientation, size c + offset + offset_wall); then the noisy wall check
-    of the start and the first observation.  ``start_xy`` / ``goals_xy``
-    (``[2]``, ``[B, 2]`` or ``[B, 1, 2]``) override the sampling.
+    """Reset ``batch`` envs.  Starts: the first of ``max_reset_trials``
+    uniform sets of M positions over ``[min_xy, max_xy]`` with every mover
+    wall-valid (identity orientation, size c + offset + offset_wall) and no
+    pair colliding (size c + offset; boxes by the 16-segment test); goals:
+    wall-valid and pairwise at least ``min_goal_dist`` apart.  Then the noisy
+    re-check of the starts (wall with the safety offset, movers without) and
+    the first observation.  ``start_xy`` / ``goals_xy`` (``[M, 2]`` or
+    ``[B, M, 2]``; for one mover also ``[2]`` or ``[B, 2]``) override the
+    sampling.
 
-    Returns ``(state, obs, info)`` with ``reset_stalled`` (no draw accepted)
-    and ``reset_trials`` (draws taken; 0 where overridden) in ``info``."""
-    if config.num_movers != 1:
-        raise _not_ported('reset with M > 1 movers (mover-pair and goal-separation checks)')
+    With M > 1 the JAX package draws 8 sets per round: the first accepted
+    of all ``8 * ceil(max_reset_trials / 8)`` sets has the same
+    distribution, and ``reset_trials`` counts whole rounds as it does.
+
+    Returns ``(state, obs, info)`` with ``mover_collision`` and
+    ``wall_collision`` from the noisy re-check, ``reset_stalled`` (no set
+    accepted) and ``reset_trials`` (sets drawn; 0 where overridden) in
+    ``info``."""
+    m = config.num_movers
     device, dtype = params.min_xy.device, params.min_xy.dtype
-    k = config.max_reset_trials
+    block = 8 if m > 1 else 1
+    k = block * -(-config.max_reset_trials // block)
     box = config.collision_shape == 'box'
     rule = walls.make_wall_rule(walls.grid_np(params))
-    size = _sample_sizes(config, params)
+    sizes = _sample_sizes(config, params)
+    ident = torch.tensor(common.IDENTITY_QUAT, dtype=dtype, device=device)
 
-    def accept(xy):  # [..., 2] -> [...]
-        return walls.sample_valid_at(rule, box, xy[..., 0], xy[..., 1], size)
+    def walls_ok(xy):  # [..., M, 2] -> [...]
+        ok = torch.ones(xy.shape[:-2], dtype=torch.bool, device=device)
+        for i, size in enumerate(sizes):
+            ok = ok & walls.sample_valid_at(rule, box, xy[..., i, 0], xy[..., i, 1], size)
+        return ok
 
-    def sample():
-        u = draw_uniforms(2 * k, batch, device, generator).to(dtype).reshape(k, 2, batch).transpose(1, 2)
+    def accept_start(xy):
+        quat = ident.expand(*xy.shape[:-1], 4)
+        return walls_ok(xy) & ~common.mover_collision_any(xy, quat, params.c_size + params.c_offset,
+                                                          config.collision_shape)
+
+    def accept_goal(xy):
+        ok = walls_ok(xy)
+        if m > 1:
+            ii, jj = collision.pair_indices(m)
+            d = xy[..., ii, :] - xy[..., jj, :]
+            ok = ok & (sqrt((d * d).sum(-1)) >= params.min_goal_dist).all(-1)
+        return ok
+
+    def sample(accept):
+        u = draw_uniforms(2 * m * k, batch, device, generator).to(dtype).reshape(k, m, 2, batch).permute(0, 3, 1, 2)
         lo, hi = params.min_xy, params.max_xy
-        cands = torch.maximum(lo, u * (hi - lo) + lo)  # [k, B, 2]
-        return _first_accepted(cands, accept(cands))
+        cands = torch.maximum(lo, u * (hi - lo) + lo)  # [k, B, M, 2]
+        return _first_accepted(cands, accept(cands), block)
 
-    def given(xy):
-        xy = torch.as_tensor(xy, dtype=dtype, device=device).reshape(-1, 2).expand(batch, 2)
+    def given(xy, accept):
+        xy = torch.as_tensor(xy, dtype=dtype, device=device).reshape(-1, m, 2).expand(batch, m, 2)
         return xy, accept(xy), torch.zeros((batch,), dtype=torch.int32, device=device)
 
-    start, start_ok, start_trials = sample() if start_xy is None else given(start_xy)
-    goal, goal_ok, goal_trials = sample() if goals_xy is None else given(goals_xy)
+    start, start_ok, start_trials = sample(accept_start) if start_xy is None else given(start_xy, accept_start)
+    goal, goal_ok, goal_trials = sample(accept_goal) if goals_xy is None else given(goals_xy, accept_goal)
 
-    zeros = torch.zeros((batch, 1, 2), dtype=dtype, device=device)
-    state = PlanningState(pos=start[:, None].contiguous(), vel=zeros, acc=zeros.clone(), act=zeros.clone(),
-                          goals=goal[:, None].contiguous(),
-                          steps=torch.zeros((batch,), dtype=torch.int32, device=device))
+    zeros = torch.zeros((batch, m, 2), dtype=dtype, device=device)
+    state = PlanningState(pos=start.contiguous(), vel=zeros, acc=zeros.clone(), act=zeros.clone(),
+                          goals=goal.contiguous(), steps=torch.zeros((batch,), dtype=torch.int32, device=device))
 
-    # the start re-checked with sensor noise: position, and for the box the
-    # quaternion around the identity (wall size with the safety offset)
-    n = noise_probe(3 if box else 1, batch, device, generator=generator) * params.std_noise[0]
-    R = walls.quat_to_R2(*(q + nq for q, nq in zip(common.IDENTITY_QUAT, n[2:]))) if box else walls.IDENTITY_R
-    wall = ~walls.shape_valid(rule, box, start[:, 0] + n[0], start[:, 1] + n[1], R, *size)
+    # the starts re-checked with sensor noise, each check on its own pose
+    # noise: position, and for the box the quaternion around the identity;
+    # the wall with the safety offset, the movers without
+    p = 3 if box else 1
+    checks = 2 if m > 1 else 1
+    n = noise_probe(checks * m * p, batch, device, generator=generator) * params.std_noise[0]
+    n = n.reshape(checks, m, 2 * p, batch).permute(0, 3, 1, 2)  # [checks, B, M, 2p]
+    quat = [ident + n[c, ..., 2:] if box else None for c in range(checks)]
+    wall = common.wall_collision_any(rule, start + n[0, ..., :2], quat[0], sizes, config.collision_shape)
+    mover = torch.zeros_like(wall) if m == 1 else common.mover_collision_any(
+        start + n[1, ..., :2], quat[1], params.c_size, config.collision_shape)
     obs = _get_obs(config, params, state, generator)
-    info = _get_info(config, params, obs, torch.zeros_like(wall), wall)
+    info = _get_info(config, params, obs, mover, wall)
     info['reset_stalled'] = ~(start_ok & goal_ok)
     info['reset_trials'] = start_trials + goal_trials
     return state, obs, info
@@ -439,7 +490,7 @@ def make_fused_step(config: PlanningConfig, params: PlanningParams):
     def step_fn(state: PlanningState, action, noise=None, seed=None, generator=None):
         b = state.pos.shape[0]
         cols = []
-        for arr in (state.pos[:, 0], state.vel[:, 0], _a_state(config, state)):
+        for arr in (state.pos[:, 0], state.vel[:, 0], _a_state(config, state)[:, 0]):
             cols += [arr[:, 0], arr[:, 1]]
         planes = torch.cat([torch.stack(cols).to(torch.float32), _action_planes(action, b, limit)])
         out = kplan.planning_cycles(planes, kc, uniforms=noise, seed=seed, generator=generator)
@@ -460,12 +511,16 @@ def make_fused_step(config: PlanningConfig, params: PlanningParams):
 
 
 def make_fused_step_autoreset(config: PlanningConfig, params: PlanningParams, cand_k: int = 16):
-    """Fused planning step + episode restart in one launch of kernel F
-    (cycles, termination, start/goal resampling with ``cand_k`` candidates
-    each, both observations); sparse or dense reward from the pre-reset
-    observation.  A stalled restart leaves the env un-reset and reports
+    """Fused planning step + episode restart in one launch of kernel F (1
+    mover) or kernel H (2-8 movers): cycles, termination, start/goal
+    resampling with ``cand_k`` candidates (sets of M positions) each, both
+    observations; sparse or dense reward from the pre-reset observation.  A
+    stalled restart leaves the env un-reset and reports
     ``info['reset_stalled']`` (retried next step).  Same signature as
-    ``make_fused_step``."""
+    ``make_fused_step``; with M movers ``action`` is ``[B, M, 2]`` or
+    ``[B, 2M]``."""
+    if config.num_movers > 1:
+        return _make_multi_step_autoreset(config, params, cand_k)
     kc = kplan.make_kernel_consts(config, params, cand_k)
     limit, scale = _limit(config, params), _scale(params)
 
@@ -473,13 +528,7 @@ def make_fused_step_autoreset(config: PlanningConfig, params: PlanningParams, ca
         b = state.pos.shape[0]
         out = kplan.planning_autoreset(state_to_planes(config, state), _action_planes(action, b, limit), kc,
                                        uniforms=noise, seed=seed, generator=generator)
-        act = _pair(out, 4)[:, None]
-        acc = act if scale == 1.0 else scale * act
-        new_state = PlanningState(
-            pos=_pair(out, 0)[:, None], vel=_pair(out, 2)[:, None], acc=acc,
-            act=act if config.learn_jerk else torch.zeros_like(act),
-            goals=_pair(out, 6)[:, None], steps=out[8].to(torch.int32),
-        )
+        new_state = planes_to_state(config, out, scale)
         old_goal = state.goals[:, 0].to(torch.float32)
         s_v, s_ag = _pair(out, 9), _pair(out, 11)
         f_v, f_ag, f_acc = _pair(out, 13), _pair(out, 15), _pair(out, 17)
@@ -499,13 +548,87 @@ def make_fused_step_autoreset(config: PlanningConfig, params: PlanningParams, ca
             'reset_stalled': out[21] > 0.5,
             'reset_trials': out[22].to(torch.int32),
         }
-        obs = {'observation': _obs_vec(config, s_v, acc[:, 0]), 'achieved_goal': s_ag,
+        obs = {'observation': _obs_vec(config, s_v, new_state.acc[:, 0]), 'achieved_goal': s_ag,
                'desired_goal': new_state.goals[:, 0]}
         truncated = (state.steps + 1) >= config.max_episode_steps
         return new_state, obs, reward, wall | reached, truncated, info
 
     step_fn.noise_planes = kplan.autoreset_noise_planes(config.num_cycles, cand_k, kc.box)
     return step_fn
+
+
+def _make_multi_step_autoreset(config: PlanningConfig, params: PlanningParams, cand_k: int):
+    """``make_fused_step_autoreset`` for M movers, on kernel H: shared-fate
+    termination (any wall or mover collision, or all goals reached),
+    ``is_success = all reached & not collided``, the sparse reward
+    -(#unreached) between the +-50 events."""
+    mc = kmulti.make_multi_kernel_consts(config, params, cand_k)
+    m, limit = config.num_movers, _limit(config, params)
+    scale = params.accel_scale.to(torch.float32).reshape(m, 1)
+
+    def step_fn(state: PlanningState, action, noise=None, seed=None, generator=None):
+        b = state.pos.shape[0]
+        a = torch.clamp(action.to(torch.float32).reshape(b, 2 * m), -limit, limit).T.contiguous()
+        out = kmulti.planning_multi_autoreset(state_to_planes(config, state), a, mc, uniforms=noise, seed=seed,
+                                              generator=generator)
+        new_state = planes_to_state(config, out, scale)
+        s_v, s_ag = _block(out, 8 * m + 1, m), _block(out, 10 * m + 1, m)
+        f_v, f_ag = _block(out, 12 * m + 1, m), _block(out, 14 * m + 1, m)
+        f_acc = _block(out, 16 * m + 1, m) * scale  # pre-reset qacc from the act planes
+        old_goals = state.goals.to(torch.float32)
+        wall, mover = out[18 * m + 1] > 0.5, out[18 * m + 2] > 0.5
+        unreached = out[18 * m + 3]
+        collided = wall | mover
+        all_reached = unreached == 0.0
+        if config.reward_mode == 'dense':
+            reward = torch.where(collided, -REWARD_SUCCESS, -_norm2(f_ag - old_goals).sum(-1))
+        else:
+            reward = torch.where(collided, -REWARD_SUCCESS, -unreached)
+        reward = torch.where(all_reached & ~collided, REWARD_SUCCESS, reward)
+        info = {
+            'is_success': all_reached & ~collided,
+            'mover_collision': mover,
+            'wall_collision': wall,
+            'final_observation': {'observation': _obs_vec(config, f_v, f_acc), 'achieved_goal': f_ag.reshape(b, -1),
+                                  'desired_goal': old_goals.reshape(b, -1)},
+            'reset_stalled': out[18 * m + 4] > 0.5,
+            'reset_trials': out[18 * m + 5].to(torch.int32),
+        }
+        obs = {'observation': _obs_vec(config, s_v, new_state.acc), 'achieved_goal': s_ag.reshape(b, -1),
+               'desired_goal': new_state.goals.reshape(b, -1)}
+        truncated = (state.steps + 1) >= config.max_episode_steps
+        return new_state, obs, reward, collided | all_reached, truncated, info
+
+    step_fn.noise_planes = kmulti.multi_noise_planes(config.num_cycles, m, cand_k, mc.base.box)
+    return step_fn
+
+
+def _make_multi_rollout(config: PlanningConfig, params: PlanningParams, step_impl):
+    """The M-mover rollout loop shared by ``make_fused_rollout`` and the
+    card's plain-version timing: ``step_impl(planes [8M + 1, B], action
+    [2M, B], seed) -> [18M + 6, B]`` (one autoreset step)."""
+    m, limit = config.num_movers, _limit(config, params)
+    scale = params.accel_scale.to(torch.float32).reshape(m, 1)
+    max_steps = float(config.max_episode_steps)
+
+    def rollout(state: PlanningState, actions, seed: int):
+        b = state.pos.shape[0]
+        actions = torch.clamp(actions.to(torch.float32).reshape(-1, b, 2 * m), -limit, limit)
+        action_planes = actions.permute(0, 2, 1).contiguous()  # [T, 2M, B]
+        planes = state_to_planes(config, state)
+        rews, terms, truncs = [], [], []
+        for t in range(action_planes.shape[0]):
+            out = step_impl(planes, action_planes[t], seed + t)
+            collided = torch.maximum(out[18 * m + 1], out[18 * m + 2]) > 0.5
+            unreached = out[18 * m + 3]
+            rews.append(torch.where(collided, -REWARD_SUCCESS,
+                                    torch.where(unreached == 0.0, REWARD_SUCCESS, -unreached)))
+            terms.append(collided | (unreached == 0.0))
+            truncs.append(planes[8 * m] + 1.0 >= max_steps)
+            planes = out[:8 * m + 1]
+        return planes_to_state(config, planes, scale), torch.stack(rews), torch.stack(terms), torch.stack(truncs)
+
+    return rollout
 
 
 def _make_rollout(config: PlanningConfig, params: PlanningParams, steps_per_launch: int, step_impl, chunk_impl):
@@ -544,24 +667,31 @@ def _make_rollout(config: PlanningConfig, params: PlanningParams, steps_per_laun
 
 
 def make_fused_rollout(config: PlanningConfig, params: PlanningParams, cand_k: int = 16, steps_per_launch: int = 1):
-    """Plane-form rollout: the state stays in the kernels' ``[9, B]`` plane
-    layout across all steps, actions are given up front; sparse reward.
+    """Plane-form rollout: the state stays in the kernels' ``[8M + 1, B]``
+    plane layout across all steps, actions are given up front; sparse reward.
 
-    ``steps_per_launch == 1`` launches kernel F once per step (seed
-    ``seed + t``); ``steps_per_launch = K > 1`` launches kernel G over
-    chunks of K steps plus one tail chunk (seed ``seed + chunk``).  On CPU
+    One mover: ``steps_per_launch == 1`` launches kernel F once per step
+    (seed ``seed + t``); ``steps_per_launch = K > 1`` launches kernel G over
+    chunks of K steps plus one tail chunk (seed ``seed + chunk``).  M movers:
+    kernel H once per step (seed ``seed + t``) whatever ``steps_per_launch``
+    says, as in the JAX package, which has no K-step M-mover kernel.  On CPU
     tensors the plain versions draw their uniforms from a generator seeded
     the same way.
 
-    Returns ``rollout(state, actions [T, B, 2], seed) -> (final state,
+    Returns ``rollout(state, actions [T, B, M, 2], seed) -> (final state,
     rewards [T, B], terminated [T, B], truncated [T, B])``."""
     if config.reward_mode != 'sparse':
         raise ValueError("the fused rollout computes the sparse reward in-plane; reward_mode='dense' "
                          'runs on make_fused_step_autoreset')
-    kc = kplan.make_kernel_consts(config, params, cand_k)
 
     def _gen(planes, seed):
         return torch.Generator(device='cpu').manual_seed(seed) if planes.device.type == 'cpu' else None
+
+    if config.num_movers > 1:
+        mc = kmulti.make_multi_kernel_consts(config, params, cand_k)
+        return _make_multi_rollout(config, params, lambda planes, action, seed: kmulti.planning_multi_autoreset(
+            planes, action, mc, seed=seed, generator=_gen(planes, seed)))
+    kc = kplan.make_kernel_consts(config, params, cand_k)
 
     def step_impl(planes, action, seed):
         return kplan.planning_autoreset(planes, action, kc, seed=seed, generator=_gen(planes, seed))

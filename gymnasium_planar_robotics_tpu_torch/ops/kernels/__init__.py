@@ -16,7 +16,7 @@ import torch
 
 LAUNCHES = {
     'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_rollout': 0,
-    'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0,
+    'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0, 'planning_multi_autoreset': 0,
 }
 
 

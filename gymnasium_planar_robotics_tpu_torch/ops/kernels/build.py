@@ -30,7 +30,8 @@ SRC_DIR = _PKG / 'csrc'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lib = None
-#: seconds the last build took (0.0 when the cached library was loaded) and
+#: seconds the last build took (0.0 when the cached library was loaded),
+#: the seconds from its start to each source's end (``source_seconds``) and
 #: the compiler's report (``-Xptxas -v``: registers, spills per kernel)
 build_info: dict = {}
 
@@ -82,11 +83,18 @@ def build() -> Path:
             obj = Path(tmp_dir) / f'{src.stem}.o'
             cmd = [nvcc, *NVCC_FLAGS, '-I', str(SRC_DIR), '-c', '-o', str(obj), str(src)]
             objs.append(obj)
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            with open(Path(tmp_dir) / f'{src.stem}.log', 'w') as log_file:
+                procs.append((src, cmd, subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT)))
+        # seconds from the start to each source's end (they compile in parallel)
+        seconds, pending = {}, list(procs)
+        while pending:
+            for item in [p for p in pending if p[2].poll() is not None]:
+                seconds[item[0].name] = round(time.perf_counter() - t0, 1)
+                pending.remove(item)
+            time.sleep(0.05)
         logs, failed = [], []
-        for cmd, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(' '.join(cmd) + '\n' + out)
+        for src, cmd, proc in procs:
+            logs.append(' '.join(cmd) + '\n' + (Path(tmp_dir) / f'{src.stem}.log').read_text())
             if proc.returncode != 0:
                 failed.append(f'{cmd[-1]} ({proc.returncode})')
         tmp = Path(tmp_dir) / lib_path.name
@@ -101,7 +109,7 @@ def build() -> Path:
         if failed:
             raise RuntimeError(f'nvcc failed: {failed}\n{log[-6000:]}')
         os.replace(tmp, lib_path)
-    build_info.update(seconds=time.perf_counter() - t0, log=log, path=str(lib_path))
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=str(lib_path), source_seconds=seconds)
     return lib_path
 
 
@@ -132,9 +140,18 @@ def lib() -> ctypes.CDLL:
         #  cand_k, seed, stream)
         handle.gprt_planning_rollout.restype = i32
         handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p]
-        # field names of gprt::Consts and gprt::PlanningConsts, in order
+        # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, box, full, jerk, num_cycles, cand_k,
+        #  seed, stream)
+        handle.gprt_planning_multi_autoreset.restype = i32
+        handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, i32, i32, i32, i32, i32, i32, i32,
+                                                         u64, p]
+        handle.gprt_multi_const_names.restype = ctypes.c_char_p
+        handle.gprt_multi_const_names.argtypes = []
+        # field names of gprt::Consts and gprt::PlanningConsts, in order; (name, length) of gprt::MultiConsts
         handle.const_names = tuple(handle.gprt_const_names().decode().rstrip(',').split(','))
         handle.planning_const_names = tuple(handle.gprt_planning_const_names().decode().rstrip(',').split(','))
+        handle.multi_const_fields = tuple((name, int(n)) for name, n in (
+            f.split(':') for f in handle.gprt_multi_const_names().decode().rstrip(',').split(',')))
         _lib = handle
     return _lib
 

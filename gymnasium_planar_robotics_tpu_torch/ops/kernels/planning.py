@@ -120,9 +120,18 @@ def make_kernel_consts(config, params, cand_k: int = 16) -> KernelConsts:
     """The constants ``make_fused_planning_cycles`` and
     ``make_fused_planning_autoreset_cycles`` bind into the Pallas kernels,
     each rounded once to f32."""
+    if config.num_movers != 1:
+        raise NotImplementedError(
+            'kernels E-G cover 1 mover, and the JAX package has no M-mover make_fused_step either '
+            '(pallas_step.supports): M movers step through make_fused_step_autoreset and make_fused_rollout (kernel H)')
     if not supports(config, params):
-        raise NotImplementedError('the fused planning kernels cover 1 mover in f32: M movers come with kernel H, '
-                                  'f64 with the eager step (ROADMAP.md)')
+        raise NotImplementedError('the fused planning kernels run in f32: f64 comes with the eager step (ROADMAP.md)')
+    return shared_consts(config, params, cand_k)
+
+
+def shared_consts(config, params, cand_k: int = 16) -> KernelConsts:
+    """``make_kernel_consts`` without its checks: the fields kernels E-H
+    share (the size and ``accel_scale`` fields are the first mover's)."""
     box = config.collision_shape == 'box'
     wall_size, sample_size = wall_sizes(config, params)
     wall_x, wall_y = wall_size if box else (wall_size,) * 2
@@ -297,7 +306,7 @@ def planning_rollout_plain(state: torch.Tensor, actions: torch.Tensor, kc: Kerne
 # ---------------------------------------------------------------------------
 
 
-def _launch_args(kc: KernelConsts, device):
+def launch_args(kc: KernelConsts, device):
     names = build.lib().planning_const_names
     if names != PLANNING_FIELDS:
         raise RuntimeError(f'gprt::PlanningConsts field order differs from PLANNING_FIELDS: {names}')
@@ -314,7 +323,7 @@ def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0)
     out = torch.empty((N_CYCLES_OUT, b), dtype=torch.float32, device=planes.device)
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_planning_cycles(
-            planes.data_ptr(), noise_ptr, out.data_ptr(), b, *_launch_args(kc, planes.device),
+            planes.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, planes.device),
             seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
         )
     build.check(err, 'planning_cycles')
@@ -331,7 +340,7 @@ def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed
     out = torch.empty((N_AUTORESET_OUT, b), dtype=torch.float32, device=state.device)
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_autoreset(
-            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, *_launch_args(kc, state.device),
+            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, state.device),
             kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
         )
     build.check(err, 'planning_autoreset')
@@ -352,7 +361,7 @@ def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed:
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
-            *_launch_args(kc, state.device), kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(st_out),
+            *launch_args(kc, state.device), kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(st_out),
         )
     build.check(err, 'planning_rollout')
     kernels.LAUNCHES['planning_rollout'] += 1

@@ -241,15 +241,24 @@ def test_default_device_is_the_card():
 
 
 def test_not_ported_paths_raise():
+    """What still raises: ``make_fused_step`` with M > 1 (the JAX package has
+    no such path either), more movers than kernel H is instantiated for, f64
+    on the fused paths, mesh movers, the eager steps and the reactive
+    rollout; and dense rewards on the fused rollout."""
     cfg2, prm2 = tplan.make_planning_env(FULL, 2, device='cpu')
-    for make in (tplan.make_fused_step, tplan.make_fused_step_autoreset, tplan.make_fused_rollout):
-        with pytest.raises(NotImplementedError, match='kernel H'):
-            make(cfg2, prm2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tplan.init_batch(cfg2, prm2, 4)
-    cfg64, prm64 = tplan.make_planning_env(FULL, 1, dtype=torch.float64, device='cpu')
-    with pytest.raises(NotImplementedError, match='f64'):
-        tplan.make_fused_step(cfg64, prm64)
+    with pytest.raises(NotImplementedError, match='no M-mover make_fused_step'):
+        tplan.make_fused_step(cfg2, prm2)
+    cfg9, prm9 = tplan.make_planning_env(np.ones((6, 6)), 9, device='cpu')
+    for make in (tplan.make_fused_step_autoreset, tplan.make_fused_rollout):
+        with pytest.raises(NotImplementedError, match='2 to 8 movers'):
+            make(cfg9, prm9)
+    for m in (1, 2):
+        cfg64, prm64 = tplan.make_planning_env(FULL, m, dtype=torch.float64, device='cpu')
+        makers = (tplan.make_fused_step_autoreset, tplan.make_fused_rollout) + ((tplan.make_fused_step,) if m == 1
+                                                                                 else ())
+        for make in makers:
+            with pytest.raises(NotImplementedError, match='f64'):
+                make(cfg64, prm64)
     with pytest.raises(NotImplementedError, match='not ported yet'):
         tplan.make_planning_env(FULL, 1, mover_params={'shape': 'mesh'}, device='cpu')
     cfg, prm = tplan.make_planning_env(FULL, 1, device='cpu')
