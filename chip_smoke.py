@@ -47,11 +47,29 @@ phase:
    T=64, counters set to 0 before and read after (72 launches of H);
 11. env-steps/s of the M=4 ``make_fused_rollout`` at 4096 and 65,536 envs,
    T=64, five repeats (median, with the host's enqueue time), plus the
-   plain version once at 4096 envs.
+   plain version once at 4096 envs;
+12. kernel C-feat (kernel C with the policy feature blocks) against its
+   plain version at 4096 envs, planted states, acc and jerk, in both noise
+   modes: its 36 planes equal kernel C's at the same noise bit for bit, its
+   blocks equal its own planes' rows and differences bit for bit;
+13. the PPO training path: ``ppo.make_train_step_reactive`` over
+   ``pushing.make_reactive_rollout`` (dense shaping) with the recipe
+   ``baseline`` of ``tools/train_push_strong.py`` ((128, 128) trunk, 25
+   rollout steps, lr 3e-4, 4 epochs) at 2048 envs for 20 train steps,
+   counters set to 0 before and read after (500 C-feat launches, no other
+   env kernel but A); then a constant-policy reactive rollout against
+   ``make_fused_rollout`` at K=1, 4096 envs, T=64, bit for bit;
+14. env-steps/s of the reactive rollout with a (256, 256) policy against
+   ``make_fused_rollout`` at K=1, 4096 and 65,536 envs, T=64, ten
+   alternating repeats (medians, with the host's enqueue time);
+15. PPO learns on the card: 1-mover planning (3x3, ``a_max`` 3, dense
+   shaping, (64, 64) trunk, 16 rollout steps, lr 1e-3, 256 envs), 110
+   train steps over ``planning.make_reactive_rollout``; the mean reward of
+   the last 10 steps beats that of the first 10 by more than 0.3.
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread.  The line
-before the last is a JSON object with one entry per kernel (A-H): its
+before the last is a JSON object with one entry per kernel (A-H, C-feat): its
 launches on its path, its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox), the plain
 version's time, and its bound in that mode:
@@ -69,6 +87,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -94,11 +113,17 @@ KERNELS = {
     'planning_rollout': ('csrc/planning_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1587'),
     'planning_multi_autoreset': ('csrc/planning_multi_autoreset.cu',
                                  'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1767'),
+    # kernel C's emit_features branch (in _pushing_autoreset_kernel)
+    'pushing_autoreset_features': ('csrc/pushing_autoreset.cu',
+                                   'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1066'),
 }
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
 MULTI_KERNELS = ('planning_multi_autoreset',)
+TRAIN_KERNELS = ('pushing_autoreset_features',)
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
+B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
+TRAIN_STEPS = 20
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -118,6 +143,7 @@ OPS = {
     'pushing_cycle': (268, 30),
     'pushing_step_extra': (110, 26),  # observations, termination, restart selects
     'pushing_candidate': (16, 1),  # one object candidate of the restart (all cand_k are drawn and tested)
+    'pushing_features': (8, 0),  # C-feat: the four differences of each of the two feature blocks
     'planning_cycle_acc': (87, 13),
     'planning_cycle_jerk': (116, 20),
     'planning_box_extra': (103, 11),
@@ -191,6 +217,21 @@ def time_groups(fn, groups: int = 5, iters: int = 20):
     more than one mean resolves."""
     runs = [time_ms(fn, iters) for _ in range(groups)]
     return statistics.median(runs), runs
+
+
+def timed(fn):
+    """(result, CUDA-event ms, host ms) of one call of ``fn``; the host ms
+    is the time to enqueue it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    res = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end), host
 
 
 def spread(runs) -> float:
@@ -849,14 +890,9 @@ def main() -> int:
             event_ms, host_ms = {1: [], K_MAIN: []}, {1: [], K_MAIN: []}
             for rep in range(5):  # alternating repeats
                 for K in (1, K_MAIN):
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    t0 = time.perf_counter()
-                    rolls[K](state, acts, 3 + rep)
-                    host_ms[K].append((time.perf_counter() - t0) * 1e3)
-                    end.record()
-                    torch.cuda.synchronize()
-                    event_ms[K].append(start.elapsed_time(end))
+                    _, ms, host = timed(lambda K=K, rep=rep: rolls[K](state, acts, 3 + rep))
+                    event_ms[K].append(ms)
+                    host_ms[K].append(host)
 
             def plain_step(planes, action, seed, n_step=n_step, kcb=kcb, b=b):
                 return kpl.planning_autoreset_plain(planes, action, kcb, torch.rand((n_step, b), device=dev))
@@ -1065,14 +1101,9 @@ def main() -> int:
             torch.cuda.synchronize()
             event_ms, host_ms = [], []
             for rep in range(5):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                t0 = time.perf_counter()
-                roll(state, acts, 3 + rep)
-                host_ms.append((time.perf_counter() - t0) * 1e3)
-                end.record()
-                torch.cuda.synchronize()
-                event_ms.append(start.elapsed_time(end))
+                _, ms, host = timed(lambda rep=rep: roll(state, acts, 3 + rep))
+                event_ms.append(ms)
+                host_ms.append(host)
             med = statistics.median(event_ms)
             entry = {'kernel_ms_runs': event_ms, 'host_enqueue_ms_runs': host_ms, 'kernel_ms_median': med,
                      'host_share_median': statistics.median(h / e for h, e in zip(host_ms, event_ms)),
@@ -1090,14 +1121,223 @@ def main() -> int:
             rates[f'B={b}'] = entry
         return {'T': T_ROLL, 'M': M_MAIN, 'card': card, 'repeats': 5, 'rates': rates}
 
+    # -- 12. kernel C-feat -------------------------------------------------------------
+    # feature rows against the plain version's: the planes' tolerance, atol
+    # doubled for the rows that are differences of two planes
+    feat_rtol, feat_atol = 3e-5, 6e-6
+
+    @phase('kernel_C_feat_pushing_autoreset_features')
+    def _():
+        res = {}
+        for jerk in (False, True):
+            cfg, prm = P.make_pushing_env(learn_jerk=jerk, device=dev)
+            kcj = kp.make_kernel_consts(cfg, prm, 32)
+            state = planted_state(P, cfg, prm, B_MAIN, gen)
+            state.steps = torch.randint(0, cfg.max_episode_steps, (B_MAIN,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+            act = ((torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * (80.0 if jerk else 8.0)).contiguous()
+            st = P.state_to_planes(state)
+            n_noise = kp.autoreset_noise_planes(kcj.num_cycles, kcj.cand_k)
+            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+            entry = {}
+            for mode, uk, seed, uref in (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, B_MAIN))):
+                out, feat = kp.pushing_autoreset_cuda(st, act, kcj, uk, seed, emit_features=True)
+                require(torch.equal(out, kp.pushing_autoreset_cuda(st, act, kcj, uk, seed)),
+                        f'jerk={jerk} ({mode}): the emit launch changed the 36 planes')
+                require(torch.equal(feat, kp.features_from_planes(st, out)),
+                        f'jerk={jerk} ({mode}): the blocks are not the launch\'s own planes')
+                ref_out, ref_feat = kp.pushing_autoreset_plain(st, act, kcj, uref, emit_features=True)
+                err_planes, bad, _ = plane_compare(out, ref_out)
+                err_feat, ok_feat = compare(feat, ref_feat, feat_rtol, feat_atol)
+                restarts = int(((out[18] == 0) & (st[18] > 0)).sum())
+                require(not bad, f'jerk={jerk} ({mode}): planes {bad} disagree')
+                require(ok_feat, f'jerk={jerk} ({mode}): feature blocks disagree: {err_feat}')
+                require(restarts > 0 and torch.equal(feat[1, 6:8], st[16:18]),
+                        f'jerk={jerk} ({mode}): {restarts} restarts, or the pre-reset block lost the old goal')
+                entry[mode] = {'max_abs_err_features': err_feat, 'max_abs_err_planes': err_planes,
+                               'restarts': restarts}
+            if not jerk:
+                ms, ms_groups = time_groups(lambda: kp.pushing_autoreset_cuda(st, act, kcj, None, 7, True))
+                c_ms, c_groups = time_groups(lambda: kp.pushing_autoreset_cuda(st, act, kcj, None, 7))
+                injected_ms, _ = time_groups(lambda: kp.pushing_autoreset_cuda(st, act, kcj, u, 0, True))
+                plain_ms = time_ms(lambda: kp.pushing_autoreset_plain(st, act, kcj, u, True), 3)
+                ops = B_MAIN * (pushing_step_ops() + sum(OPS['pushing_features']))
+                bound_ms, bound_by = bound((21 + 36 + 24) * 4 * B_MAIN, ops)
+                entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), kernel_c_ms=c_ms,
+                             kernel_c_groups=c_groups, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                             injected_ms=injected_ms,
+                             injected_bound_ms=bound((21 + n_noise + 36 + 24) * 4 * B_MAIN, ops)[0])
+                kstats['pushing_autoreset_features'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                            bound_by=bound_by)
+            res['jerk' if jerk else 'acc'] = entry
+        kstats['pushing_autoreset_features'].update(max_abs_err=max(
+            e[m]['max_abs_err_features'] for e in res.values() for m in ('injected', 'philox')))
+        ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items()
+                 if 'pushing_autoreset_kernel' in k}
+        return {'B': B_MAIN, 'tol': f'planes as kernel C; features rtol {feat_rtol} atol {feat_atol}; '
+                                    '36 planes vs kernel C and blocks vs own planes exact',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'configs': res, 'ptxas_kernel_c': ptxas}
+
+    # -- 13. PPO training on the reactive pushing rollout --------------------------------
+    from gymnasium_planar_robotics_tpu_torch.models import ppo as PPO
+
+    # tools/train_push_strong.py: PUSHING_KW and the recipe 'baseline'
+    push_kw = dict(std_noise=1e-5, num_cycles=40, v_max=2.0, a_max=10.0, j_max=100.0, threshold_pos=0.05)
+
+    @phase('ppo_train_main_path')
+    def _():
+        cfg, prm = P.make_pushing_env(device=dev, **push_kw)
+        pcfg = PPO.PPOConfig(obs_dim=12, action_dim=2, hidden=(128, 128), rollout_steps=25, action_scale=10.0,
+                             learning_rate=3e-4, update_epochs=4, gamma=0.99)
+        g = torch.Generator(device=dev).manual_seed(8)
+
+        def make_rollout(policy_step):
+            return P.make_reactive_rollout(cfg, prm, policy_step, pcfg.rollout_steps, dense_reward=True)
+
+        kernels.reset_launches()
+        state, _, _ = P.init_batch(cfg, prm, B_TRAIN, g)
+        policy = PPO.init_params(pcfg, g, device=dev)
+        train_step, make_opt = PPO.make_train_step_reactive(pcfg, make_rollout)
+        runner = (state, policy, make_opt(policy), g, 0)
+        metrics, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            (runner, m), ms, _ = timed(lambda runner=runner: train_step(runner))
+            metrics.append(m)
+            step_ms.append(ms)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+
+        expected = TRAIN_STEPS * pcfg.rollout_steps
+        require(launches['pushing_autoreset_features'] == expected,
+                f'C-feat launched {launches["pushing_autoreset_features"]} times, expected {expected}')
+        others = {k: v for k, v in launches.items() if k not in ('pushing_autoreset_features', 'noise_probe') and v}
+        require(not others, f'other env kernels launched on the training path: {others}')
+        loss = [float(m['loss']) for m in metrics]
+        reward = [float(m['reward_mean']) for m in metrics]
+        done = [float(m['done_rate']) for m in metrics]
+        require(all(math.isfinite(x) for x in loss + reward), f'loss {loss}, reward_mean {reward}')
+        require(min(reward) > -60.0, f'reward_mean {min(reward)}')
+        require(all(p.isfinite().all() for p in policy.parameters()), 'the policy is not finite')
+
+        # the split: the rollout alone (same policy and shapes), the update as
+        # the rest of a train step
+        roll = make_rollout(train_step.policy_step)
+        s = runner[0]
+        roll_ms, roll_host = [], []
+        with torch.no_grad():
+            for rep in range(5):
+                eps = torch.randn((pcfg.rollout_steps, 2, B_TRAIN), generator=g, device=dev)
+                (res, ms, host) = timed(lambda s=s, eps=eps, rep=rep: roll(s, policy, g, 1000 + 25 * rep,
+                                                                           policy_xs=eps))
+                s = res[0]
+                roll_ms.append(ms)
+                roll_host.append(host)
+        step_med, roll_med = statistics.median(step_ms[1:]), statistics.median(roll_ms)
+
+        # a constant policy gives make_fused_rollout at K=1, bit for bit
+        s0 = planted_state(P, config, params, B_MAIN, g)
+        a0 = torch.tensor([[2.0], [-1.0]], device=dev)
+        const = P.make_reactive_rollout(config, params, lambda pol, x, obs: (a0.expand(2, obs.shape[1]), ()), T_ROLL)
+        fr, traj, _ = const(s0, None, None, 300)
+        ff, rew_f, term_f, trunc_f = P.make_fused_rollout(config, params)(s0, a0.T.expand(T_ROLL, B_MAIN, 2), 300)
+        for f in ('pos', 'vel', 'acc', 'act', 'obj_pos', 'obj_vel', 'obj_yaw', 'obj_w', 'mover_z', 'mover_vz',
+                  'goal', 'steps'):
+            require(torch.equal(getattr(fr, f), getattr(ff, f)), f'constant policy: {f} differs from the fused rollout')
+        for name, got, want in (('reward', traj[2], rew_f), ('terminated', traj[3], term_f),
+                                ('truncated', traj[4], trunc_f)):
+            require(torch.equal(got, want), f'constant policy: {name} differs from the fused rollout')
+        require(bool((term_f | trunc_f).any()), 'constant policy: no episode ended')
+        return {'B': B_TRAIN, 'train_steps': TRAIN_STEPS, 'launches': launches, 'loss': loss,
+                'reward_mean': reward, 'done_rate': done, 'train_step_ms_runs': step_ms,
+                'train_step_ms_median': step_med, 'rollout_ms_runs': roll_ms, 'rollout_host_ms_runs': roll_host,
+                'rollout_ms_median': roll_med, 'update_ms_median': step_med - roll_med,
+                'train_env_steps_per_s': B_TRAIN * pcfg.rollout_steps / (step_med / 1e3),
+                'constant_policy_vs_fused': {'B': B_MAIN, 'T': T_ROLL, 'bit_equal': True,
+                                             'episode_ends': int((term_f | trunc_f).sum())}}
+
+    train_launches = report['phases']['ppo_train_main_path'].get('launches', {})
+
+    # -- 14. reactive rollout rate ----------------------------------------------------
+    @phase('reactive_rollout_rate')
+    def _():
+        cfg, prm = P.make_pushing_env(device=dev)
+        pcfg = PPO.PPOConfig(obs_dim=12, action_dim=2, hidden=(256, 256), rollout_steps=T_ROLL)
+        policy = PPO.init_params(pcfg, torch.Generator(device=dev).manual_seed(9), device=dev)
+
+        def policy_step(pol, eps_t, obs_pm):
+            # bench.py's training-rollout policy: a Gaussian action, the
+            # value carried as a PPO rollout would
+            mu, log_std, value = PPO.apply_pm(pol, obs_pm)
+            return torch.clamp(mu + torch.exp(log_std)[:, None] * eps_t, -10.0, 10.0), value
+
+        reactive = P.make_reactive_rollout(cfg, prm, policy_step, T_ROLL)
+        fused = P.make_fused_rollout(cfg, prm)
+        rates = {}
+        with torch.no_grad():
+            for b in (B_MAIN, B_LARGE):
+                g = torch.Generator(device=dev).manual_seed(10)
+                state, _, _ = P.init_batch(cfg, prm, b, g)
+                eps = torch.randn((T_ROLL, 2, b), generator=g, device=dev)
+                acts = (torch.rand((T_ROLL, b, 2), generator=g, device=dev) * 2 - 1) * 10.0
+                paths = {'reactive': lambda seed, state=state, eps=eps: reactive(state, policy, g, seed, policy_xs=eps),
+                         'fused_k1': lambda seed, state=state, acts=acts: fused(state, acts, seed)}
+                for fn in paths.values():  # warm-up
+                    fn(1)
+                torch.cuda.synchronize()
+                ev, host = {k: [] for k in paths}, {k: [] for k in paths}
+                for rep in range(10):  # alternating repeats
+                    for name, fn in paths.items():
+                        _, ms, h = timed(lambda fn=fn, rep=rep: fn(3 + rep))
+                        ev[name].append(ms)
+                        host[name].append(h)
+                for name in paths:
+                    med = statistics.median(ev[name])
+                    rates[f'B={b},{name}'] = {
+                        'ms_runs': ev[name], 'host_enqueue_ms_runs': host[name], 'ms_median': med,
+                        'host_share_median': statistics.median(h / e for h, e in zip(host[name], ev[name])),
+                        'env_steps_per_s': b * T_ROLL / (med / 1e3),
+                        'host_ms_per_step': statistics.median(host[name]) / T_ROLL}
+                rates[f'B={b},policy_host_ms_per_step'] = (rates[f'B={b},reactive']['host_ms_per_step']
+                                                          - rates[f'B={b},fused_k1']['host_ms_per_step'])
+        return {'T': T_ROLL, 'hidden': list(pcfg.hidden), 'card': card, 'repeats': 10, 'rates': rates}
+
+    # -- 15. PPO learns on 1-mover planning ----------------------------------------------
+    @phase('ppo_planning_learns')
+    def _():
+        # tests/test_ppo_learning.py's configuration; the kernels run the
+        # sparse config and the rollout computes the dense shaping
+        cfg, prm = PL.make_planning_env(np.ones((3, 3)), 1, std_noise=1e-5, a_max=3.0, device=dev)
+        pcfg = PPO.PPOConfig(obs_dim=6, action_dim=2, hidden=(64, 64), rollout_steps=16, action_scale=10.0,
+                             learning_rate=1e-3, update_epochs=4)
+        g = torch.Generator(device=dev).manual_seed(11)
+        state, _, _ = PL.init_batch(cfg, prm, 256, g)
+        policy = PPO.init_params(pcfg, g, device=dev)
+        train_step, make_opt = PPO.make_train_step_reactive(pcfg, lambda ps: PL.make_reactive_rollout(
+            cfg, prm, ps, pcfg.rollout_steps, dense_reward=True))
+        runner = (state, policy, make_opt(policy), g, 0)
+        metrics = []
+        t0 = time.perf_counter()
+        for _ in range(110):
+            runner, m = train_step(runner)
+            metrics.append(m)
+        rewards = [float(m['reward_mean']) for m in metrics]
+        seconds = time.perf_counter() - t0
+        early, late = statistics.mean(rewards[:10]), statistics.mean(rewards[-10:])
+        require(all(math.isfinite(r) for r in rewards), 'reward_mean not finite')
+        require(late > early + 0.3, f'PPO failed to improve: early {early}, late {late}')
+        return {'B': 256, 'iterations': 110, 'early_mean': early, 'late_mean': late, 'gain': late - early,
+                'reward_mean': rewards, 'seconds_110_steps': seconds}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
         st = kstats[name]
         # each kernel's launches on its own path: A-D on the pushing main
-        # path, E-G on the planning main path, H on the M-mover main path
+        # path, E-G on the planning main path, H on the M-mover main path,
+        # C-feat on the PPO training path
         path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
-                         else main_launches)
+                         else train_launches if name in TRAIN_KERNELS else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
             'launches': int(path_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),

@@ -17,6 +17,22 @@ def resolve_device(device) -> torch.device:
     return torch.device('cuda') if device is None else torch.device(device)
 
 
+def seeded_generator(planes: torch.Tensor, seed: int) -> torch.Generator | None:
+    """A CPU generator seeded ``seed`` for a plain version on CPU tensors; None
+    on the card, where the kernel keys its Philox stream with ``seed``."""
+    return torch.Generator(device='cpu').manual_seed(seed) if planes.device.type == 'cpu' else None
+
+
+def stack_batch_last(items: list):
+    """Stack per-step values (a tensor, or a nested tuple of tensors, each
+    with the batch as its last axis) over steps, batch moved to axis 1:
+    ``[A, B]`` steps give ``[T, B, A]``, ``[B]`` steps ``[T, B]``."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.movedim(torch.stack(items), -1, 1)
+    return type(first)(stack_batch_last(list(leaf)) for leaf in zip(*items))
+
+
 def expand_c_size(c_size, num_movers: int, collision_shape: str, dtype, device) -> torch.Tensor:
     """Normalize the user-facing collision size to [M] (circle) / [M, 2] (box)."""
     c = torch.as_tensor(c_size, dtype=dtype, device=device)

@@ -5,8 +5,9 @@ fused serving paths: ``make_planning_env``, ``reset`` / ``init_batch``, the
 per-step fused APIs ``make_fused_step`` (kernel E, 1 mover) and
 ``make_fused_step_autoreset`` (kernel F for 1 mover, kernel H for 2-8), and
 the plane-form rollout ``make_fused_rollout`` (1 mover: kernel F per step or
-kernel G over chunks of K steps; M movers: kernel H per step).  The fused
-paths run the CUDA kernels of ``ops/kernels/planning`` and
+kernel G over chunks of K steps; M movers: kernel H per step), and the
+policy-in-the-loop ``make_reactive_rollout`` (1 mover, kernel F per step;
+PPO's training rollout).  The fused paths run the CUDA kernels of ``ops/kernels/planning`` and
 ``ops/kernels/planning_multi`` on CUDA tensors and their plain PyTorch
 versions on CPU tensors.
 
@@ -21,9 +22,9 @@ Differences from the JAX package, by design:
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
 Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): more than 8
-movers (kernel H's instantiations), mesh movers, f64 on the fused paths,
-the eager step (``step``, ``step_autoreset``, ``batched_step``) and
-``make_reactive_rollout``.  ``make_fused_step`` covers 1 mover, as in the
+movers (kernel H's instantiations), mesh movers, f64 on the fused paths and
+the eager step (``step``, ``step_autoreset``, ``batched_step``).
+``make_fused_step`` and ``make_reactive_rollout`` cover 1 mover, as in the
 JAX package (``pallas_step.supports``).
 
 Public layouts follow the JAX package: ``[B, M, 2]`` for pos, vel, acc, act
@@ -276,7 +277,9 @@ def planes_to_state(config: PlanningConfig, planes: torch.Tensor, accel_scale) -
     state in jerk mode and zero in acc mode."""
     m = config.num_movers
     act = _block(planes, 4 * m, m)
-    scale = torch.as_tensor(accel_scale, dtype=act.dtype, device=act.device).reshape(-1, 1)
+    # a Python float multiplies as is: a tensor made from it on the card
+    # would cost a blocking host-to-device copy in every step
+    scale = accel_scale if isinstance(accel_scale, float) else accel_scale.reshape(-1, 1)
     return PlanningState(
         pos=_block(planes, 0, m), vel=_block(planes, 2 * m, m), acc=act * scale,
         act=act if config.learn_jerk else torch.zeros_like(act),
@@ -684,22 +687,80 @@ def make_fused_rollout(config: PlanningConfig, params: PlanningParams, cand_k: i
         raise ValueError("the fused rollout computes the sparse reward in-plane; reward_mode='dense' "
                          'runs on make_fused_step_autoreset')
 
-    def _gen(planes, seed):
-        return torch.Generator(device='cpu').manual_seed(seed) if planes.device.type == 'cpu' else None
-
+    gen = common.seeded_generator
     if config.num_movers > 1:
         mc = kmulti.make_multi_kernel_consts(config, params, cand_k)
         return _make_multi_rollout(config, params, lambda planes, action, seed: kmulti.planning_multi_autoreset(
-            planes, action, mc, seed=seed, generator=_gen(planes, seed)))
+            planes, action, mc, seed=seed, generator=gen(planes, seed)))
     kc = kplan.make_kernel_consts(config, params, cand_k)
 
     def step_impl(planes, action, seed):
-        return kplan.planning_autoreset(planes, action, kc, seed=seed, generator=_gen(planes, seed))
+        return kplan.planning_autoreset(planes, action, kc, seed=seed, generator=gen(planes, seed))
 
     def chunk_impl(planes, actions, seed):
-        return kplan.planning_rollout(planes, actions, kc, seed=seed, generator=_gen(planes, seed))
+        return kplan.planning_rollout(planes, actions, kc, seed=seed, generator=gen(planes, seed))
 
     return _make_rollout(config, params, steps_per_launch, step_impl, chunk_impl)
+
+
+def make_reactive_rollout(config: PlanningConfig, params: PlanningParams, policy_step, num_steps: int,
+                          cand_k: int = 16, dense_reward: bool = False):
+    """Plane-form rollout driven by a policy in the loop, one mover: the
+    planning counterpart of ``pushing.make_reactive_rollout`` (see there for
+    ``policy_step``, ``policy_xs``, the seeds and the noise-free first
+    observation), one kernel F launch per step.
+
+    The policy features are ``[vel, achieved, goal]`` ``[6, B]``, from F's
+    post-reset observation planes (outputs 9-12) and the goal planes; the
+    pre-reset ones (outputs 13-16 with the old goal) form ``final_vec``.
+    ``reward`` is +50 on reaching, -50 on a wall hit, else -1, or the
+    negative goal distance with ``dense_reward``; ``terminated`` is a wall
+    hit or a reached goal.  Returns ``rollout(state, pol, generator, seed,
+    policy_xs=None) -> (final state, (obs_vec [T, B, 6], aux, reward,
+    terminated, truncated, final_vec [T, B, 6]), last_obs_vec [B, 6])``.
+    One mover, acceleration mode and f32 only, as in the JAX package."""
+    if config.num_movers != 1:
+        raise ValueError(f'the reactive rollout covers 1 mover, got {config.num_movers}')
+    if config.learn_jerk:
+        raise ValueError('the reactive rollout runs in acc mode only')
+    if params.v_max.dtype != torch.float32:
+        raise ValueError('the reactive rollout runs in f32 only: the f64 parity mode has no fused kernel')
+    kc = kplan.make_kernel_consts(config, params, cand_k)
+    a_max, scale = float(params.a_max), _scale(params)
+    max_steps = float(config.max_episode_steps)
+
+    def rollout(state: PlanningState, pol, generator, seed: int, policy_xs=None):
+        planes = state_to_planes(config, state)
+        # first observation from the state planes (noise-free): vel, achieved
+        obs = planes[[2, 3, 0, 1]]
+        obs_vecs, auxs, outs, goals = [], [], [], []
+        for t in range(num_steps):
+            obs_vec = torch.cat([obs, planes[6:8]])
+            action, aux = policy_step(pol, generator if policy_xs is None else policy_xs[t], obs_vec)
+            action = torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous()
+            out = kplan.planning_autoreset(planes, action, kc, seed=seed + t,
+                                           generator=common.seeded_generator(planes, seed + t))
+            obs_vecs.append(obs_vec)
+            auxs.append(aux)
+            outs.append(out)
+            goals.append(planes[6:9])  # the old goal and the step counter
+            planes, obs = out[:9], out[9:13]
+        # rewards and flags once per rollout over [T, B] (they do not feed
+        # back into the loop): fewer launches per step on the card
+        outs, goals = torch.stack(outs), torch.stack(goals)
+        final_vec = torch.cat([outs[:, 13:17], goals[:, :2]], dim=1)  # [T, 6, B]
+        wall, reached = outs[:, 19] > 0.5, outs[:, 20] > 0.5
+        if dense_reward:
+            ddx, ddy = outs[:, 15] - goals[:, 0], outs[:, 16] - goals[:, 1]
+            miss = -sqrt(ddx * ddx + ddy * ddy)
+        else:
+            miss = -1.0
+        reward = torch.where(wall, -REWARD_SUCCESS, torch.where(reached, REWARD_SUCCESS, miss))
+        traj = (torch.stack(obs_vecs).transpose(1, 2), common.stack_batch_last(auxs), reward, wall | reached,
+                goals[:, 2] + 1.0 >= max_steps, final_vec.transpose(1, 2))
+        return planes_to_state(config, planes, scale), traj, torch.cat([obs, planes[6:8]]).T
+
+    return rollout
 
 
 # ---------------------------------------------------------------------------
@@ -719,8 +780,3 @@ def step_autoreset(config, params, state, action):
 
 def batched_step(config, params, state, action):
     raise _not_ported('the eager planning step')
-
-
-def make_reactive_rollout(config, params, policy_step, num_steps, cand_k: int = 16, dense_reward: bool = False):
-    """The reactive (policy-in-the-loop) rollout: not ported yet."""
-    raise _not_ported('make_reactive_rollout')

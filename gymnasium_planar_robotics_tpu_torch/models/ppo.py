@@ -1,0 +1,349 @@
+"""PPO learner (actor-critic MLP, GAE, clipped surrogate) in PyTorch.
+
+Counterpart of ``gymnasium_planar_robotics_tpu/models/ppo.py``: the same
+``PPOConfig``, initial distributions, losses and train steps.  The policy is
+an ``nn.Module`` (``ActorCritic``); its weights cross over to and from the
+JAX package's layout ``{'trunk': [{'w': [in, out], 'b'}], 'mu', 'value',
+'log_std'}`` with ``params_from_numpy`` / ``params_to_numpy`` (``nn.Linear``
+keeps ``[out, in]``).  ``optax.adam`` becomes ``torch.optim.Adam`` with the
+same formula, ``jax.value_and_grad`` becomes autograd, and PRNG keys become
+``torch.Generator``s.
+
+The env kernels are never differentiated: the rollout runs under
+``torch.no_grad()`` and only the policy sees gradients.  The policy runs in
+float32 with PyTorch's default matmul precision (no TF32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gymnasium_planar_robotics_tpu_torch.models import common
+
+_HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+_HALF_LOG_2PIE = 0.5 * math.log(2 * math.pi * math.e)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    obs_dim: int
+    action_dim: int
+    hidden: tuple[int, ...] = (256, 256)
+    action_scale: float = 10.0  # actions squashed to [-scale, scale]
+    rollout_steps: int = 16
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_coef: float = 0.5
+    entropy_coef: float = 0.0
+    learning_rate: float = 3e-4
+    update_epochs: int = 4
+
+
+class ActorCritic(nn.Module):
+    """Shared tanh trunk, a Gaussian policy head ``mu`` with a state-free
+    ``log_std``, and a value head."""
+
+    def __init__(self, obs_dim: int, hidden: tuple[int, ...], action_dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        sizes = (obs_dim, *hidden)
+        kw = dict(dtype=dtype, device=device)
+        self.trunk = nn.ModuleList(nn.Linear(sizes[i], sizes[i + 1], **kw) for i in range(len(hidden)))
+        self.mu = nn.Linear(sizes[-1], action_dim, **kw)
+        self.value = nn.Linear(sizes[-1], 1, **kw)
+        self.log_std = nn.Parameter(torch.zeros(action_dim, **kw))
+
+    def forward(self, obs: torch.Tensor):
+        """``obs [..., F] -> (mu [..., A], log_std [A], value [...])``."""
+        x = obs
+        for layer in self.trunk:
+            x = torch.tanh(layer(x))
+        return self.mu(x), self.log_std, self.value(x)[..., 0]
+
+    def forward_pm(self, x: torch.Tensor):
+        """Plane-major ``forward``: ``x [F, B] -> (mu [A, B], log_std,
+        value [B])``, the layout the kernels' feature planes come in."""
+        for layer in self.trunk:
+            x = torch.tanh(torch.addmm(layer.bias[:, None], layer.weight, x))
+        mu = torch.addmm(self.mu.bias[:, None], self.mu.weight, x)
+        value = torch.addmm(self.value.bias[:, None], self.value.weight, x)[0]
+        return mu, self.log_std, value
+
+
+def init_params(cfg: PPOConfig, generator: torch.Generator | None = None, dtype=torch.float32,
+                device=None) -> ActorCritic:
+    """A policy with the JAX package's initial distributions: trunk weights
+    N(0, 2 / fan_in), ``mu`` weights N(0, 0.01^2), value weights N(0, 1),
+    zero biases and ``log_std``.  On ``device``: the card unless named."""
+    device = common.resolve_device(device)
+    policy = ActorCritic(cfg.obs_dim, cfg.hidden, cfg.action_dim, dtype=dtype, device=device)
+    gdev = generator.device if generator is not None else torch.device('cpu')
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator, device=gdev, dtype=dtype) * scale).to(device)
+
+    with torch.no_grad():
+        for layer in policy.trunk:
+            layer.weight.copy_(normal(layer.weight.shape, math.sqrt(2.0 / layer.in_features)))
+            layer.bias.zero_()
+        policy.mu.weight.copy_(normal(policy.mu.weight.shape, 0.01))
+        policy.mu.bias.zero_()
+        policy.value.weight.copy_(normal(policy.value.weight.shape, 1.0))
+        policy.value.bias.zero_()
+        policy.log_std.zero_()
+    return policy
+
+
+def params_from_numpy(tree: dict, device=None) -> ActorCritic:
+    """A policy from weights in the JAX package's layout (numpy leaves, e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``), on ``device`` (the card
+    unless named)."""
+    device = common.resolve_device(device)
+    ws = [np.asarray(layer['w']) for layer in tree['trunk']]
+    policy = ActorCritic(ws[0].shape[0], tuple(w.shape[1] for w in ws), np.asarray(tree['mu']['w']).shape[1],
+                         dtype=torch.tensor(ws[0][:0]).dtype, device=device)
+
+    def put(linear: nn.Linear, leaf: dict):
+        linear.weight.copy_(torch.tensor(np.asarray(leaf['w']).T))
+        linear.bias.copy_(torch.tensor(np.asarray(leaf['b'])))
+
+    with torch.no_grad():
+        for layer, leaf in zip(policy.trunk, tree['trunk']):
+            put(layer, leaf)
+        put(policy.mu, tree['mu'])
+        put(policy.value, tree['value'])
+        policy.log_std.copy_(torch.tensor(np.asarray(tree['log_std'])))
+    return policy
+
+
+def params_to_numpy(policy: ActorCritic) -> dict:
+    """The policy's weights in the JAX package's layout, as numpy arrays."""
+
+    def leaf(linear: nn.Linear) -> dict:
+        return {'w': linear.weight.detach().cpu().numpy().T.copy(), 'b': linear.bias.detach().cpu().numpy()}
+
+    return {'trunk': [leaf(layer) for layer in policy.trunk], 'mu': leaf(policy.mu), 'value': leaf(policy.value),
+            'log_std': policy.log_std.detach().cpu().numpy()}
+
+
+def apply(policy: ActorCritic, obs: torch.Tensor):
+    """``(mu, log_std, value)``, batched over the leading dims of ``obs``."""
+    return policy(obs)
+
+
+def apply_pm(policy: ActorCritic, x: torch.Tensor):
+    """Plane-major ``apply``: features ``[F, B]`` -> ``(mu [A, B], log_std,
+    value [B])``."""
+    return policy.forward_pm(x)
+
+
+def _noise(noise_or_generator, like: torch.Tensor) -> torch.Tensor:
+    """Given standard normals, or ones drawn like ``like`` from a generator
+    (on the generator's device, then moved)."""
+    if isinstance(noise_or_generator, torch.Tensor):
+        return noise_or_generator
+    gdev = noise_or_generator.device if noise_or_generator is not None else torch.device('cpu')
+    return torch.randn(like.shape, generator=noise_or_generator, device=gdev, dtype=like.dtype).to(like.device)
+
+
+def sample_action_pm(policy: ActorCritic, obs_pm: torch.Tensor, noise_or_generator, scale: float):
+    """Plane-major ``sample_action``: ``obs_pm [F, B] -> (action [A, B], raw
+    [A, B], logp [B], value [B])``; the exploration noise is given ``[A, B]``
+    or drawn from a ``torch.Generator``."""
+    mu, log_std, value = apply_pm(policy, obs_pm)
+    std = torch.exp(log_std)[:, None]
+    raw = mu + std * _noise(noise_or_generator, mu)
+    logp = (-0.5 * ((raw - mu) / std) ** 2 - log_std[:, None] - _HALF_LOG_2PI).sum(0)
+    return torch.clamp(raw, -scale, scale), raw, logp, value
+
+
+def sample_action(policy: ActorCritic, obs: torch.Tensor, noise_or_generator, scale: float):
+    """A Gaussian action: ``(clipped action, pre-clip raw sample, its
+    log-prob, value)``.  The PPO ratio is taken on the raw sample; clipping
+    only protects the env."""
+    mu, log_std, value = apply(policy, obs)
+    raw = mu + torch.exp(log_std) * _noise(noise_or_generator, mu)
+    return torch.clamp(raw, -scale, scale), raw, _gaussian_logp(raw, mu, log_std), value
+
+
+def _gaussian_logp(x, mu, log_std):
+    return (-0.5 * ((x - mu) / torch.exp(log_std)) ** 2 - log_std - _HALF_LOG_2PI).sum(-1)
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor  # [T, B, obs_dim]
+    raw_action: torch.Tensor  # [T, B, A] pre-clip sample (the policy's own variable)
+    logp: torch.Tensor  # [T, B]
+    value: torch.Tensor  # [T, B]
+    reward: torch.Tensor  # [T, B]
+    terminated: torch.Tensor  # [T, B]
+    truncated: torch.Tensor  # [T, B]
+    final_value: torch.Tensor  # [T, B] V(final_observation), the bootstrap at truncations
+
+
+def compute_gae(traj: Transition, last_value: torch.Tensor, gamma: float, lam: float):
+    """GAE over a ``[T, B]`` trajectory, last step first.
+
+    Truncation is not termination: a truncated step bootstraps with
+    V(final_observation), a terminated one with 0; the advantage chain cuts
+    at every episode boundary (the next state belongs to a new episode)."""
+    gae = torch.zeros_like(last_value)
+    next_value = last_value
+    advantages = torch.empty_like(traj.value)
+    for t in range(traj.value.shape[0] - 1, -1, -1):
+        term = traj.terminated[t].to(traj.value.dtype)
+        trunc = traj.truncated[t].to(traj.value.dtype)
+        episode_continues = 1.0 - term - trunc + term * trunc  # 1 - (term | trunc)
+        bootstrap = (1.0 - term) * torch.where(traj.truncated[t], traj.final_value[t], next_value)
+        delta = traj.reward[t] + gamma * bootstrap - traj.value[t]
+        gae = delta + gamma * lam * episode_continues * gae
+        advantages[t] = gae
+        next_value = traj.value[t]
+    return advantages, advantages + traj.value
+
+
+def ppo_loss(policy: ActorCritic, cfg: PPOConfig, batch) -> torch.Tensor:
+    """Clipped-surrogate PPO loss (policy + value + entropy terms) over
+    ``(obs, raw_action, old_logp, advantages, returns)``.  The advantages are
+    normalised by their population std (``correction=0``), as ``jnp.std``."""
+    obs, raw_action, old_logp, advantages, returns = batch
+    mu, log_std, value = apply(policy, obs)
+    ratio = torch.exp(_gaussian_logp(raw_action, mu, log_std) - old_logp)
+    adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
+    v_loss = ((value - returns) ** 2).mean()
+    entropy = (log_std + _HALF_LOG_2PIE).sum()
+    return pg + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
+
+
+def make_optimizer(cfg: PPOConfig) -> Callable[[ActorCritic], torch.optim.Adam]:
+    """``policy -> torch.optim.Adam`` with ``optax.adam``'s defaults (betas
+    0.9 / 0.999, eps 1e-8 outside the root): the same update formula."""
+    return lambda policy: torch.optim.Adam(policy.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _update(policy: ActorCritic, optimizer, cfg: PPOConfig, flat) -> torch.Tensor:
+    """``update_epochs`` full-batch Adam steps on ``ppo_loss``; the last loss."""
+    for _ in range(cfg.update_epochs):
+        optimizer.zero_grad(set_to_none=True)
+        loss = ppo_loss(policy, cfg, flat)
+        loss.backward()
+        optimizer.step()
+    return loss.detach()
+
+
+def _flatten(traj: Transition, advantages, returns):
+    return tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in (traj.obs, traj.raw_action, traj.logp, advantages,
+                                                                 returns))
+
+
+def _metrics(loss, traj: Transition) -> dict:
+    return {'loss': loss, 'reward_mean': traj.reward.mean(),
+            'done_rate': (traj.terminated | traj.truncated).to(torch.float32).mean()}
+
+
+def make_train_step_reactive(cfg: PPOConfig, make_rollout):
+    """PPO train step over a plane-form reactive rollout
+    (``models/*.make_reactive_rollout``): the env state stays in the
+    kernels' plane layout for the whole rollout, and the policy runs between
+    kernel launches on the feature planes the kernels emit.
+
+    ``make_rollout(policy_step)`` returns the reactive rollout built with
+    ``num_steps=cfg.rollout_steps``, e.g.::
+
+        train_step, make_opt = ppo.make_train_step_reactive(
+            cfg, lambda ps: pushing.make_reactive_rollout(
+                config, params, ps, cfg.rollout_steps, dense_reward=True))
+        runner = (state, policy, make_opt(policy), generator, 0)
+        runner, metrics = train_step(runner)
+
+    Returns ``(train_step, make_optimizer)``.  The runner is ``(env_state,
+    policy, optimizer, generator, seed)``: ``seed`` keys the kernels' Philox
+    streams and advances by ``rollout_steps`` per iteration; the exploration
+    noise ``[T, A, B]`` is drawn from ``generator`` once per iteration, or
+    given as ``train_step(runner, eps=...)``.  The policy and the optimizer
+    are updated in place.  Metrics are 0-dim tensors: ``loss`` (last
+    epoch), ``reward_mean``, ``done_rate``."""
+
+    def policy_step(policy, noise_or_generator, obs_pm):
+        # plane-major: features [F, B] in, actions [A, B] out
+        action, raw, logp, value = sample_action_pm(policy, obs_pm, noise_or_generator, cfg.action_scale)
+        return action, (raw, logp, value)
+
+    reactive_rollout = make_rollout(policy_step)
+
+    def train_step(runner, eps: torch.Tensor | None = None):
+        env_state, policy, optimizer, generator, seed = runner
+        device = env_state.pos.device
+        if eps is None:
+            gdev = generator.device if generator is not None else torch.device('cpu')
+            eps = torch.randn((cfg.rollout_steps, cfg.action_dim, env_state.pos.shape[0]), generator=generator,
+                              device=gdev, dtype=torch.float32).to(device)
+        with torch.no_grad():
+            env_state, traj_t, last_obs_vec = reactive_rollout(env_state, policy, generator, seed, policy_xs=eps)
+            obs_vec, (raw, logp, value), reward, term, trunc, final_vec = traj_t
+            _, _, last_value = apply(policy, last_obs_vec)
+            _, _, final_value = apply(policy, final_vec)
+            traj = Transition(obs=obs_vec, raw_action=raw, logp=logp, value=value, reward=reward.to(torch.float32),
+                              terminated=term, truncated=trunc, final_value=final_value)
+            advantages, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
+        loss = _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
+        return (env_state, policy, optimizer, generator, seed + cfg.rollout_steps), _metrics(loss, traj)
+
+    train_step.policy_step = policy_step
+    return train_step, make_optimizer(cfg)
+
+
+def make_train_step(
+    env_config,
+    env_params,
+    cfg: PPOConfig,
+    step_autoreset_fn: Callable | None = None,
+    obs_to_vec: Callable | None = None,
+    batched_step_fn: Callable | None = None,
+):
+    """``train_step(runner) -> (runner, metrics)``: one rollout of
+    ``cfg.rollout_steps`` batched env steps, then the PPO updates.
+
+    ``batched_step_fn(state, action) -> (state, obs, reward, terminated,
+    truncated, info)`` is an already-batched autoreset step, such as a
+    ``make_fused_step_autoreset`` of the port.  ``step_autoreset_fn`` (a
+    per-env eager step) raises ``NotImplementedError``: the eager steps are
+    not ported yet (``ROADMAP.md``).  The runner is ``(env_state, obs_vec,
+    policy, optimizer, generator)``; returns ``(train_step,
+    make_optimizer)``."""
+    if batched_step_fn is None:
+        if step_autoreset_fn is None:
+            raise ValueError('pass step_autoreset_fn or batched_step_fn')
+        raise NotImplementedError('step_autoreset_fn needs the eager step, which is not ported yet (ROADMAP.md); '
+                                  'pass batched_step_fn')
+
+    if obs_to_vec is None:
+        def obs_to_vec(obs):
+            return torch.cat([obs['observation'], obs['achieved_goal'], obs['desired_goal']], -1).to(torch.float32)
+
+    def train_step(runner):
+        env_state, obs_vec, policy, optimizer, generator = runner
+        steps = []
+        with torch.no_grad():
+            for _ in range(cfg.rollout_steps):
+                action, raw, logp, value = sample_action(policy, obs_vec, generator, cfg.action_scale)
+                env_state, obs, reward, terminated, truncated, info = batched_step_fn(env_state, action)
+                _, _, final_value = apply(policy, obs_to_vec(info['final_observation']))
+                steps.append(Transition(obs=obs_vec, raw_action=raw, logp=logp, value=value,
+                                        reward=reward.to(torch.float32), terminated=terminated, truncated=truncated,
+                                        final_value=final_value))
+                obs_vec = obs_to_vec(obs)
+            traj = Transition(*(torch.stack(leaf) for leaf in zip(*steps)))
+            _, _, last_value = apply(policy, obs_vec)
+            advantages, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
+        loss = _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
+        return (env_state, obs_vec, policy, optimizer, generator), _metrics(loss, traj)
+
+    return train_step, make_optimizer(cfg)

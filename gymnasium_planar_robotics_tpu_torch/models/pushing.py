@@ -1,11 +1,12 @@
 """BenchmarkPushingEnv in PyTorch: one mover pushes a box to a goal.
 
 Counterpart of ``gymnasium_planar_robotics_tpu/models/pushing.py`` for the
-fused serving path: ``make_pushing_env``, ``reset`` / ``init_batch``, the
-per-step fused APIs ``make_fused_step`` and ``make_fused_step_autoreset``,
-and the plane-form rollout ``make_fused_rollout``.  The fused paths run the
-CUDA kernels of ``ops/kernels/pushing`` on CUDA tensors and their plain
-PyTorch versions on CPU tensors.
+fused serving and training paths: ``make_pushing_env``, ``reset`` /
+``init_batch``, the per-step fused APIs ``make_fused_step`` and
+``make_fused_step_autoreset``, the plane-form rollout ``make_fused_rollout``
+and the policy-in-the-loop ``make_reactive_rollout`` (PPO's training
+rollout).  The fused paths run the CUDA kernels of ``ops/kernels/pushing``
+on CUDA tensors and their plain PyTorch versions on CPU tensors.
 
 Differences from the JAX package, by design:
 
@@ -35,6 +36,7 @@ from gymnasium_planar_robotics_tpu_torch.models import common
 from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid, make_tile_grid
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import circle_valid_full
 
@@ -476,15 +478,12 @@ def make_fused_step(config: PushingConfig, params: PushingParams):
     return step_fn
 
 
-def make_fused_step_autoreset(config: PushingConfig, params: PushingParams, cand_k: int = 32,
-                              emit_features: bool = False):
+def make_fused_step_autoreset(config: PushingConfig, params: PushingParams, cand_k: int = 32):
     """Fused pushing step + episode restart in one launch of kernel C
     (cycles, termination, restart sampling, both observations).  A stalled
     restart leaves the env un-reset and reports ``info['reset_stalled']``
     (retried next step).  Same signature as ``make_fused_step``."""
     _require_sparse(config)
-    if emit_features:
-        raise NotImplementedError('emit_features comes with the reactive rollout (ROADMAP.md)')
     kc = kpush.make_kernel_consts(config, params, cand_k)
     limit = _limit(config, params)
     thr = float(params.threshold_pos)
@@ -574,13 +573,82 @@ def make_fused_rollout(config: PushingConfig, params: PushingParams, cand_k: int
     _require_sparse(config)
     kc = kpush.make_kernel_consts(config, params, cand_k)
 
-    def _gen(planes, seed):
-        return torch.Generator(device='cpu').manual_seed(seed) if planes.device.type == 'cpu' else None
-
     def step_impl(planes, action, seed):
-        return kpush.pushing_autoreset(planes, action, kc, seed=seed, generator=_gen(planes, seed))
+        return kpush.pushing_autoreset(planes, action, kc, seed=seed, generator=common.seeded_generator(planes, seed))
 
     def chunk_impl(planes, actions, seed):
-        return kpush.pushing_rollout(planes, actions, kc, seed=seed, generator=_gen(planes, seed))
+        return kpush.pushing_rollout(planes, actions, kc, seed=seed, generator=common.seeded_generator(planes, seed))
 
     return _make_rollout(config, params, steps_per_launch, step_impl, chunk_impl)
+
+
+def make_reactive_rollout(config: PushingConfig, params: PushingParams, policy_step, num_steps: int,
+                          cand_k: int = 32, dense_reward: bool = False):
+    """Plane-form rollout driven by a policy in the loop: the state stays in
+    the kernels' ``[19, B]`` plane layout across all steps, as in
+    ``make_fused_rollout``, while ``policy_step`` picks each action from the
+    12 observation features that kernel C-feat emits beside its planes.
+
+    ``policy_step(pol, noise_or_generator, obs_pm [12, B]) -> (action [2, B],
+    aux)``: plane-major on both sides (``ppo.apply_pm``); the features are
+    the training recipes' layout (mover position and velocity, achieved,
+    goal, achieved - mover, goal - achieved); ``aux`` is a tensor or a
+    (nested) tuple of tensors, batch last (PPO's ``(raw [A, B], logp [B],
+    value [B])``).  Step ``t`` gets ``policy_xs[t]`` when ``policy_xs`` is
+    given (e.g. PPO's pre-drawn exploration noise ``[T, A, B]``), else the
+    rollout's ``generator``.
+
+    Returns ``rollout(state, pol, generator, seed, policy_xs=None) ->
+    (final state, traj, last_obs_vec [B, 12])`` with ``traj = (obs_vec [T,
+    B, 12], aux [T, B, ...], reward [T, B], terminated [T, B], truncated [T,
+    B], final_vec [T, B, 12])``; ``final_vec`` is the pre-reset
+    observation's features (the truncation bootstrap).  ``reward`` is the
+    sparse scoring, or with ``dense_reward`` the training shaping of
+    ``reward_mode='dense'``, both from the pre-reset feature block.  As in
+    the JAX package, the first observation is noise-free (assembled from the
+    state planes) and step ``t`` launches kernel C-feat with seed ``seed +
+    t``; on CPU tensors its plain version draws from a generator seeded the
+    same way.  Acceleration mode and f32 only, as in the JAX package."""
+    if config.learn_jerk:
+        raise ValueError('the reactive rollout runs in acc mode only (the 12-feature recipe layout)')
+    if params.v_max.dtype != torch.float32:
+        raise ValueError('the reactive rollout runs in f32 only: the f64 parity mode has no fused kernel')
+    kc = kpush.make_kernel_consts(config, params, cand_k)
+    a_max, thr = float(params.a_max), float(params.threshold_pos)
+    max_steps = float(config.max_episode_steps)
+
+    def rollout(state: PushingState, pol, generator, seed: int, policy_xs=None):
+        planes = state_to_planes(state)
+        feat0 = kpush.feature_block(*planes[0:4], planes[8], planes[9], planes[16], planes[17])
+        feat, auxs, blocks, walls, steps = feat0, [], [], [], []
+        for t in range(num_steps):
+            action, aux = policy_step(pol, generator if policy_xs is None else policy_xs[t], feat)
+            action = torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous()
+            out, block = kpush.pushing_autoreset(planes, action, kc, seed=seed + t, emit_features=True,
+                                                 generator=common.seeded_generator(planes, seed + t))
+            auxs.append(aux)
+            blocks.append(block)
+            walls.append(out[33])
+            steps.append(planes[18])
+            planes, feat = out[:19], block[0]
+        # rewards and flags once per rollout over [T, B] (they do not feed
+        # back into the loop): fewer launches per step on the card
+        blocks = torch.stack(blocks)  # [T, 2, 12, B]
+        fin = blocks[:, 1]
+        d_og = sqrt(fin[:, 10] * fin[:, 10] + fin[:, 11] * fin[:, 11])  # old goal - achieved
+        reached = d_og <= thr
+        term = torch.stack(walls) > 0.5
+        if dense_reward:
+            d_mo = sqrt(fin[:, 8] * fin[:, 8] + fin[:, 9] * fin[:, 9])  # achieved - mover
+            approach = -0.3 * torch.clamp(d_mo - 0.105, min=0.0)
+            retreat = 0.5 * torch.clamp(d_mo, max=0.15)
+            shaped = -d_og + torch.where(reached, retreat, approach)
+            reward = torch.where(term, REWARD_WALL_COLLISION, shaped)
+        else:
+            reward = torch.where(term, REWARD_WALL_COLLISION, torch.where(reached, 0.0, -1.0))
+        trunc = torch.stack(steps) + 1.0 >= max_steps
+        obs = torch.cat([feat0[None], blocks[:-1, 0]])
+        traj = (obs.transpose(1, 2), common.stack_batch_last(auxs), reward, term, trunc, fin.transpose(1, 2))
+        return planes_to_state(planes), traj, feat.T
+
+    return rollout

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 LAUNCHES = {
-    'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_rollout': 0,
+    'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_autoreset_features': 0,
+    'pushing_rollout': 0,
     'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0, 'planning_multi_autoreset': 0,
 }
 

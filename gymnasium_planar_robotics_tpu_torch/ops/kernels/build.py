@@ -126,8 +126,9 @@ def lib() -> ctypes.CDLL:
         handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p]
         handle.gprt_pushing_cycles.restype = i32
         handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, u64, p]
+        # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, seed, stream)
         handle.gprt_pushing_autoreset.restype = i32
-        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, i64, p, i32, i32, i32, u64, p]
+        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, u64, p]
         handle.gprt_pushing_rollout.restype = i32
         handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, u64, p]
         # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, stream)

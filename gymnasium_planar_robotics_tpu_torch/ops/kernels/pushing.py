@@ -6,7 +6,8 @@ Counterpart of ``gymnasium_planar_robotics_tpu/ops/pallas_step.py``:
   (one env step of ``num_cycles`` control cycles, no restart);
 - kernel C, ``pushing_autoreset``: ``_pushing_autoreset_kernel`` /
   ``_pushing_autoreset_step`` (cycles, termination, observations, in-kernel
-  restart);
+  restart); with ``emit_features`` (C-feat) also the two ``[12, B]`` policy
+  feature blocks of the reactive rollout (``pallas_step.py:1066-1078``);
 - kernel D, ``pushing_rollout``: ``_pushing_rollout_kernel`` (K autoreset
   steps in one launch).
 
@@ -46,6 +47,7 @@ CONST_FIELDS = (
 
 N_STATE = 19  # autoreset state planes
 N_AUTORESET_OUT = 36  # 19 state + post-reset obs 6 + pre-reset obs 8 + wall, stalled, trials
+N_FEATURES = 12  # rows of one policy feature block
 
 
 def cycles_noise_planes(num_cycles: int) -> int:
@@ -420,14 +422,33 @@ def pushing_cycles_plain(planes: torch.Tensor, kc: KernelConsts, uniforms: torch
     return torch.stack(phys + [wall])
 
 
+def feature_block(mpx, mpy, mvx, mvy, agx, agy, gx, gy) -> torch.Tensor:
+    """One ``[12, B]`` policy feature block, the training recipes' layout
+    (``tools/transfer_eval._pushing_vec``): mover position and velocity,
+    achieved, goal, achieved - mover, goal - achieved."""
+    return torch.stack([mpx, mpy, mvx, mvy, agx, agy, gx, gy, agx - mpx, agy - mpy, gx - agx, gy - agy])
+
+
+def features_from_planes(state: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """C-feat's ``[2, 12, B]`` feature blocks from kernel C's input state
+    ``[19, B]`` and its 36 output planes: block 0 the post-reset observation
+    with the (possibly new) goal, block 1 the pre-reset observation with the
+    goal the step started from (``pallas_step.py:1073-1078``)."""
+    post = feature_block(*out[19:25], out[16], out[17])
+    pre = feature_block(*out[25:31], state[16], state[17])
+    return torch.stack([post, pre])
+
+
 def pushing_autoreset_plain(state: torch.Tensor, action: torch.Tensor, kc: KernelConsts,
-                            uniforms: torch.Tensor) -> torch.Tensor:
+                            uniforms: torch.Tensor, emit_features: bool = False):
     """Plain version of kernel C: ``[19, B]`` state + ``[2, B]`` action ->
-    the 36 output planes ``[36, B]``."""
+    the 36 output planes ``[36, B]``; with ``emit_features`` (C-feat) also
+    the ``[2, 12, B]`` feature blocks (``features_from_planes``)."""
     noise = UniformStream(uniforms)
     new_st, aux = _autoreset_step_plain(kc, noise, list(state), action[0], action[1])
     noise.finalize()
-    return torch.stack(new_st + aux[:15] + aux[17:])
+    out = torch.stack(new_st + aux[:15] + aux[17:])
+    return (out, features_from_planes(state, out)) if emit_features else out
 
 
 def pushing_rollout_plain(state: torch.Tensor, actions: torch.Tensor, kc: KernelConsts,
@@ -473,21 +494,27 @@ def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0) 
     return out
 
 
-def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
-    """Kernel C on the card."""
+def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int = 0,
+                           emit_features: bool = False):
+    """Kernel C on the card; with ``emit_features`` its C-feat variant,
+    which also writes the ``[2, 12, B]`` feature blocks and counts under its
+    own ``LAUNCHES`` key."""
     b = state.shape[1]
     kernels.check_plane(state, 'state', (N_STATE, b))
     kernels.check_plane(action, 'action', (2, b))
     noise_ptr = kernels.noise_ptr(uniforms, autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
     out = torch.empty((N_AUTORESET_OUT, b), dtype=torch.float32, device=state.device)
+    feat = torch.empty((2, N_FEATURES, b), dtype=torch.float32, device=state.device) if emit_features else None
     with torch.cuda.device(state.device):
         err = build.lib().gprt_pushing_autoreset(
-            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, _consts_ptr(kc),
-            kc.num_cycles, kc.cand_k, int(kc.learn_jerk), seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), feat.data_ptr() if emit_features else None,
+            b, _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), seed & 0xFFFFFFFFFFFFFFFF,
+            kernels.stream_ptr(out),
         )
-    build.check(err, 'pushing_autoreset')
-    kernels.LAUNCHES['pushing_autoreset'] += 1
-    return out
+    name = 'pushing_autoreset_features' if emit_features else 'pushing_autoreset'
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return (out, feat) if emit_features else out
 
 
 def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: int = 0):
@@ -522,11 +549,13 @@ def pushing_cycles(planes, kc: KernelConsts, *, uniforms=None, seed: int | None 
                             lambda u, s: pushing_cycles_cuda(planes, kc, u, s))
 
 
-def pushing_autoreset(state, action, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
-    """Kernel C, or its plain version on CPU tensors."""
+def pushing_autoreset(state, action, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None,
+                      emit_features: bool = False):
+    """Kernel C, or its plain version on CPU tensors: ``out [36, B]``, or
+    ``(out, feat [2, 12, B])`` with ``emit_features`` (C-feat)."""
     return kernels.dispatch((state, action), autoreset_noise_planes(kc.num_cycles, kc.cand_k), uniforms, seed,
-                            generator, lambda u: pushing_autoreset_plain(state, action, kc, u),
-                            lambda u, s: pushing_autoreset_cuda(state, action, kc, u, s))
+                            generator, lambda u: pushing_autoreset_plain(state, action, kc, u, emit_features),
+                            lambda u, s: pushing_autoreset_cuda(state, action, kc, u, s, emit_features))
 
 
 def pushing_rollout(state, actions, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):

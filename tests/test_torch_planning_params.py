@@ -243,8 +243,9 @@ def test_default_device_is_the_card():
 def test_not_ported_paths_raise():
     """What still raises: ``make_fused_step`` with M > 1 (the JAX package has
     no such path either), more movers than kernel H is instantiated for, f64
-    on the fused paths, mesh movers, the eager steps and the reactive
-    rollout; and dense rewards on the fused rollout."""
+    on the fused paths, mesh movers and the eager steps; dense rewards on the
+    fused rollout; and what the reactive rollout does not cover in the JAX
+    package either (M > 1, jerk, f64)."""
     cfg2, prm2 = tplan.make_planning_env(FULL, 2, device='cpu')
     with pytest.raises(NotImplementedError, match='no M-mover make_fused_step'):
         tplan.make_fused_step(cfg2, prm2)
@@ -265,8 +266,13 @@ def test_not_ported_paths_raise():
     for fn in (tplan.step, tplan.step_autoreset, tplan.batched_step):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             fn(cfg, prm, None, None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tplan.make_reactive_rollout(cfg, prm, None, 4)
+    # the reactive rollout's own limits, as the JAX function asserts them:
+    # 1 mover, acc mode, f32
+    for (c, p), what in (((cfg2, prm2), '1 mover'),
+                         (tplan.make_planning_env(FULL, 1, learn_jerk=True, device='cpu'), 'acc mode'),
+                         (tplan.make_planning_env(FULL, 1, dtype=torch.float64, device='cpu'), 'f32')):
+        with pytest.raises(ValueError, match=what):
+            tplan.make_reactive_rollout(c, p, None, 4)
     cfg_d, prm_d = tplan.make_planning_env(FULL, 1, reward_mode='dense', device='cpu')
     with pytest.raises(ValueError, match='sparse reward'):
         tplan.make_fused_rollout(cfg_d, prm_d)

@@ -189,8 +189,11 @@ def test_unported_shapes_raise(kwargs):
 
 
 def test_emit_features_raises():
+    """The public step takes no ``emit_features``, as the JAX package's
+    (the flag lives on the kernel wrapper, ``kpush.pushing_autoreset``, and
+    the reactive rollout sets it)."""
     cfg, prm = tpush.make_pushing_env(num_cycles=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='emit_features'):
+    with pytest.raises(TypeError, match='emit_features'):
         tpush.make_fused_step_autoreset(cfg, prm, emit_features=True)
 
 
