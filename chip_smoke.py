@@ -65,14 +65,32 @@ phase:
 15. PPO learns on the card: 1-mover planning (3x3, ``a_max`` 3, dense
    shaping, (64, 64) trunk, 16 rollout steps, lr 1e-3, 256 envs), 110
    train steps over ``planning.make_reactive_rollout``; the mean reward of
-   the last 10 steps beats that of the first 10 by more than 0.3.
+   the last 10 steps beats that of the first 10 by more than 0.3;
+16. kernel I (the roofline's peak probes) against its plain version at a
+   small K, then ``utils/roofline.microbench_peaks``: the f32 FMA TFLOP/s,
+   the transcendental Gop/s and the HBM GB/s beside the published peaks,
+   counters set to 0 before and read after;
+17. ``utils/roofline.roofline`` on the pushing (kernel D, K=32), planning
+   (kernel G, K=32) and 4-mover (kernel H) rates at 4096 envs of phases 5,
+   8 and 11;
+18. the eager steps on the card: pushing's ``step`` against kernel B, and
+   planning's (1 and 4 movers) against kernels E and H, at 4096 envs and
+   ``std_noise=0``; ``step_autoreset`` of both families for 64 steps at 2048
+   envs, counters set to 0 before and read after, ms and host share per
+   step, CUDA launches per step (``utils/profiling.trace``) and the host
+   synchronisations in a step, beside the fused step;
+19. the PPO recipe on the eager step: ``tools/train_push_strong.train``
+   (recipe ``baseline``) at 2048 envs for a few iterations with one strict
+   eval of 1024 episodes, and the train step split into rollout and update.
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread.  The line
-before the last is a JSON object with one entry per kernel (A-H, C-feat): its
+before the last is a JSON object with one entry per kernel (A-H, C-feat and
+I's two probes): its
 launches on its path, its largest error against the plain version (both
-noise modes), its time in the mode its path launches (Philox), the plain
-version's time, and its bound in that mode:
+noise modes), its time in the mode its path launches (Philox; kernel A:
+the injected uniforms its path's generator draws), the plain version's
+time, and its bound in that mode:
 the larger of its bytes (state, action and output planes; the Philox mode
 reads no uniforms) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 counted from this run's inputs (Philox's integer work is not counted, so
@@ -88,11 +106,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -116,58 +137,26 @@ KERNELS = {
     # kernel C's emit_features branch (in _pushing_autoreset_kernel)
     'pushing_autoreset_features': ('csrc/pushing_autoreset.cu',
                                    'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1066'),
+    # kernel I: the roofline's peak probes, launched through bench.py:550
+    'peak_fma': ('csrc/peaks.cu', 'bench.py:523'),
+    'peak_transc': ('csrc/peaks.cu', 'bench.py:531'),
 }
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
 MULTI_KERNELS = ('planning_multi_autoreset',)
 TRAIN_KERNELS = ('pushing_autoreset_features',)
+PEAK_KERNELS = ('peak_fma', 'peak_transc')
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
 TRAIN_STEPS = 20
+B_EAGER, T_EAGER = 2048, 64  # the eager step_autoreset's run
+EAGER_ITERS = 3  # iterations of the PPO recipe on the eager step
+K_G_CHECK = 8  # kernel G's steps held against its plain version (but the timed run's K_MAIN)
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-
-# f32 operations per env, counted from the CUDA sources (one per add, mul,
-# compare, select, min/max, logic op; one per division, square root, log,
-# cos and sin, which are also counted apart as "special").  Per control
-# cycle: pushing (velocity noise, clamp chain, contact, mover z, object
-# friction, noisy full-layout wall check, latch); planning by actuation and
-# collision shape with the full-layout rule, plus the extra of the holed
-# rule (nine cells' cover tests and one covered cell's edge tests; the
-# missing-corner segment tests are not counted, so the count is a floor).
-OPS = {
-    'normal_pair': (5, 4),
-    'pushing_cycle': (268, 30),
-    'pushing_step_extra': (110, 26),  # observations, termination, restart selects
-    'pushing_candidate': (16, 1),  # one object candidate of the restart (all cand_k are drawn and tested)
-    'pushing_features': (8, 0),  # C-feat: the four differences of each of the two feature blocks
-    'planning_cycle_acc': (87, 13),
-    'planning_cycle_jerk': (116, 20),
-    'planning_box_extra': (103, 11),
-    'planning_holed_extra_circle': (72, 0),
-    'planning_holed_extra_box': (95, 0),
-    'planning_step_extra': (67, 17),  # observations, termination, restart selects
-    'planning_candidate_circle': (36, 0),  # one tested start/goal candidate
-    'planning_candidate_box': (89, 0),
-    # kernel H (csrc/planning_multi.cuh), per mover per cycle on top of a
-    # planning cycle (whose counts include the mover's wall check): the
-    # pair-test pose (a normal pair, two multiply-adds), for the box its
-    # noisy rotation (two normal pairs, quat_to_R2)
-    'multi_pair_pose': (9, 4),
-    'multi_pair_pose_box_extra': (50, 11),
-    'multi_pair_circle': (7, 1),  # one pair test per cycle
-    'multi_pair_box': (71, 0),  # SAT minus containment
-    'multi_step_mover': (43, 17),  # both observations and the goal test of one mover
-    'multi_step_env': (10, 0),  # termination, flags, trials
-    'multi_candidate_mover_circle': (34, 0),  # one mover of a tested candidate set: draws, wall test
-    'multi_candidate_mover_box': (87, 0),
-    'multi_candidate_pair_circle': (7, 1),  # one pair of a tested set (start or goal test)
-    'multi_candidate_pair_box': (21, 0),  # identity-orientation SAT (start sets)
-}
-
 
 class PhaseError(AssertionError):
     pass
@@ -247,20 +236,35 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def ops_total(*terms) -> float:
-    """Sum of ``count * OPS[name]`` over (count, name) terms, special
-    functions included."""
-    return float(sum(n * sum(OPS[name]) for n, name in terms))
-
-
-def planning_cycle_ops(box: bool, full: bool, jerk: bool) -> tuple:
-    """(count, name) terms of one planning control cycle."""
-    terms = [(1, 'planning_cycle_jerk' if jerk else 'planning_cycle_acc')]
-    if box:
-        terms.append((1, 'planning_box_extra'))
-    if not full:
-        terms.append((1, 'planning_holed_extra_box' if box else 'planning_holed_extra_circle'))
-    return terms
+def sass_loop_counts(lib_path: str, kernel: str) -> dict:
+    """FP32 and MUFU instructions per chain step in the main loop of
+    ``kernel`` (a substring of its mangled name) of the built library, from
+    ``cuobjdump -sass``: the instructions between the widest backward
+    branch and its target, over that loop's count of ``FMUL`` by 0.49 (the
+    step's first operation, rounded on its own: one per step, so the
+    loop's unrolling cancels out)."""
+    cuobjdump = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    text = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True, check=True).stdout
+    body, inside = [], False
+    for ln in text.splitlines():
+        if 'Function : ' in ln:
+            inside = kernel in ln
+            continue
+        m = re.search(r'/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);', ln)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in body:
+        t = re.match(r'\s*(0x[0-9a-f]+|\d+)', args) if op.startswith('BRA') else None
+        if t and int(t.group(1), 0) < addr:
+            loops.append((int(t.group(1), 0), addr))
+    lo, hi = max(loops, key=lambda r: r[1] - r[0])
+    loop = [(op, args) for addr, op, args in body if lo <= addr <= hi]
+    fp32 = sum(op.split('.')[0] in ('FFMA', 'FADD', 'FMUL', 'FMNMX', 'FSETP', 'FSEL', 'FSET') for op, _ in loop)
+    mufu = sum(op.startswith('MUFU') for op, _ in loop)
+    steps = sum(op.startswith('FMUL') and '0.4900000' in args for op, args in loop)
+    return {'fp32_per_step': fp32 / steps, 'mufu_per_step': mufu / steps, 'steps_in_loop': steps,
+            'loop_instructions': len(loop)}
 
 
 def planted_state(P, config, params, b: int, gen, vel=(0.4, 0.0)):
@@ -291,6 +295,7 @@ def main() -> int:
     from gymnasium_planar_robotics_tpu_torch.ops import kernels
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, noise
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kp
+    from gymnasium_planar_robotics_tpu_torch.utils.roofline import OPS, multi_env_terms, ops_total, planning_cycle_ops
 
     dev = torch.device(DEVICE)
     report: dict = {'phases': {}}
@@ -375,17 +380,20 @@ def main() -> int:
         require(ok_m, f'Philox stream at the main shape disagrees with its host copy: {err_m}')
         u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
         ms, ms_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7))
-        injected_ms, _ = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
+        injected_ms, injected_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
         ops = ops_total((3 * B_MAIN, 'normal_pair'))
         bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
-        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph, err_m), ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by)
+        # the path draws A's uniforms from its generator (no seed to fetch
+        # from the card): the kernels line reports the injected mode
+        injected_bound_ms, injected_bound_by = bound(12 * 4 * B_MAIN, ops)
+        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph, err_m), ms=injected_ms, plain_ms=plain_ms,
+                                     bound_ms=injected_bound_ms, bound_by=injected_bound_by)
         return {'max_abs_err_injected': err_inj, 'max_abs_err_philox': max(err_ph, err_m),
                 'tol': 'atol 2e-6 + rtol 2e-6', 'philox_samples': 2 * n_env, 'mean': mean, 'std': std,
                 'p_abs_gt_2': tail, 'ms': ms, 'ms_groups': ms_groups, 'ms_spread': spread(ms_groups),
                 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
-                'injected_ms': injected_ms, 'injected_bound_ms': bound(12 * 4 * B_MAIN, ops)[0]}
+                'injected_ms': injected_ms, 'injected_groups': injected_groups, 'injected_bound_ms': injected_bound_ms}
 
     # -- 3. kernels B, C, D ---------------------------------------------------
     config, params = P.make_pushing_env(device=dev)
@@ -762,6 +770,9 @@ def main() -> int:
     @phase('kernel_G_planning_rollout')
     def _():
         res = {}
+        def episode_ends(sig):
+            return int(((sig[0] > 0.5) | (sig[1] > 0.5) | (sig[2] > 0.5)).sum())
+
         for name in plan_configs:
             cfg, prm = plan_env(name)
             kc = kpl.make_kernel_consts(cfg, prm)
@@ -770,20 +781,24 @@ def main() -> int:
             n_noise = kpl.autoreset_noise_planes(cfg.num_cycles, kc.cand_k, kc.box)
             u = torch.rand((K_MAIN * n_noise, B_MAIN), generator=gen, device=dev)
             entry = {'max_abs_err': 0.0}
-            for mode, (got_st, got_sig), (ref_st, ref_sig) in (
-                    ('injected', kpl.planning_rollout_cuda(st, acts, kc, u),
-                     kpl.planning_rollout_plain(st, acts, kc, u)),
-                    ('philox', kpl.planning_rollout_cuda(st, acts, kc, None, 7),
-                     kpl.planning_rollout_plain(st, acts, kc, philox(7, K_MAIN * n_noise, B_MAIN)))):
+            # the plain rollout is the phase's cost: K_G_CHECK steps, but the
+            # main configuration's Philox mode (the timed run) K_MAIN
+            k_philox = K_MAIN if name == 'circle_full' else K_G_CHECK
+            for mode, k, u_k, seed in (('injected', K_G_CHECK, u[:K_G_CHECK * n_noise], None),
+                                       ('philox', k_philox, philox(7, k_philox * n_noise, B_MAIN), 7)):
+                a = acts[:k]
+                got_st, got_sig = (kpl.planning_rollout_cuda(st, a, kc, None, seed) if seed
+                                   else kpl.planning_rollout_cuda(st, a, kc, u_k))
+                ref_st, ref_sig = kpl.planning_rollout_plain(st, a, kc, u_k)
                 d_state = (got_st - ref_st).abs()
                 env_ok = (d_state <= plan_atol + plan_rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0)
                 frac = float(env_ok.double().mean())
                 require(bool(torch.isfinite(got_st).all()), f'{name} ({mode}): kernel G state is not finite')
-                require(frac >= 0.99, f'{name} ({mode}): only {frac:.4f} of envs agree over {K_MAIN} steps')
-                ends = int(((got_sig[0] > 0.5) | (got_sig[1] > 0.5) | (got_sig[2] > 0.5)).sum())
+                require(frac >= 0.99, f'{name} ({mode}): only {frac:.4f} of envs agree over {k} steps')
                 entry['max_abs_err'] = max(entry['max_abs_err'], float(d_state.max()))
-                entry[mode] = {'envs_agreeing': frac, 'episode_ends': ends}
+                entry[mode] = {'k': k, 'envs_agreeing': frac, 'episode_ends': episode_ends(got_sig)}
             if name == 'circle_full':
+                entry['injected']['episode_ends_k_main'] = episode_ends(kpl.planning_rollout_cuda(st, acts, kc, u)[1])
                 injected_ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, u), 5)
                 ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), 5)
                 plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1)
@@ -796,7 +811,7 @@ def main() -> int:
                                            ops(entry['philox']['episode_ends']))
                 entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
                              injected_bound_ms=bound((9 + K_MAIN * (2 + n_noise + 3) + 9) * 4 * B_MAIN,
-                                                     ops(entry['injected']['episode_ends']))[0])
+                                                     ops(entry['injected']['episode_ends_k_main']))[0])
                 kstats['planning_rollout'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             res[name] = entry
         kstats['planning_rollout'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
@@ -913,10 +928,9 @@ def main() -> int:
         return {'T': T_ROLL, 'card': card, 'repeats': 5, 'rates': rates}
 
     # -- 9. kernel H (M-mover planning) ----------------------------------------------
-    from gymnasium_planar_robotics_tpu_torch.models import multi_agent
+    from gymnasium_planar_robotics_tpu_torch.models import common, multi_agent
     from gymnasium_planar_robotics_tpu_torch.ops import collision
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmu
-    from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls as kwalls
 
     holed4 = np.array([[1, 1, 1, 1], [1, 1, 0, 1], [1, 1, 1, 1], [1, 1, 1, 1]])
     lshape = np.array([[1, 1, 0], [1, 1, 1], [0, 1, 1]])
@@ -957,12 +971,7 @@ def main() -> int:
         done envs only, up to the first accepted set)."""
         kc, m = mc.base, cfg.num_movers
         n_pairs = m * (m - 1) // 2
-        mover = planning_cycle_ops(kc.box, kc.rule.full, kc.learn_jerk) + [(1, 'multi_pair_pose')]
-        if kc.box:
-            mover.append((1, 'multi_pair_pose_box_extra'))
-        per_cycle = [(m * n, nm) for n, nm in mover] + [(n_pairs, 'multi_pair_box' if kc.box else 'multi_pair_circle')]
-        per_env = ops_total(*[(kc.num_cycles * n, nm) for n, nm in per_cycle], (m, 'multi_step_mover'),
-                            (1, 'multi_step_env'))
+        per_env = ops_total(*multi_env_terms(m, kc.num_cycles, kc.box, kc.rule.full, kc.learn_jerk))
         holed = [] if kc.rule.full else [(m, 'planning_holed_extra_box' if kc.box else 'planning_holed_extra_circle')]
         per_set = ops_total((m, 'multi_candidate_mover_box' if kc.box else 'multi_candidate_mover_circle'),
                             (n_pairs, 'multi_candidate_pair_box' if kc.box else 'multi_candidate_pair_circle'),
@@ -1060,11 +1069,8 @@ def main() -> int:
         require(launches['planning_multi_autoreset'] == 5 + 3 + T_ROLL,
                 f'kernel H launched {launches["planning_multi_autoreset"]} times, expected {5 + 3 + T_ROLL}')
         require(bool(~info['reset_stalled'].any()), 'init_batch stalled')
-        sizes = PL._sample_sizes(cfg, prm)
-        rule = kwalls.make_wall_rule(kwalls.grid_np(prm))
-        for i, size in enumerate(sizes):
-            require(bool(kwalls.sample_valid_at(rule, False, state.pos[:, i, 0], state.pos[:, i, 1], size).all()),
-                    f'init_batch: mover {i} wall-invalid')
+        require(not bool(common.wall_collision_any(prm.grid, state.pos, None, prm.c_size + prm.c_offset_wall
+                                                   + prm.c_offset, 'circle').any()), 'init_batch: a mover wall-invalid')
         require(not bool(collision.check_mover_collision(state.pos, prm.c_size + prm.c_offset).any()),
                 'init_batch: a start pair collides')
         allowed = {50.0, -50.0} | {-float(k) for k in range(1, m + 1)}
@@ -1329,15 +1335,252 @@ def main() -> int:
         return {'B': 256, 'iterations': 110, 'early_mean': early, 'late_mean': late, 'gain': late - early,
                 'reward_mean': rewards, 'seconds_110_steps': seconds}
 
+    # -- 16. kernel I: the roofline's peak probes ------------------------------------
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import peaks as kpk
+    from gymnasium_planar_robotics_tpu_torch.utils import roofline as RL
+
+    # kernel vs plain at K = 64: fma exact against fma_once_plain (the chain
+    # rounded once a step, as fmaf rounds; the multiplier moves the result
+    # by about 4e-6 relative, so only an exact check sees it), and rtol 1e-5
+    # against fma_plain (the JAX rounding: the product, then the sum);
+    # transc atol 1e-6 (the CUDA math library's logf and cosf within 2 ulps
+    # of the plain version's ops; the chain contracts, so a difference does
+    # not grow)
+    measured = {}
+
+    @phase('kernel_I_peaks')
+    def _():
+        res = {}
+        for transc, k in ((False, 64), (True, 16)):
+            name = 'peak_transc' if transc else 'peak_fma'
+            x = torch.rand(kpk.probe_length(dev, transc), generator=gen, device=dev) * 0.98 + 0.01
+            got = kpk.peak_cuda(x, k, transc)
+            if transc:
+                err, ok = compare(got, kpk.transc_plain(x, k), 0.0, 1e-6)
+                require(ok, f'{name}: kernel vs plain {err}')
+                res[name] = {'k_check': k, 'max_abs_err': err, 'tol': 'rtol 0 atol 1e-6'}
+                continue
+            ref = kpk.fma_once_plain(x, k)
+            err, ok = compare(got, ref, 0.0, 0.0)
+            require(ok, f'{name}: kernel vs fma_once_plain {err}, {int((got != ref).sum())} elements differ')
+            err_j, ok = compare(got, kpk.fma_plain(x, k), 1e-5, 0.0)
+            require(ok, f'{name}: kernel vs fma_plain {err_j}')
+            res[name] = {'k_check': k, 'max_abs_err': err, 'max_abs_err_vs_fma_plain': err_j,
+                         'tol': 'exact vs fma_once_plain; rtol 1e-5 vs fma_plain'}
+        kernels.reset_launches()
+        peaks = RL.microbench_peaks(dev)
+        torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES[k] for k in PEAK_KERNELS}
+        measured.update(peaks=peaks, launches=launches)
+        require(all(launches.values()), f'a probe of the path never launched: {launches}')
+        require(peaks['fma_tflops'] <= 1.05 * RL.PUBLISHED_F32 / 1e12,
+                f'{peaks["fma_tflops"]} TFLOP/s is above 105% of the published peak: the count is wrong')
+        sass = sass_loop_counts(build.build_info['path'], 'peak_transc_kernel')
+        for transc, key in ((False, 'fma'), (True, 'transc')):
+            name, pk = ('peak_transc' if transc else 'peak_fma'), peaks[key]
+            x = torch.full((pk['n'],), 0.5, device=dev)
+            # the plain version a CPU tensor runs (peaks.peak)
+            plain = kpk.transc_plain if transc else kpk.fma_plain
+            plain_ms = time_ms(lambda x=x, plain=plain, k=pk['k']: plain(x, k), 1, warmup=0)
+            if transc:
+                # the loop's FP32 and MUFU instructions over 128 and 16 lanes
+                # per clock per SM at the published peak's clock
+                per_step = max(sass['fp32_per_step'] / 128, sass['mufu_per_step'] / 16)
+                bound_ms, bound_by = pk['n'] * pk['k'] * per_step / (132 * RL.PUBLISHED_CLOCK) * 1e3, 'operations'
+            else:
+                bound_ms, bound_by = bound(8 * pk['n'], pk['ops'])
+            kstats[name].update(max_abs_err=res[name]['max_abs_err'], ms=pk['ms'], plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by)
+            res[name].update(n=pk['n'], k=pk['k'], ms=pk['ms'], ms_runs=pk['ms_runs'], plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, x_bound=pk['ms'] / bound_ms)
+        return {'card': card, 'launches': launches, 'fma_tflops': peaks['fma_tflops'],
+                'transc_gops': peaks['transc_gops'], 'hbm_gbs': peaks['hbm_gbs'],
+                'published': {'f32_tflops': RL.PUBLISHED_F32 / 1e12, 'hbm_gbs': RL.PUBLISHED_HBM / 1e9,
+                              'mufu_gops': RL.PUBLISHED_MUFU / 1e9},
+                'fma_of_published': peaks['fma_tflops'] / (RL.PUBLISHED_F32 / 1e12),
+                'hbm_of_published': peaks['hbm_gbs'] / (RL.PUBLISHED_HBM / 1e9), 'ms_spread': peaks['ms_spread'],
+                'hbm_ms': peaks['hbm']['ms'], 'transc_sass': sass, 'probes': res}
+
+    # -- 17. the roofline ----------------------------------------------------------------
+    @phase('roofline')
+    def _():
+        ph = report['phases']
+        rates = {
+            'pushing rollout': ph['rollout_rate']['rates'][f'B={B_MAIN},K={K_MAIN}']['kernel_env_steps_per_s'],
+            'planning rollout (1 mover)':
+                ph['planning_rollout_rate']['rates'][f'B={B_MAIN},K={K_MAIN}']['kernel_env_steps_per_s'],
+            'planning 4-mover rollout':
+                ph['multi_planning_rollout_rate']['rates'][f'B={B_MAIN}']['kernel_env_steps_per_s'],
+        }
+        rows = RL.roofline(rates, measured['peaks'], costs=RL.rollout_costs(k=K_MAIN))
+        return {'card': card, 'B': B_MAIN, 'K': K_MAIN, 'rows': rows}
+
+    # -- 18. the eager steps on the card ----------------------------------------------------
+    from gymnasium_planar_robotics_tpu_torch.utils import profiling
+
+    def state_errs(got, want, classes, rows=None):
+        """Largest |err| per field, each within its class's (rtol, atol)."""
+        errs = {}
+        for keys, rtol, atol in classes:
+            for k in keys:
+                a, b = getattr(got, k), getattr(want, k)
+                e, ok = compare(a if rows is None else a[rows], b if rows is None else b[rows], rtol, atol)
+                require(ok, f'{k}: eager vs fused {e}')
+                errs[k] = e
+        return errs
+
+    @phase('eager_main_path')
+    def _():
+        res = {}
+        # pushing's eager step against kernel B, at the JAX package's
+        # eager-vs-fused tolerances: its straight-push test (this phase's
+        # scenario) for the fields it checks; obj_yaw as its diagonal test;
+        # mover_z, obj_w and mover_vz, which neither checks, as its
+        # cone-share test's positions and velocities (an H100 80GB HBM3 at
+        # 700 W read 0, 4.0e-6 and 7.3e-11 on them)
+        cfg0, prm0 = P.make_pushing_env(std_noise=0.0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(21)
+        s0 = planted_state(P, cfg0, prm0, B_MAIN, g)
+        act = (torch.rand((B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 8.0
+        es, _, _, et, _, ei = P.step(cfg0, prm0, s0, act, generator=g)
+        fs, _, _, ft, _, fi = P.make_fused_step(cfg0, prm0)(s0, act, seed=7, generator=g)
+        errs = state_errs(es, fs, ((('pos', 'vel', 'obj_pos', 'obj_vel'), 2e-6, 2e-6), (('acc',), 1e-4, 1e-5),
+                                   (('obj_yaw',), 1e-4, 1e-6), (('mover_z',), 3e-5, 3e-6),
+                                   (('obj_w', 'mover_vz'), 3e-5, 1e-4)))
+        require(torch.equal(ei['wall_collision'], fi['wall_collision']), 'pushing: wall flags differ from kernel B')
+        res['pushing_vs_B'] = {'max_abs_err': errs, 'wall_hits': int(ei['wall_collision'].sum()),
+                               'objects_moved': int(((es.obj_pos - s0.obj_pos).abs() > 1e-5).any(-1).sum()),
+                               'tol': 'pos, vel, obj_pos, obj_vel rtol 2e-6 atol 2e-6; acc rtol 1e-4 atol 1e-5; '
+                                      'obj_yaw rtol 1e-4 atol 1e-6; mover_z rtol 3e-5 atol 3e-6; '
+                                      'obj_w, mover_vz rtol 3e-5 atol 1e-4'}
+        # planning's against kernel E (1 mover) and kernel H (4 movers, the
+        # envs H does not restart): rtol 2e-6, atol 2e-7
+        for m, layout in ((1, np.ones((3, 3))), (M_MAIN, np.ones((4, 4)))):
+            cfg, prm = PL.make_planning_env(layout, m, std_noise=0.0, device=dev)
+            st = multi_planted(cfg, prm, B_MAIN, 22) if m > 1 else wall_state(cfg, prm, B_MAIN, 22)
+            a = (torch.rand((B_MAIN, m, 2), generator=g, device=dev) * 2 - 1) * 8.0
+            es, _, _, _, _, ei = PL.step(cfg, prm, st, a, generator=g)
+            if m == 1:
+                fs, _, _, ft, ftr, fi = PL.make_fused_step(cfg, prm)(st, a, seed=7, generator=g)
+                rows = torch.ones(B_MAIN, dtype=torch.bool, device=dev)
+            else:
+                fs, _, _, ft, ftr, fi = PL.make_fused_step_autoreset(cfg, prm)(st, a, seed=7, generator=g)
+                rows = ~(ft | ftr)
+            for k in ('wall_collision', 'mover_collision'):
+                require(torch.equal(ei[k], fi[k]), f'planning M={m}: {k} differs from the kernel')
+            errs = state_errs(es, fs, ((('pos', 'vel'), 2e-6, 2e-7), (('acc',), 1e-4, 1e-4)), rows)
+            res[f'planning_m{m}_vs_{"E" if m == 1 else "H"}'] = {
+                'max_abs_err': errs, 'compared_envs': int(rows.sum()), 'wall_hits': int(ei['wall_collision'].sum()),
+                'mover_hits': int(ei['mover_collision'].sum()),
+                'bit_equal_pos': bool(torch.equal(es.pos[rows], fs.pos[rows])),
+                'tol': 'pos, vel rtol 2e-6 atol 2e-7; acc rtol 1e-4 atol 1e-4; flags equal'}
+
+        # step_autoreset for T_EAGER steps beside the fused autoreset step
+        families = (('pushing', P, P.make_pushing_env(device=dev), (2,)),
+                    ('planning', PL, PL.make_planning_env(np.ones((3, 3)), 1, device=dev), (1, 2)))
+        for fam, mod, (cfg, prm), ashape in families:
+            g = torch.Generator(device=dev).manual_seed(23)
+            state, _, _ = mod.init_batch(cfg, prm, B_EAGER, g)
+            acts = (torch.rand((T_EAGER, B_EAGER, *ashape), generator=g, device=dev) * 2 - 1) * 10.0
+            fused = mod.make_fused_step_autoreset(cfg, prm)
+            paths = {'eager': lambda s, t: mod.step_autoreset(cfg, prm, s, acts[t], generator=g),
+                     'fused_k1': lambda s, t: fused(s, acts[t], seed=500 + t, generator=g)}
+            entry = {}
+            for name, fn in paths.items():
+                fn(state, 0)  # warm-up
+                torch.cuda.synchronize()
+
+                def run(fn=fn):
+                    s, ends = state, []
+                    for t in range(T_EAGER):
+                        s, _, r, te, tr, _ = fn(s, t)
+                        ends.append(te | tr)
+                    return s, torch.stack(ends)
+
+                kernels.reset_launches()
+                (s_end, ends), ms, host = timed(run)
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                with profiling.trace() as prof:
+                    s = state
+                    for t in range(4):
+                        s = fn(s, t)[0]
+                    torch.cuda.synchronize()
+                prof_sum = profiling.trace_summary(prof)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter('always')
+                    torch.cuda.set_sync_debug_mode('warn')
+                    try:
+                        fn(state, 1)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                syncs = [str(w.message)[:160] for w in caught if 'called a synchronizing' in str(w.message)]
+                for k in ('pos', 'vel'):
+                    require(bool(torch.isfinite(getattr(s_end, k)).all()), f'{fam} {name}: {k} not finite')
+                require(bool(ends.any()), f'{fam} {name}: no episode ended in {T_EAGER} steps')
+                entry[name] = {'ms_per_step': ms / T_EAGER, 'host_share': host / ms, 'launches': launches,
+                               'episode_ends': int(ends.sum()), 'env_steps_per_s': B_EAGER * T_EAGER / (ms / 1e3),
+                               'cuda_launch_calls_per_step': prof_sum['launch_calls'] / 4,
+                               'device_kernels_per_step': prof_sum['device_kernels'] / 4,
+                               'device_ms_per_step': prof_sum['device_ms'] / 4, 'host_syncs_in_a_step': len(syncs),
+                               'sync_messages': syncs[:3]}
+            require(entry['eager']['host_syncs_in_a_step'] == 0, f'{fam}: the eager step waits on the host: '
+                    f'{entry["eager"]["sync_messages"]}')
+            require(entry['eager']['launches'].get('noise_probe', 0) > 0, f'{fam}: kernel A never launched')
+            res[f'{fam}_step_autoreset'] = dict(entry, B=B_EAGER, T=T_EAGER,
+                                                eager_over_fused=entry['eager']['ms_per_step']
+                                                / entry['fused_k1']['ms_per_step'])
+        return {'card': card, **res}
+
+    # -- 19. the PPO recipe on the eager step ----------------------------------------------
+    from gymnasium_planar_robotics_tpu_torch.tools import train_push_strong as TPS
+
+    @phase('ppo_eager_recipe')
+    def _():
+        timings, lines = {}, []
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        policy = TPS.train('baseline', EAGER_ITERS, B_TRAIN, 0, 10**9, log=lines.append, device=dev,
+                           timings=timings)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        ev = timings['evals'][-1]
+        require(all(0.0 <= ev[k] <= 1.0 for k in ('success', 'success_any', 'wall_rate')), f'eval {ev}')
+        require(math.isfinite(ev['dfin_med']) and launches.get('noise_probe', 0) > 0, f'eval {ev}, {launches}')
+        # the split: the recipe's own train step (train's) in its two parts,
+        # the rollout (train_step.collect) and the PPO epochs
+        # (train_step.update), each timed with CUDA events, from where
+        # training stopped
+        train_step = timings['train_step']
+        state, obs_vec, _, opt, g = timings['runner']
+        roll_ms, update_ms, losses = [], [], []
+        for _ in range(2):
+            (state, obs_vec, *rollout), ms, _ = timed(lambda s=state, o=obs_vec: train_step.collect(s, o, policy, g))
+            roll_ms.append(ms)
+            loss, ms, _ = timed(lambda rollout=rollout: train_step.update(policy, opt, *rollout))
+            update_ms.append(ms)
+            losses.append(float(loss))
+        require(all(math.isfinite(x) for x in losses), f'loss {losses}')
+        t_roll = rollout[0].reward.shape[0]  # the recipe's rollout_steps
+        iter_med = statistics.median(timings['iter_ms'][1:] or timings['iter_ms'])
+        return {'card': card, 'B': B_TRAIN, 'iterations': EAGER_ITERS, 'seconds': seconds, 'log': lines,
+                'launches': launches, 'iter_ms': timings['iter_ms'], 'iter_ms_median': iter_med,
+                'eval': ev, 'eval_episodes': 1024, 'eval_s': timings['eval_s'][-1],
+                'rollout_ms_runs': roll_ms, 'update_ms_runs': update_ms,
+                'update_ms_median': statistics.median(update_ms),
+                'rollout_steps': t_roll, 'rollout_ms_per_env_step': statistics.median(roll_ms) / t_roll,
+                'train_env_steps_per_s': B_TRAIN * t_roll / (iter_med / 1e3),
+                'hours_for_12000_iterations': 12000 * iter_med / 3.6e6, 'losses': losses}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
         st = kstats[name]
         # each kernel's launches on its own path: A-D on the pushing main
         # path, E-G on the planning main path, H on the M-mover main path,
-        # C-feat on the PPO training path
+        # C-feat on the PPO training path, I on the roofline's peaks
         path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
-                         else train_launches if name in TRAIN_KERNELS else main_launches)
+                         else train_launches if name in TRAIN_KERNELS
+                         else measured.get('launches', {}) if name in PEAK_KERNELS else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
             'launches': int(path_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),

@@ -2,12 +2,12 @@
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from gymnasium_planar_robotics_tpu_torch.ops import collision
-from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
-
-IDENTITY_QUAT = (1.0, 0.0, 0.0, 0.0)
+from gymnasium_planar_robotics_tpu_torch.ops import collision, walls
+from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid
 
 
 def resolve_device(device) -> torch.device:
@@ -21,6 +21,13 @@ def seeded_generator(planes: torch.Tensor, seed: int) -> torch.Generator | None:
     """A CPU generator seeded ``seed`` for a plain version on CPU tensors; None
     on the card, where the kernel keys its Philox stream with ``seed``."""
     return torch.Generator(device='cpu').manual_seed(seed) if planes.device.type == 'cpu' else None
+
+
+def normals(shape: tuple, dtype, device, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Standard normals from ``generator`` (drawn on its device, then moved
+    to ``device``), or from ``device``'s default generator."""
+    gdev = generator.device if generator is not None else torch.device(device)
+    return torch.randn(shape, generator=generator, device=gdev, dtype=dtype).to(device)
 
 
 def stack_batch_last(items: list):
@@ -52,21 +59,42 @@ def min_goal_distance(c_size: torch.Tensor, c_offset: torch.Tensor, collision_sh
     return 2.0 * torch.sqrt((v * v).sum().to(torch.float64)).to(v.dtype)
 
 
-def wall_collision_any(rule: walls.WallRule, xy: torch.Tensor, quat: torch.Tensor | None, sizes,
+def identity_quats(shape: tuple, dtype, device) -> torch.Tensor:
+    """``[*shape, 4]`` identity quaternions (w, x, y, z) = (1, 0, 0, 0), made
+    on ``device`` (no copy from the host)."""
+    q = torch.zeros((*shape, 4), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
+
+
+def wall_collision_any(grid: TileGrid, xy: torch.Tensor, quat: torch.Tensor | None, c_size: torch.Tensor,
                        collision_shape: str) -> torch.Tensor:
-    """True where any mover collides with a wall, by the layout's rule
-    (``walls.shape_valid``).  ``xy`` ``[..., M, 2]``, ``quat`` ``[..., M, 4]``
-    (box only), ``sizes`` one (sx, sy) per mover (radius in sx for the
-    circle, half-extents for the box)."""
-    box = collision_shape == 'box'
-    hit = torch.zeros(xy.shape[:-1], dtype=torch.bool, device=xy.device).any(-1)
-    for i, (sx, sy) in enumerate(sizes):
-        R = walls.quat_to_R2(*quat[..., i, :].unbind(-1)) if box else walls.IDENTITY_R
-        hit = hit | ~walls.shape_valid(rule, box, xy[..., i, 0], xy[..., i, 1], R, sx, sy)
-    return hit
+    """True where any mover collides with a wall, by the dense rule
+    (``walls.qpos_is_valid``): ``xy`` ``[..., M, 2]``, ``quat`` ``[..., M,
+    4]`` (box only), ``c_size`` ``[M]`` radii or ``[M, 2]`` half-extents
+    with any offsets.  Returns ``[...]`` bool."""
+    lead, m = xy.shape[:-2], xy.shape[-2]
+    c = c_size.expand(*lead, *c_size.shape).reshape(-1, *c_size.shape[1:])
+    q = None if quat is None else quat.reshape(-1, 4)
+    valid = walls.qpos_is_valid(grid, xy.reshape(-1, 2), c, quat=q, collision_shape=collision_shape)
+    return ~valid.reshape(*lead, m).all(-1)
 
 
 def mover_collision_any(xy: torch.Tensor, quat: torch.Tensor | None, c_size: torch.Tensor,
                         collision_shape: str) -> torch.Tensor:
     """True where any mover pair collides (``ops.collision``)."""
     return collision.check_mover_collision(xy, c_size, quat=quat, collision_shape=collision_shape)
+
+
+def where_done(done: torch.Tensor, if_done: torch.Tensor, if_not: torch.Tensor) -> torch.Tensor:
+    """``done`` ``[B]`` broadcast over a ``[B, ...]`` leaf."""
+    return torch.where(done.reshape(-1, *([1] * (if_not.ndim - 1))), if_done, if_not)
+
+
+def autoreset_select(done: torch.Tensor, stepped_state, reset_state):
+    """The state of every field: the freshly reset one where ``done``, the
+    stepped one elsewhere (field-generic, so no new state field can escape
+    the restart)."""
+    return dataclasses.replace(stepped_state, **{
+        f.name: where_done(done, getattr(reset_state, f.name), getattr(stepped_state, f.name))
+        for f in dataclasses.fields(stepped_state)})

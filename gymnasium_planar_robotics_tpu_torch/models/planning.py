@@ -1,8 +1,10 @@
 """BenchmarkPlanningEnv in PyTorch: collision-free goal reaching, M movers.
 
-Counterpart of ``gymnasium_planar_robotics_tpu/models/planning.py`` for the
-fused serving paths: ``make_planning_env``, ``reset`` / ``init_batch``, the
-per-step fused APIs ``make_fused_step`` (kernel E, 1 mover) and
+Counterpart of ``gymnasium_planar_robotics_tpu/models/planning.py``:
+``make_planning_env``, ``reset`` / ``init_batch``, the eager step
+(``step``, ``step_with_cycles``, ``step_autoreset`` for any number of
+movers; 40 control cycles of torch ops with the dense wall rule, the XLA
+path of the JAX package), the per-step fused APIs ``make_fused_step`` (kernel E, 1 mover) and
 ``make_fused_step_autoreset`` (kernel F for 1 mover, kernel H for 2-8), and
 the plane-form rollout ``make_fused_rollout`` (1 mover: kernel F per step or
 kernel G over chunks of K steps; M movers: kernel H per step), and the
@@ -14,16 +16,19 @@ versions on CPU tensors.
 Differences from the JAX package, by design:
 
 - ``PlanningState`` has no ``key``: eager functions take a ``generator=``
-  (a ``torch.Generator``), kernels take an integer seed and draw from a
-  Philox stream inside the kernel;
-- ``reset`` is batched (``reset(config, params, batch, ...)``);
+  (a ``torch.Generator`` on the state's device) and, for parity tests,
+  pre-drawn standard normals (``noise=``), kernels take an integer seed and
+  draw from a Philox stream inside the kernel;
+- every function is batched (``reset(config, params, batch, ...)``; the
+  state carries the batch as its leading axis, so ``batched_step`` is
+  ``step``);
 - any batch size runs without padding (the kernels mask the tail block);
 - ``make_planning_env`` and the numpy converters put their tensors on the
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
 Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): more than 8
-movers (kernel H's instantiations), mesh movers, f64 on the fused paths and
-the eager step (``step``, ``step_autoreset``, ``batched_step``).
+movers on the fused paths (kernel H's instantiations), mesh movers and f64
+on the fused paths.
 ``make_fused_step`` and ``make_reactive_rollout`` cover 1 mover, as in the
 JAX package (``pallas_step.supports``).
 
@@ -40,12 +45,13 @@ import numpy as np
 import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import common, validation
-from gymnasium_planar_robotics_tpu_torch.ops import collision
+from gymnasium_planar_robotics_tpu_torch.models.common import autoreset_select
+from gymnasium_planar_robotics_tpu_torch.models.common import where_done as _where_done
+from gymnasium_planar_robotics_tpu_torch.ops import collision, dynamics
 from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid, make_tile_grid
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
-from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
 
@@ -303,11 +309,13 @@ def _obs_vec(config: PlanningConfig, vel: torch.Tensor, acc: torch.Tensor) -> to
     return torch.cat([vel, acc], dim=1).reshape(b, -1) if config.learn_jerk else vel.reshape(b, -1)
 
 
-def _get_obs(config: PlanningConfig, params: PlanningParams, state: PlanningState, generator=None) -> dict:
+def _get_obs(config: PlanningConfig, params: PlanningParams, state: PlanningState, generator=None,
+             normals=None) -> dict:
     """Noisy velocities (+ accelerations in jerk mode), noisy positions as
-    the achieved goal."""
+    the achieved goal.  ``normals`` ``[4M, B]`` (M position pairs, then M
+    velocity pairs) or kernel A's."""
     b, m = state.pos.shape[0], config.num_movers
-    n = noise_probe(2 * m, b, state.pos.device, generator=generator)  # M pos pairs, then M vel pairs
+    n = noise_probe(2 * m, b, state.pos.device, generator=generator) if normals is None else normals
     pos_noisy = state.pos + n[:2 * m].T.reshape(b, m, 2) * params.std_noise[0]
     vel_noisy = state.vel + n[2 * m:].T.reshape(b, m, 2) * params.std_noise[1]
     return {
@@ -352,13 +360,49 @@ def compute_reward(config: PlanningConfig, params: PlanningParams, achieved_goal
 # ---------------------------------------------------------------------------
 
 
-def _sample_sizes(config: PlanningConfig, params: PlanningParams) -> list:
-    """The reset checks' size c + offset_wall + offset per mover, in the
-    params' f32 arithmetic: (radius, radius) or (hx, hy)."""
-    c = params.c_size + params.c_offset_wall + params.c_offset
-    if config.collision_shape == 'box':
-        return [(float(x), float(y)) for x, y in c.reshape(-1, 2)]
-    return [(float(r),) * 2 for r in c.reshape(-1)]
+def _pose_noise_dims(config: PlanningConfig) -> int:
+    return 6 if config.collision_shape == 'box' else 2
+
+
+def _apply_pose_noise(config: PlanningConfig, pos: torch.Tensor, noise: torch.Tensor):
+    """(noisy xy, noisy quaternion or None) from a scaled pose-noise block
+    ``[..., M, 2]`` or ``[..., M, 6]`` (box: position, then quaternion
+    around the identity)."""
+    xy = pos + noise[..., :2]
+    if config.collision_shape != 'box':
+        return xy, None
+    return xy, common.identity_quats((), pos.dtype, pos.device) + noise[..., 2:]
+
+
+def _collision_checks(config: PlanningConfig, params: PlanningParams, pos: torch.Tensor, wall_noise: torch.Tensor,
+                      mover_noise: torch.Tensor | None, wall_safety_offset: bool, mover_safety_offset: bool):
+    """(wall_collision, mover_collision) ``[B]`` of ``pos`` ``[B, M, 2]``,
+    each check on its own scaled pose noise: the wall by the dense rule
+    with size c + offset_wall (+ offset), the movers with size c (+ offset).
+    ``mover_noise`` may be None for one mover, who collides with nobody."""
+    xy_w, quat_w = _apply_pose_noise(config, pos, wall_noise)
+    c_wall = params.c_size + params.c_offset_wall
+    if wall_safety_offset:
+        c_wall = c_wall + params.c_offset
+    wall = common.wall_collision_any(params.grid, xy_w, quat_w, c_wall, config.collision_shape)
+    if config.num_movers == 1:
+        return wall, torch.zeros_like(wall)
+    xy_m, quat_m = _apply_pose_noise(config, pos, mover_noise)
+    c_mover = params.c_size + params.c_offset if mover_safety_offset else params.c_size
+    return wall, common.mover_collision_any(xy_m, quat_m, c_mover, config.collision_shape)
+
+
+def _noisy_collision_checks(config: PlanningConfig, params: PlanningParams, pos: torch.Tensor,
+                            wall_safety_offset: bool, mover_safety_offset: bool, generator=None):
+    """``_collision_checks`` on pose noise from kernel A: for the wall
+    check, and with more than one mover for the pair check."""
+    b, m = pos.shape[0], config.num_movers
+    p = _pose_noise_dims(config) // 2
+    checks = 2 if m > 1 else 1
+    n = noise_probe(checks * m * p, b, pos.device, generator=generator) * params.std_noise[0]
+    n = n.reshape(checks, m, 2 * p, b).permute(0, 3, 1, 2)  # [checks, B, M, 2p]
+    return _collision_checks(config, params, pos, n[0], n[1] if m > 1 else None, wall_safety_offset,
+                             mover_safety_offset)
 
 
 def _first_accepted(cands: torch.Tensor, accepts: torch.Tensor, block: int):
@@ -377,7 +421,8 @@ def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator:
           start_xy=None, goals_xy=None):
     """Reset ``batch`` envs.  Starts: the first of ``max_reset_trials``
     uniform sets of M positions over ``[min_xy, max_xy]`` with every mover
-    wall-valid (identity orientation, size c + offset + offset_wall) and no
+    wall-valid by the dense rule (``ops/walls``; identity orientation, size
+    c + offset + offset_wall) and no
     pair colliding (size c + offset; boxes by the 16-segment test); goals:
     wall-valid and pairwise at least ``min_goal_dist`` apart.  Then the noisy
     re-check of the starts (wall with the safety offset, movers without) and
@@ -397,26 +442,21 @@ def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator:
     device, dtype = params.min_xy.device, params.min_xy.dtype
     block = 8 if m > 1 else 1
     k = block * -(-config.max_reset_trials // block)
-    box = config.collision_shape == 'box'
-    rule = walls.make_wall_rule(walls.grid_np(params))
-    sizes = _sample_sizes(config, params)
-    ident = torch.tensor(common.IDENTITY_QUAT, dtype=dtype, device=device)
+    c_sample = params.c_size + params.c_offset_wall + params.c_offset
 
-    def walls_ok(xy):  # [..., M, 2] -> [...]
-        ok = torch.ones(xy.shape[:-2], dtype=torch.bool, device=device)
-        for i, size in enumerate(sizes):
-            ok = ok & walls.sample_valid_at(rule, box, xy[..., i, 0], xy[..., i, 1], size)
-        return ok
+    def walls_ok(xy):  # [..., M, 2] -> [...], identity orientation
+        quat = common.identity_quats(xy.shape[:-1], dtype, device)
+        return ~common.wall_collision_any(params.grid, xy, quat, c_sample, config.collision_shape)
 
     def accept_start(xy):
-        quat = ident.expand(*xy.shape[:-1], 4)
+        quat = common.identity_quats(xy.shape[:-1], dtype, device)
         return walls_ok(xy) & ~common.mover_collision_any(xy, quat, params.c_size + params.c_offset,
                                                           config.collision_shape)
 
     def accept_goal(xy):
         ok = walls_ok(xy)
         if m > 1:
-            ii, jj = collision.pair_indices(m)
+            ii, jj = collision.pair_tensors(m, device)
             d = xy[..., ii, :] - xy[..., jj, :]
             ok = ok & (sqrt((d * d).sum(-1)) >= params.min_goal_dist).all(-1)
         return ok
@@ -438,17 +478,9 @@ def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator:
     state = PlanningState(pos=start.contiguous(), vel=zeros, acc=zeros.clone(), act=zeros.clone(),
                           goals=goal.contiguous(), steps=torch.zeros((batch,), dtype=torch.int32, device=device))
 
-    # the starts re-checked with sensor noise, each check on its own pose
-    # noise: position, and for the box the quaternion around the identity;
-    # the wall with the safety offset, the movers without
-    p = 3 if box else 1
-    checks = 2 if m > 1 else 1
-    n = noise_probe(checks * m * p, batch, device, generator=generator) * params.std_noise[0]
-    n = n.reshape(checks, m, 2 * p, batch).permute(0, 3, 1, 2)  # [checks, B, M, 2p]
-    quat = [ident + n[c, ..., 2:] if box else None for c in range(checks)]
-    wall = common.wall_collision_any(rule, start + n[0, ..., :2], quat[0], sizes, config.collision_shape)
-    mover = torch.zeros_like(wall) if m == 1 else common.mover_collision_any(
-        start + n[1, ..., :2], quat[1], params.c_size, config.collision_shape)
+    # the starts re-checked with sensor noise: the wall with the safety
+    # offset, the movers without
+    wall, mover = _noisy_collision_checks(config, params, start, True, False, generator)
     obs = _get_obs(config, params, state, generator)
     info = _get_info(config, params, obs, mover, wall)
     info['reset_stalled'] = ~(start_ok & goal_ok)
@@ -764,19 +796,111 @@ def make_reactive_rollout(config: PlanningConfig, params: PlanningParams, policy
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# the eager step
 # ---------------------------------------------------------------------------
 
 
-def step(config, params, state, action):
-    """The eager XLA-path step (``_step_core``): not ported yet."""
-    raise _not_ported('the eager planning step')
+def draw_step_noise(config: PlanningConfig, batch: int, dtype, device, generator=None) -> dict:
+    """The standard normals one eager step consumes, from ``generator``:
+    ``'vel'`` ``[C, B, M, 2]`` (velocity readings), ``'pose'`` ``[C, B, 2,
+    M, P]`` (the wall check's and the pair check's poses; P = 6 for the box,
+    else 2), ``'obs'`` ``[4M, B]`` (the observation; ``None`` here: kernel A
+    draws them)."""
+    c, m = config.num_cycles, config.num_movers
+    return {'vel': common.normals((c, batch, m, 2), dtype, device, generator),
+            'pose': common.normals((c, batch, 2, m, _pose_noise_dims(config)), dtype, device, generator),
+            'obs': None}
 
 
-def step_autoreset(config, params, state, action):
-    """The eager XLA-path autoreset step: not ported yet."""
-    raise _not_ported('the eager planning autoreset step')
+def _step_core(config: PlanningConfig, params: PlanningParams, state: PlanningState, action, noise=None,
+               generator=None):
+    """One env step of every env: ``num_cycles`` 1 ms control cycles (clamp
+    chain, integration, then the noisy wall and pair checks), each env
+    frozen from the cycle a check fires, with its flags (the latched
+    ``done``).  ``action`` ``[B, M, 2]`` or ``[B, 2M]``; ``noise`` the
+    standard normals of ``draw_step_noise`` (drawn from ``generator`` when
+    not given).  Returns ``((state, obs, reward, terminated, truncated,
+    info), cycles)`` with the per-cycle ``(pos, vel, done)`` stacked ``[B,
+    C, ...]``; terminated where ``|reward| == REWARD_SUCCESS``."""
+    m = config.num_movers
+    dtype, device = state.pos.dtype, state.pos.device
+    b = state.pos.shape[0]
+    limit = params.j_max if config.learn_jerk else params.a_max
+    action = torch.clamp(action.to(dtype).reshape(b, m, 2), -limit, limit)
+    if noise is None:
+        noise = draw_step_noise(config, b, dtype, device, generator)
+    vel_noise = noise['vel'] * params.std_noise[1]
+    pose_noise = noise['pose'] * params.std_noise[0]
+    scale = params.accel_scale[:, None]  # [M, 1] over the (x, y) pair
+
+    pos, vel, acc, act = state.pos, state.vel, state.acc, state.act
+    wall = torch.zeros((b,), dtype=torch.bool, device=device)
+    mover = torch.zeros_like(wall)
+    done = torch.zeros_like(wall)
+    cycles = []
+    for k in range(config.num_cycles):
+        vel_meas = vel + vel_noise[k]
+        if config.learn_jerk:
+            res = dynamics.jerk_cycle(pos, vel, act, vel_meas, action, params.v_max, params.a_max, params.dt,
+                                      accel_scale=scale)
+        else:
+            res = dynamics.acceleration_cycle(pos, vel, vel_meas, action, params.v_max, params.dt, accel_scale=scale)
+        new_wall, new_mover = _collision_checks(config, params, res.pos, pose_noise[k][:, 0], pose_noise[k][:, 1],
+                                                wall_safety_offset=False, mover_safety_offset=False)
+        # once done, the state freezes and the flags keep their value at the
+        # colliding cycle
+        d3 = done[:, None, None]
+        pos = torch.where(d3, pos, res.pos)
+        vel = torch.where(d3, vel, res.vel)
+        acc = torch.where(d3, acc, res.acc)
+        act = torch.where(d3, act, res.act)
+        wall = torch.where(done, wall, new_wall)
+        mover = torch.where(done, mover, new_mover)
+        done = done | wall | mover
+        cycles.append((pos, vel, done))
+
+    new_state = PlanningState(pos=pos, vel=vel, acc=acc, act=act, goals=state.goals, steps=state.steps + 1)
+    obs = _get_obs(config, params, new_state, generator, noise['obs'])
+    info = _get_info(config, params, obs, mover, wall)
+    reward = compute_reward(config, params, obs['achieved_goal'], obs['desired_goal'], mover, wall)
+    stacked = tuple(torch.stack(leaf, dim=1) for leaf in zip(*cycles))
+    return (new_state, obs, reward, reward.abs() == REWARD_SUCCESS, torch.zeros_like(wall), info), stacked
 
 
-def batched_step(config, params, state, action):
-    raise _not_ported('the eager planning step')
+def step(config: PlanningConfig, params: PlanningParams, state: PlanningState, action, noise=None, generator=None):
+    """One eager env step of every env (see ``_step_core``): ``(state, obs,
+    reward, terminated, truncated, info)``."""
+    return _step_core(config, params, state, action, noise, generator)[0]
+
+
+def step_with_cycles(config: PlanningConfig, params: PlanningParams, state: PlanningState, action, noise=None,
+                     generator=None):
+    """``step`` plus the per-cycle ``(pos [B, C, M, 2], vel [B, C, M, 2],
+    done [B, C])`` for a per-cycle replay; ``done`` stops it at the
+    colliding cycle."""
+    out, cyc = _step_core(config, params, state, action, noise, generator)
+    return (*out, cyc)
+
+
+def step_autoreset(config: PlanningConfig, params: PlanningParams, state: PlanningState, action, noise=None,
+                   generator=None):
+    """``step`` with the restart of every env that terminated or reached the
+    time limit: the pre-reset observation goes to
+    ``info['final_observation']``, ``obs`` is the new episode's first; an env
+    whose start or goal sampling stalled stays un-reset
+    (``info['reset_stalled']``) and retries on the next step.  The restarts
+    are drawn from ``generator``."""
+    new_state, obs, reward, terminated, _, info = step(config, params, state, action, noise, generator)
+    truncated = new_state.steps >= config.max_episode_steps
+    done = terminated | truncated
+    reset_state, reset_obs, reset_info = reset(config, params, state.pos.shape[0], generator)
+    do_reset = done & ~reset_info['reset_stalled']
+    kept = autoreset_select(do_reset, new_state, reset_state)
+    out_obs = {k: _where_done(do_reset, reset_obs[k], v) for k, v in obs.items()}
+    info = dict(info, final_observation=obs, reset_stalled=done & reset_info['reset_stalled'],
+                reset_trials=torch.where(done, reset_info['reset_trials'], 0))
+    return kept, out_obs, reward, terminated, truncated, info
+
+
+batched_step = step
+batched_step_autoreset = step_autoreset

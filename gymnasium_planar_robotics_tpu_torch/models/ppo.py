@@ -48,12 +48,12 @@ class PPOConfig:
 
 class ActorCritic(nn.Module):
     """Shared tanh trunk, a Gaussian policy head ``mu`` with a state-free
-    ``log_std``, and a value head."""
+    ``log_std``, and a value head; on ``device``, the card unless named."""
 
     def __init__(self, obs_dim: int, hidden: tuple[int, ...], action_dim: int, dtype=torch.float32, device=None):
         super().__init__()
         sizes = (obs_dim, *hidden)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=common.resolve_device(device))
         self.trunk = nn.ModuleList(nn.Linear(sizes[i], sizes[i + 1], **kw) for i in range(len(hidden)))
         self.mu = nn.Linear(sizes[-1], action_dim, **kw)
         self.value = nn.Linear(sizes[-1], 1, **kw)
@@ -145,10 +145,11 @@ def apply_pm(policy: ActorCritic, x: torch.Tensor):
 
 def _noise(noise_or_generator, like: torch.Tensor) -> torch.Tensor:
     """Given standard normals, or ones drawn like ``like`` from a generator
-    (on the generator's device, then moved)."""
+    (on the generator's device, then moved), or from the default generator of
+    ``like``'s device."""
     if isinstance(noise_or_generator, torch.Tensor):
         return noise_or_generator
-    gdev = noise_or_generator.device if noise_or_generator is not None else torch.device('cpu')
+    gdev = noise_or_generator.device if noise_or_generator is not None else like.device
     return torch.randn(like.shape, generator=noise_or_generator, device=gdev, dtype=like.dtype).to(like.device)
 
 
@@ -308,33 +309,41 @@ def make_train_step(
     obs_to_vec: Callable | None = None,
     batched_step_fn: Callable | None = None,
 ):
-    """``train_step(runner) -> (runner, metrics)``: one rollout of
+    """``train_step(runner, eps=None) -> (runner, metrics)``: one rollout of
     ``cfg.rollout_steps`` batched env steps, then the PPO updates.
 
-    ``batched_step_fn(state, action) -> (state, obs, reward, terminated,
-    truncated, info)`` is an already-batched autoreset step, such as a
-    ``make_fused_step_autoreset`` of the port.  ``step_autoreset_fn`` (a
-    per-env eager step) raises ``NotImplementedError``: the eager steps are
-    not ported yet (``ROADMAP.md``).  The runner is ``(env_state, obs_vec,
-    policy, optimizer, generator)``; returns ``(train_step,
+    Pass either ``step_autoreset_fn(config, params, state, action,
+    generator=...)``, an eager autoreset step such as
+    ``pushing.step_autoreset`` (batched: the JAX package vmaps its per-env
+    step here), which draws its noise from the runner's generator, or
+    ``batched_step_fn(state, action)``, an already-batched autoreset step
+    such as a ``make_fused_step_autoreset`` of the port.  The runner is
+    ``(env_state, obs_vec, policy, optimizer, generator)``; the exploration
+    noise ``[T, B, A]`` is drawn from ``generator`` step by step, or given
+    as ``eps``.  ``train_step.collect`` and ``train_step.update`` are its
+    two parts, the rollout and the PPO epochs.  Returns ``(train_step,
     make_optimizer)``."""
-    if batched_step_fn is None:
-        if step_autoreset_fn is None:
-            raise ValueError('pass step_autoreset_fn or batched_step_fn')
-        raise NotImplementedError('step_autoreset_fn needs the eager step, which is not ported yet (ROADMAP.md); '
-                                  'pass batched_step_fn')
+    if batched_step_fn is None and step_autoreset_fn is None:
+        raise ValueError('pass step_autoreset_fn or batched_step_fn')
 
     if obs_to_vec is None:
         def obs_to_vec(obs):
             return torch.cat([obs['observation'], obs['achieved_goal'], obs['desired_goal']], -1).to(torch.float32)
 
-    def train_step(runner):
-        env_state, obs_vec, policy, optimizer, generator = runner
+    def env_step(state, action, generator):
+        if batched_step_fn is not None:
+            return batched_step_fn(state, action)
+        return step_autoreset_fn(env_config, env_params, state, action, generator=generator)
+
+    def collect(env_state, obs_vec, policy, generator, eps: torch.Tensor | None = None):
+        """The rollout of a train step and its GAE, under ``no_grad``:
+        ``(env_state, obs_vec, traj, advantages, returns)``."""
         steps = []
         with torch.no_grad():
-            for _ in range(cfg.rollout_steps):
-                action, raw, logp, value = sample_action(policy, obs_vec, generator, cfg.action_scale)
-                env_state, obs, reward, terminated, truncated, info = batched_step_fn(env_state, action)
+            for t in range(cfg.rollout_steps):
+                noise = generator if eps is None else eps[t]
+                action, raw, logp, value = sample_action(policy, obs_vec, noise, cfg.action_scale)
+                env_state, obs, reward, terminated, truncated, info = env_step(env_state, action, generator)
                 _, _, final_value = apply(policy, obs_to_vec(info['final_observation']))
                 steps.append(Transition(obs=obs_vec, raw_action=raw, logp=logp, value=value,
                                         reward=reward.to(torch.float32), terminated=terminated, truncated=truncated,
@@ -343,7 +352,17 @@ def make_train_step(
             traj = Transition(*(torch.stack(leaf) for leaf in zip(*steps)))
             _, _, last_value = apply(policy, obs_vec)
             advantages, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-        loss = _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
+        return env_state, obs_vec, traj, advantages, returns
+
+    def update(policy, optimizer, traj, advantages, returns):
+        """The PPO epochs on one rollout; the last loss."""
+        return _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
+
+    def train_step(runner, eps: torch.Tensor | None = None):
+        env_state, obs_vec, policy, optimizer, generator = runner
+        env_state, obs_vec, traj, advantages, returns = collect(env_state, obs_vec, policy, generator, eps)
+        loss = update(policy, optimizer, traj, advantages, returns)
         return (env_state, obs_vec, policy, optimizer, generator), _metrics(loss, traj)
 
+    train_step.collect, train_step.update = collect, update
     return train_step, make_optimizer(cfg)

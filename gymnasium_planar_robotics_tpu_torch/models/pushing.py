@@ -1,18 +1,23 @@
 """BenchmarkPushingEnv in PyTorch: one mover pushes a box to a goal.
 
-Counterpart of ``gymnasium_planar_robotics_tpu/models/pushing.py`` for the
-fused serving and training paths: ``make_pushing_env``, ``reset`` /
-``init_batch``, the per-step fused APIs ``make_fused_step`` and
-``make_fused_step_autoreset``, the plane-form rollout ``make_fused_rollout``
-and the policy-in-the-loop ``make_reactive_rollout`` (PPO's training
-rollout).  The fused paths run the CUDA kernels of ``ops/kernels/pushing``
-on CUDA tensors and their plain PyTorch versions on CPU tensors.
+Counterpart of ``gymnasium_planar_robotics_tpu/models/pushing.py``:
+``make_pushing_env``, ``reset`` / ``init_batch``, the eager step (``step``,
+``step_with_cycles``, ``step_autoreset``; 40 control cycles of torch ops
+with the contact of ``ops/contact``, the XLA path of the JAX package), the
+per-step fused APIs ``make_fused_step`` and ``make_fused_step_autoreset``,
+the plane-form rollout ``make_fused_rollout`` and the policy-in-the-loop
+``make_reactive_rollout`` (PPO's training rollout).  The fused paths run
+the CUDA kernels of ``ops/kernels/pushing`` on CUDA tensors and their plain
+PyTorch versions on CPU tensors.
 
 Differences from the JAX package, by design:
 
 - ``PushingState`` has no ``key``: eager functions take a ``generator=``
-  (a ``torch.Generator``), kernels take an integer seed and draw from a
-  Philox stream inside the kernel;
+  (a ``torch.Generator`` on the state's device) and, for parity tests,
+  pre-drawn standard normals (``noise=``), kernels take an integer seed and
+  draw from a Philox stream inside the kernel;
+- every function is batched: the state carries the batch as its leading
+  axis, so ``batched_step`` is ``step``;
 - the configuration covers the fixed 3x3 table with the circle collision
   shape and box/cylinder movers; mesh movers and the box collision shape
   raise ``NotImplementedError``;
@@ -33,12 +38,12 @@ import numpy as np
 import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import common
+from gymnasium_planar_robotics_tpu_torch.ops import contact, dynamics, walls
 from gymnasium_planar_robotics_tpu_torch.ops.grid import TileGrid, make_tile_grid
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
-from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import circle_valid_full
 
 REWARD_WALL_COLLISION = -50.0
 
@@ -330,10 +335,11 @@ def _obs_dict(config, pos, vel, acc, achieved, goal):
     return {'observation': torch.cat(parts, dim=-1), 'achieved_goal': achieved, 'desired_goal': goal}
 
 
-def _get_obs(config: PushingConfig, params: PushingParams, state: PushingState, generator=None):
-    """Noisy observation (pos, vel (, acc)), noisy achieved goal, goal."""
+def _get_obs(config: PushingConfig, params: PushingParams, state: PushingState, generator=None, normals=None):
+    """Noisy observation (pos, vel (, acc)), noisy achieved goal, goal.
+    ``normals`` ``[6, B]`` (pos, vel and object pairs) or kernel A's."""
     b = state.pos.shape[0]
-    n = noise_probe(3, b, state.pos.device, generator=generator)  # pos pair, vel pair, object pair
+    n = noise_probe(3, b, state.pos.device, generator=generator) if normals is None else normals
     std = params.std_noise
     pos = state.pos + n[0:2].T * std[0]
     vel = state.vel + n[2:4].T * std[1]
@@ -405,13 +411,9 @@ def reset(
         steps=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
     # wall check of the noisy start pose with the reset-time size
-    # (c + offset_wall + offset), full-layout circle validity
-    kc = kpush.make_kernel_consts(config, params)
-    c = float((params.c_size + params.c_offset_wall + params.c_offset).reshape(-1)[0])
+    # (c + offset_wall + offset), by the dense rule
     n = noise_probe(1, batch, device, generator=generator)
-    std_pos = params.std_noise[0]
-    valid = circle_valid_full(kc.f, mover_xy[:, 0] + n[0] * std_pos, mover_xy[:, 1] + n[1] * std_pos, c)
-    wall = ~valid
+    wall = _wall_collision_with_noise(params, mover_xy, n.T * params.std_noise[0], with_offset=True)
     obs = _get_obs(config, params, state, generator)
     info = _get_info(params, obs, wall)
     info['reset_stalled'] = ~obj_ok
@@ -422,6 +424,191 @@ def reset(
 def init_batch(config: PushingConfig, params: PushingParams, batch: int, generator: torch.Generator | None = None):
     """Reset ``batch`` independent pushing envs (see ``reset``)."""
     return reset(config, params, batch, generator)
+
+
+def _wall_collision_with_noise(params: PushingParams, pos: torch.Tensor, noise: torch.Tensor, with_offset: bool):
+    """The mover's wall check at ``pos + noise`` (``noise`` the scaled pose
+    noise ``[B, 2]``), size c + offset_wall (+ offset), dense rule."""
+    c = params.c_size + params.c_offset_wall
+    if with_offset:
+        c = c + params.c_offset
+    return ~walls.qpos_is_valid(params.grid, pos + noise, c, collision_shape='circle')
+
+
+# ---------------------------------------------------------------------------
+# the eager step
+# ---------------------------------------------------------------------------
+
+
+def draw_step_noise(config: PushingConfig, batch: int, dtype, device, generator=None) -> dict:
+    """The standard normals one eager step consumes, from ``generator``:
+    ``'vel'`` ``[C, B, 2]`` (velocity readings), ``'pose'`` ``[C, B, 2]``
+    (the wall check's pose), ``'obs'`` ``[6, B]`` (the observation's pos,
+    vel and object pairs; ``None`` here: kernel A draws them)."""
+    c = config.num_cycles
+    return {'vel': common.normals((c, batch, 2), dtype, device, generator),
+            'pose': common.normals((c, batch, 2), dtype, device, generator), 'obs': None}
+
+
+def _step_core(config: PushingConfig, params: PushingParams, state: PushingState, action, noise=None,
+               generator=None):
+    """One env step of every env: ``num_cycles`` control cycles of (clamp
+    chain -> contact -> integrate -> noisy wall check), each env frozen from
+    the cycle its wall check fires (the latched ``done``).  ``noise``: the
+    standard normals of ``draw_step_noise`` (drawn from ``generator`` when
+    not given).  Returns ``((state, obs, reward, terminated, truncated,
+    info), cycles)`` with the per-cycle ``(pos, vel, obj_pos, obj_yaw,
+    done)`` stacked ``[B, C, ...]``."""
+    dtype, device = state.pos.dtype, state.pos.device
+    b = state.pos.shape[0]
+    limit = params.j_max if config.learn_jerk else params.a_max
+    action = torch.clamp(action.to(dtype).reshape(b, 2), -limit, limit)
+    if noise is None:
+        noise = draw_step_noise(config, b, dtype, device, generator)
+    vel_noise = noise['vel'] * params.std_noise[1]
+    pose_noise = noise['pose'] * params.std_noise[0]
+    dt = params.dt
+    mu_g_dt = params.floor_mu * params.gravity * dt
+    mg = params.object_mass * params.gravity
+
+    pos, vel, acc, act = state.pos, state.vel, state.acc, state.act
+    obj_pos, obj_vel, obj_yaw, obj_w = state.obj_pos, state.obj_vel, state.obj_yaw, state.obj_w
+    mz, mvz = state.mover_z, state.mover_vz
+    c_axis = torch.full((b,), -1.0, dtype=dtype, device=device)
+    wall = torch.zeros((b,), dtype=torch.bool, device=device)
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    cycles = []
+    for k in range(config.num_cycles):
+        vel_meas = vel + vel_noise[k]
+        # clamp chain -> the actuator's commanded acceleration (jerk mode
+        # measures the full qacc, contact included)
+        if config.learn_jerk:
+            acc_tmp, jerk_1 = dynamics.ensure_max_dyn_val(acc, params.a_max, action, dt)
+            _, acc_final = dynamics.ensure_max_dyn_val(vel_meas, params.v_max, acc_tmp, dt)
+            clamped = (acc_final != acc_tmp).any(-1, keepdim=True)
+            jerk_ctrl = torch.where(clamped, (acc_final - acc) / dt, jerk_1)
+            new_act = act + dt * jerk_ctrl
+            ctrl_acc = new_act
+        else:
+            _, ctrl_acc = dynamics.ensure_max_dyn_val(vel_meas, params.v_max, action, dt)
+            new_act = act
+
+        # contact from the pre-integration state; the wedge cap grows with
+        # the mover's accumulated lift
+        forces = contact.box_push_contact_v2(
+            pos, vel, obj_pos, obj_vel, obj_yaw, obj_w, params.mover_half, params.object_half,
+            params.contact_k, params.contact_b, params.contact_bt, params.contact_mu,
+            sticky_axis=c_axis, cone_zeta=params.cone_zeta, cone_vt=params.cone_vt, cone_vt_hi=params.cone_vt_hi,
+            cone_vt_off=params.cone_vt_off,
+            fz_cap=params.cone_fz_cap + params.cone_fz_slope * torch.clamp(mz - params.initial_zpos, min=0.0),
+        )
+        # quasi-3D: the contact acts over the z-overlap of the mover's side
+        # face with the object
+        zf = torch.clamp((torch.minimum(mz + params.mover_height, params.object_height) - mz) / params.mover_height,
+                         0.0, 1.0)
+        f_obj_c = forces.f_obj * zf[:, None]
+        f_imp_c = forces.f_imp * zf
+        f_z_c = forces.f_z * zf
+        torque_c = forces.torque_obj * zf
+        # mover z: the soft impedance against the vertical friction reaction
+        zacc = (params.imp_k * (params.initial_zpos - mz) - params.imp_d * mvz + f_z_c) / params.total_mass
+        new_mvz = mvz + dt * zacc
+        new_mz = torch.clamp(mz + dt * new_mvz, min=0.0)
+        # body qacc: the gain-scaled command plus the contact reaction over
+        # the total body mass
+        qacc = params.accel_scale * ctrl_acc + (-f_obj_c) / params.total_mass
+        new_vel = vel + dt * qacc
+        new_pos = pos + dt * new_vel
+
+        obj_acc = f_obj_c / params.object_mass
+        damp = 1.0 + dt * params.object_damping / params.object_mass
+        v_obj = (obj_vel + dt * obj_acc) / damp
+        # floor friction under the plow load
+        load = (1.0 + torch.minimum(params.plow_kappa * f_imp_c / mg, params.plow_cap)
+                + torch.minimum(params.cone_plow * f_z_c / mg, params.cone_plow_cap))
+        v_obj = contact.coulomb_floor_step(v_obj, (mu_g_dt * load)[:, None])
+        new_obj_pos = obj_pos + dt * v_obj
+        damp_w = 1.0 + dt * params.object_damping / params.obj_inertia
+        w_obj = (obj_w + dt * torque_c / params.obj_inertia) / damp_w
+        w_obj = contact.coulomb_spin_step(w_obj, params.mu_spin * dt * load)
+        new_obj_yaw = obj_yaw + dt * w_obj
+
+        new_wall = _wall_collision_with_noise(params, new_pos, pose_noise[k], with_offset=False)
+
+        d2 = done[:, None]
+        pos = torch.where(d2, pos, new_pos)
+        vel = torch.where(d2, vel, new_vel)
+        acc = torch.where(d2, acc, qacc)
+        act = torch.where(d2, act, new_act)
+        obj_pos = torch.where(d2, obj_pos, new_obj_pos)
+        obj_vel = torch.where(d2, obj_vel, v_obj)
+        obj_yaw = torch.where(done, obj_yaw, new_obj_yaw)
+        obj_w = torch.where(done, obj_w, w_obj)
+        mz = torch.where(done, mz, new_mz)
+        mvz = torch.where(done, mvz, new_mvz)
+        # the carried axis dies when the climb breaks contact (zf == 0)
+        c_axis = torch.where(done, c_axis, torch.where(zf > 0, forces.axis, -1.0))
+        wall = torch.where(done, wall, new_wall)
+        done = done | wall
+        cycles.append((pos, vel, obj_pos, obj_yaw, done))
+
+    new_state = PushingState(pos=pos, vel=vel, acc=acc, act=act, obj_pos=obj_pos, obj_vel=obj_vel, obj_yaw=obj_yaw,
+                             obj_w=obj_w, mover_z=mz, mover_vz=mvz, goal=state.goal, steps=state.steps + 1)
+    obs = _get_obs(config, params, new_state, generator, noise['obs'])
+    info = _get_info(params, obs, wall)
+    if config.reward_mode == 'dense':
+        # the training shaping: object-to-goal distance plus an approach
+        # term that fades at contact range and turns into a retreat bonus
+        # once the object is at the goal
+        d_og = dynamics.norm(obj_pos - new_state.goal)
+        d_mo = dynamics.norm(pos - obj_pos)
+        near = d_og <= params.threshold_pos
+        approach = -0.3 * torch.clamp(d_mo - 0.105, min=0.0)
+        retreat = 0.5 * torch.clamp(d_mo, max=0.15)
+        shaped = -d_og + torch.where(near, retreat, approach)
+        reward = torch.where(wall, REWARD_WALL_COLLISION, shaped).to(dtype)
+    else:
+        reward = compute_reward(params, obs['achieved_goal'], obs['desired_goal'], wall)
+    stacked = tuple(torch.stack(leaf, dim=1) for leaf in zip(*cycles))
+    return (new_state, obs, reward, wall, torch.zeros_like(wall), info), stacked
+
+
+def step(config: PushingConfig, params: PushingParams, state: PushingState, action, noise=None, generator=None):
+    """One eager env step of every env (see ``_step_core``): ``(state, obs,
+    reward, terminated, truncated, info)``; terminated on a wall hit."""
+    return _step_core(config, params, state, action, noise, generator)[0]
+
+
+def step_with_cycles(config: PushingConfig, params: PushingParams, state: PushingState, action, noise=None,
+                     generator=None):
+    """``step`` plus the per-cycle ``(pos, vel, obj_pos, obj_yaw, done)``
+    stacks ``[B, C, ...]`` for a per-cycle replay; ``done`` stops it at the
+    colliding cycle."""
+    out, cyc = _step_core(config, params, state, action, noise, generator)
+    return (*out, cyc)
+
+
+def step_autoreset(config: PushingConfig, params: PushingParams, state: PushingState, action, noise=None,
+                   generator=None):
+    """``step`` with the restart of every env that terminated or reached the
+    time limit: the pre-reset observation goes to
+    ``info['final_observation']``; an env whose object resampling stalled
+    stays un-reset (``info['reset_stalled']``) and retries on the next step.
+    The restarts are drawn from ``generator``."""
+    new_state, obs, reward, terminated, _, info = step(config, params, state, action, noise, generator)
+    truncated = new_state.steps >= config.max_episode_steps
+    done = terminated | truncated
+    reset_state, reset_obs, reset_info = reset(config, params, state.pos.shape[0], generator)
+    do_reset = done & ~reset_info['reset_stalled']
+    kept = common.autoreset_select(do_reset, new_state, reset_state)
+    out_obs = {k: common.where_done(do_reset, reset_obs[k], v) for k, v in obs.items()}
+    info = dict(info, final_observation=obs, reset_stalled=done & reset_info['reset_stalled'],
+                reset_trials=torch.where(done, reset_info['reset_trials'], 0))
+    return kept, out_obs, reward, terminated, truncated, info
+
+
+batched_step = step
+batched_step_autoreset = step_autoreset
 
 
 def _require_sparse(config: PushingConfig) -> None:

@@ -20,6 +20,18 @@ def pair_indices(num_movers: int) -> tuple[np.ndarray, np.ndarray]:
     return np.triu_indices(num_movers, k=1)
 
 
+_PAIRS: dict = {}
+
+
+def pair_tensors(num_movers: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pair_indices`` as tensors on ``device``, copied there once: a copy
+    from the host in every step would wait for the card."""
+    key = (num_movers, device)
+    if key not in _PAIRS:
+        _PAIRS[key] = tuple(torch.as_tensor(a, device=device) for a in pair_indices(num_movers))
+    return _PAIRS[key]
+
+
 def check_mover_collision(xy: torch.Tensor, c_size: torch.Tensor, quat: torch.Tensor | None = None,
                           collision_shape: str = 'circle') -> torch.Tensor:
     """Whether any two movers collide.
@@ -30,7 +42,7 @@ def check_mover_collision(xy: torch.Tensor, c_size: torch.Tensor, quat: torch.Te
     m = xy.shape[-2]
     if m < 2:
         return torch.zeros(xy.shape[:-2], dtype=torch.bool, device=xy.device)
-    ii, jj = (torch.as_tensor(a, device=xy.device) for a in pair_indices(m))
+    ii, jj = pair_tensors(m, xy.device)
     if collision_shape == 'circle':
         r = c_size.reshape(m)
         d = xy[..., ii, :] - xy[..., jj, :]

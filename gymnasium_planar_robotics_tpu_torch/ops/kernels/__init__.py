@@ -18,6 +18,7 @@ LAUNCHES = {
     'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_autoreset_features': 0,
     'pushing_rollout': 0,
     'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0, 'planning_multi_autoreset': 0,
+    'peak_fma': 0, 'peak_transc': 0,
 }
 
 
@@ -57,8 +58,9 @@ def to_numpy(x) -> np.ndarray:
 
 def draw_uniforms(n: int, batch: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
     """``[n, batch]`` f32 uniforms from ``generator`` (drawn on the
-    generator's device, then moved to ``device``)."""
-    gdev = generator.device if generator is not None else torch.device('cpu')
+    generator's device, then moved to ``device``), or from ``device``'s
+    default generator."""
+    gdev = generator.device if generator is not None else torch.device(device)
     return torch.rand((n, batch), generator=generator, device=gdev, dtype=torch.float32).to(device)
 
 

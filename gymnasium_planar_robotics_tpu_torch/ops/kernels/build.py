@@ -146,6 +146,11 @@ def lib() -> ctypes.CDLL:
         handle.gprt_planning_multi_autoreset.restype = i32
         handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, i32, i32, i32, i32, i32, i32, i32,
                                                          u64, p]
+        # (x, out, n, k, transc, stream); chains per thread of each probe
+        handle.gprt_peak.restype = i32
+        handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]
+        handle.gprt_peak_chains.restype = i32
+        handle.gprt_peak_chains.argtypes = [i32]
         handle.gprt_multi_const_names.restype = ctypes.c_char_p
         handle.gprt_multi_const_names.argtypes = []
         # field names of gprt::Consts and gprt::PlanningConsts, in order; (name, length) of gprt::MultiConsts

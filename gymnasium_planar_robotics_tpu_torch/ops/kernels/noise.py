@@ -155,15 +155,14 @@ def noise_probe(draws: int, batch: int, device, *, uniforms: torch.Tensor | None
     """``[2*draws, batch]`` standard normals on ``device`` by Box-Muller.
 
     CPU: the plain version over ``uniforms`` (or ones drawn from
-    ``generator``).  CUDA: kernel A over ``uniforms``, or over its Philox
-    stream keyed by ``seed`` (drawn from ``generator`` when not given)."""
+    ``generator``).  CUDA: kernel A over its Philox stream keyed by
+    ``seed``, else over ``uniforms``, drawn from ``generator`` (on the card,
+    so no step waits on the host for a seed) when not given."""
     device = torch.device(device)
+    if uniforms is None and (seed is None or device.type == 'cpu'):
+        uniforms = kernels.draw_uniforms(2 * draws, batch, device, generator)
     if device.type == 'cpu':
-        if uniforms is None:
-            uniforms = kernels.draw_uniforms(2 * draws, batch, device, generator)
         return noise_probe_plain(uniforms)
     if device.type != 'cuda':
         raise ValueError(f'unsupported device {device}')
-    if uniforms is None and seed is None:
-        seed = kernels.draw_seed(generator)
     return noise_probe_cuda(draws, batch, device, uniforms, seed or 0)

@@ -242,10 +242,10 @@ def test_default_device_is_the_card():
 
 def test_not_ported_paths_raise():
     """What still raises: ``make_fused_step`` with M > 1 (the JAX package has
-    no such path either), more movers than kernel H is instantiated for, f64
-    on the fused paths, mesh movers and the eager steps; dense rewards on the
-    fused rollout; and what the reactive rollout does not cover in the JAX
-    package either (M > 1, jerk, f64)."""
+    no such path either), more movers than kernel H is instantiated for and
+    f64 on the fused paths (the eager step takes both), mesh movers; dense
+    rewards on the fused rollout; and what the reactive rollout does not
+    cover in the JAX package either (M > 1, jerk, f64)."""
     cfg2, prm2 = tplan.make_planning_env(FULL, 2, device='cpu')
     with pytest.raises(NotImplementedError, match='no M-mover make_fused_step'):
         tplan.make_fused_step(cfg2, prm2)
@@ -262,10 +262,12 @@ def test_not_ported_paths_raise():
                 make(cfg64, prm64)
     with pytest.raises(NotImplementedError, match='not ported yet'):
         tplan.make_planning_env(FULL, 1, mover_params={'shape': 'mesh'}, device='cpu')
-    cfg, prm = tplan.make_planning_env(FULL, 1, device='cpu')
+    cfg9e, prm9e = tplan.make_planning_env(np.ones((6, 6)), 9, num_cycles=2, dtype=torch.float64, device='cpu')
+    g = torch.Generator().manual_seed(0)
+    state9 = tplan.init_batch(cfg9e, prm9e, 3, g)[0]
     for fn in (tplan.step, tplan.step_autoreset, tplan.batched_step):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            fn(cfg, prm, None, None)
+        out = fn(cfg9e, prm9e, state9, torch.zeros((3, 9, 2), dtype=torch.float64), generator=g)
+        assert out[0].pos.shape == (3, 9, 2) and out[0].pos.dtype == torch.float64
     # the reactive rollout's own limits, as the JAX function asserts them:
     # 1 mover, acc mode, f32
     for (c, p), what in (((cfg2, prm2), '1 mover'),

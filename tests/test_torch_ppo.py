@@ -226,8 +226,8 @@ def test_reactive_train_step_matches_jax(monkeypatch):
 
 def test_make_train_step_over_the_fused_planning_step():
     """``make_train_step`` over the port's fused planning step (kernel F's
-    plain version here) runs and gives finite metrics; a per-env eager step
-    raises until the eager step is ported."""
+    plain version here) runs and gives finite metrics; so does it over the
+    eager ``step_autoreset``, which draws from the runner's generator."""
     cfg, prm = tplan.make_planning_env(np.ones((3, 3)), 1, num_cycles=4, reward_mode='dense', device='cpu')
     pcfg = tppo.PPOConfig(obs_dim=6, action_dim=2, hidden=(16, 16), rollout_steps=4, update_epochs=2)
     g = torch.Generator().manual_seed(0)
@@ -243,7 +243,8 @@ def test_make_train_step_over_the_fused_planning_step():
         assert all(np.isfinite(float(v)) for v in m.values())
     assert all(not torch.equal(a, p) for a, p in zip(before, pol.parameters()))
     assert runner[1].shape == (130, 6)
-    with pytest.raises(NotImplementedError, match='eager step'):
-        tppo.make_train_step(cfg, prm, pcfg, step_autoreset_fn=lambda *a: None)
+    train, make_opt = tppo.make_train_step(cfg, prm, pcfg, step_autoreset_fn=tplan.step_autoreset)
+    runner, m = train((state, obs_vec, pol, make_opt(pol), g))
+    assert all(np.isfinite(float(v)) for v in m.values()) and runner[0].pos.shape == (130, 1, 2)
     with pytest.raises(ValueError, match='batched_step_fn'):
         tppo.make_train_step(cfg, prm, pcfg)
