@@ -81,12 +81,29 @@ phase:
    synchronisations in a step, beside the fused step;
 19. the PPO recipe on the eager step: ``tools/train_push_strong.train``
    (recipe ``baseline``) at 2048 envs for a few iterations with one strict
-   eval of 1024 episodes, and the train step split into rollout and update.
+   eval of 1024 episodes, and the train step split into rollout and update;
+20. the box collision shape's kernels B, C, C-feat and D against their plain
+   versions at 4096 envs (box half-extents 0.09, bench.py:653-655), a
+   quarter of the envs driven into the -x wall, in both noise modes (D held
+   over 8 steps and timed at K=32), each timed beside its circle twin and
+   its bound (``roofline.OPS['pushing_cycle_box']``);
+21. the box main path: ``make_fused_step``, ``make_fused_step_autoreset``,
+   ``make_fused_rollout`` at K=1 and K=32 and ``make_reactive_rollout`` with
+   a (256, 256) policy at 4096 envs, counters set to 0 before and read
+   after; then the eager ``step`` against kernel B at 2048 envs (flags
+   equal) and a few eager ``step_autoreset`` steps;
+22. mesh movers: the mesh+bumper configuration of bench.py:643-644 through
+   ``make_fused_rollout`` at 4096 envs and K=1 (env-steps/s, beside the
+   default mover), and planning's kernel F with a mesh mover and bumper
+   against its plain version;
+23. every fused step (pushing, box pushing, 1- and 4-mover planning, the
+   multi-agent step) with a generator on the card makes no host
+   synchronisation (sync debug mode 'warn').
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread.  The line
-before the last is a JSON object with one entry per kernel (A-H, C-feat and
-I's two probes): its
+before the last is a JSON object with one entry per kernel (A-H, C-feat,
+I's two probes and the box variants of B, C, C-feat and D): its
 launches on its path, its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox; kernel A:
 the injected uniforms its path's generator draws), the plain version's
@@ -140,18 +157,27 @@ KERNELS = {
     # kernel I: the roofline's peak probes, launched through bench.py:550
     'peak_fma': ('csrc/peaks.cu', 'bench.py:523'),
     'peak_transc': ('csrc/peaks.cu', 'bench.py:531'),
+    # the box collision shape of B, C, C-feat and D (the same Pallas
+    # functions traced with box=True)
+    'pushing_cycles_box': ('csrc/pushing_cycles.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:903'),
+    'pushing_autoreset_box': ('csrc/pushing_autoreset.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1034'),
+    'pushing_autoreset_features_box': ('csrc/pushing_autoreset.cu',
+                                       'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1066'),
+    'pushing_rollout_box': ('csrc/pushing_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1083'),
 }
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
 MULTI_KERNELS = ('planning_multi_autoreset',)
 TRAIN_KERNELS = ('pushing_autoreset_features',)
 PEAK_KERNELS = ('peak_fma', 'peak_transc')
+BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_box', 'pushing_autoreset_features_box')
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
 TRAIN_STEPS = 20
 B_EAGER, T_EAGER = 2048, 64  # the eager step_autoreset's run
 EAGER_ITERS = 3  # iterations of the PPO recipe on the eager step
-K_G_CHECK = 8  # kernel G's steps held against its plain version (but the timed run's K_MAIN)
+K_G_CHECK = 8  # kernel G's (and box D's) steps held against its plain version (but the timed run's K_MAIN)
+T_BOX_EAGER = 3  # steps of the box's eager step_autoreset
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -1571,15 +1597,319 @@ def main() -> int:
                 'train_env_steps_per_s': B_TRAIN * t_roll / (iter_med / 1e3),
                 'hours_for_12000_iterations': 12000 * iter_med / 3.6e6, 'losses': losses}
 
+    # -- 20. the box variants of kernels B, C, C-feat and D ------------------------------
+    # the box of the JAX package's bench rows (bench.py:653-655)
+    box_coll = {'shape': 'box', 'size': [0.09, 0.09]}
+    cfg_box, prm_box = P.make_pushing_env(collision_params=box_coll, device=dev)
+    kcb = kp.make_kernel_consts(cfg_box, prm_box, 32)
+    box_ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items()
+                 if re.search(r'pushing_\w+_kernelILb[01]ELb1E', k)}
+
+    def box_step_ops():
+        """f32 operations of one box pushing autoreset step of one env."""
+        return ops_total((kcb.num_cycles, 'pushing_cycle_box'), (1, 'pushing_step_extra'),
+                         (kcb.cand_k, 'pushing_candidate'))
+
+    def box_state(b: int, steps: bool = False):
+        """planted_state, and a quarter of the envs with the box's -x side
+        within a centimetre of the -x wall, moving out (wall hits)."""
+        state = planted_state(P, cfg_box, prm_box, b, gen)
+        wall = (torch.arange(b, device=dev) % 4 == 1)
+        state.pos[wall, 0] = torch.linspace(0.09, 0.1, int(wall.sum()), device=dev)
+        state.vel[wall] = torch.tensor([-1.0, 0.2], device=dev)
+        if steps:
+            state.steps = torch.randint(0, cfg_box.max_episode_steps, (b,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+        return state
+
+    def box_modes(n_noise):
+        u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+        return u, (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, B_MAIN)))
+
+    @phase('kernel_B_box')
+    def _():
+        state = box_state(B_MAIN)
+        act = (torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 8.0
+        planes = torch.cat([P.state_to_planes(state)[:16], act]).contiguous()
+        n_noise = kp.cycles_noise_planes(kcb.num_cycles, True)
+        u, modes = box_modes(n_noise)
+        entry = {}
+        for mode, uk, seed, uref in modes:
+            got = kp.pushing_cycles_cuda(planes, kcb, uk, seed)
+            err, bad, errs = plane_compare(got, kp.pushing_cycles_plain(planes, kcb, uref))
+            walls = int((got[16] > 0).sum())
+            require(not bad, f'{mode}: planes {bad} disagree: {[errs[i] for i in bad]}')
+            require(0 < walls < B_MAIN, f'{mode}: {walls} wall hits')
+            entry[mode] = {'max_abs_err': err, 'wall_hits': walls}
+        ms, ms_groups = time_groups(lambda: kp.pushing_cycles_cuda(planes, kcb, None, 7))
+        injected_ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kcb, u), 20)
+        plain_ms = time_ms(lambda: kp.pushing_cycles_plain(planes, kcb, u), 3)
+        ops = ops_total((B_MAIN * kcb.num_cycles, 'pushing_cycle_box'))
+        bound_ms, bound_by = bound((18 + 17) * 4 * B_MAIN, ops)
+        kstats['pushing_cycles_box'].update(max_abs_err=max(e['max_abs_err'] for e in entry.values()), ms=ms,
+                                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        return {'B': B_MAIN, 'collision': box_coll, **entry, 'ms': ms, 'ms_groups': ms_groups,
+                'ms_spread': spread(ms_groups), 'circle_ms': kstats['pushing_cycles'].get('ms'),
+                'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
+                'injected_bound_ms': bound((18 + n_noise + 17) * 4 * B_MAIN, ops)[0],
+                'ptxas': {k: v for k, v in box_ptxas.items() if 'pushing_cycles_kernel' in k}}
+
+    def box_autoreset_phase(emit: bool):
+        state = box_state(B_MAIN, steps=True)
+        act = ((torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        st = P.state_to_planes(state)
+        n_noise = kp.autoreset_noise_planes(kcb.num_cycles, kcb.cand_k, True)
+        u, modes = box_modes(n_noise)
+        entry = {}
+        for mode, uk, seed, uref in modes:
+            got = kp.pushing_autoreset_cuda(st, act, kcb, uk, seed, emit)
+            ref = kp.pushing_autoreset_plain(st, act, kcb, uref, emit)
+            if emit:
+                (got, feat), (ref, ref_feat) = got, ref
+                require(torch.equal(feat, kp.features_from_planes(st, got)),
+                        f'{mode}: the blocks are not the launch\'s own planes')
+                err_feat, ok_feat = compare(feat, ref_feat, feat_rtol, feat_atol)
+                require(ok_feat, f'{mode}: feature blocks disagree: {err_feat}')
+                entry.setdefault('max_abs_err_features', 0.0)
+                entry['max_abs_err_features'] = max(entry['max_abs_err_features'], err_feat)
+            err, bad, errs = plane_compare(got, ref)
+            restarts = int(((got[18] == 0) & (st[18] > 0)).sum())
+            walls = int((got[33] > 0).sum())
+            require(not bad, f'{mode}: planes {bad} disagree: {[errs[i] for i in bad]}')
+            require(restarts > 0 and walls > 0, f'{mode}: {restarts} restarts, {walls} wall hits')
+            entry[mode] = {'max_abs_err': err, 'restarts': restarts, 'wall_hits': walls}
+        ms, ms_groups = time_groups(lambda: kp.pushing_autoreset_cuda(st, act, kcb, None, 7, emit))
+        injected_ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kcb, u, 0, emit), 20)
+        plain_ms = time_ms(lambda: kp.pushing_autoreset_plain(st, act, kcb, u, emit), 3)
+        ops = B_MAIN * (box_step_ops() + (sum(OPS['pushing_features']) if emit else 0))
+        n_out = 36 + (24 if emit else 0)
+        bound_ms, bound_by = bound((21 + n_out) * 4 * B_MAIN, ops)
+        name = 'pushing_autoreset_features_box' if emit else 'pushing_autoreset_box'
+        circle = 'pushing_autoreset_features' if emit else 'pushing_autoreset'
+        err = max(entry[m]['max_abs_err'] for m in ('injected', 'philox'))
+        kstats[name].update(max_abs_err=entry.get('max_abs_err_features', err), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        kernel = 'ILb0ELb1ELb0ELb1E' if emit else 'ILb0ELb1ELb0ELb0E'  # acc, box, Philox, emit
+        return {'B': B_MAIN, 'collision': box_coll, **entry, 'ms': ms, 'ms_groups': ms_groups,
+                'ms_spread': spread(ms_groups), 'circle_ms': kstats[circle].get('ms'), 'bound_ms': bound_ms,
+                'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
+                'injected_bound_ms': bound((21 + n_noise + n_out) * 4 * B_MAIN, ops)[0],
+                'ptxas': {k: v for k, v in box_ptxas.items() if 'pushing_autoreset_kernel' + kernel in k}}
+
+    phase('kernel_C_box')(lambda: box_autoreset_phase(False))
+    phase('kernel_C_feat_box')(lambda: box_autoreset_phase(True))
+
+    @phase('kernel_D_box')
+    def _():
+        st = P.state_to_planes(box_state(B_MAIN))
+        acts = ((torch.rand((K_MAIN, 2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        n_step = kp.autoreset_noise_planes(kcb.num_cycles, kcb.cand_k, True)
+        rtol = torch.tensor([plane_tol(i)[0] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
+        atol = torch.tensor([plane_tol(i)[1] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
+        entry = {}
+        # held against the plain version over K_G_CHECK steps in both modes
+        # (the envs whose whole trajectory agrees at the plane tolerances
+        # x10, as phase 3), timed at K_MAIN
+        a = acts[:K_G_CHECK]
+        u = torch.rand((K_G_CHECK * n_step, B_MAIN), generator=gen, device=dev)
+        for mode, uk, seed, uref in (('injected', u, 0, u), ('philox', None, 7, philox(7, K_G_CHECK * n_step, B_MAIN))):
+            got_st, got_sig = kp.pushing_rollout_cuda(st, a, kcb, uk, seed)
+            ref_st, ref_sig = kp.pushing_rollout_plain(st, a, kcb, uref)
+            require(bool(torch.isfinite(got_st).all()), f'{mode}: kernel D state is not finite')
+            d_state = (got_st - ref_st).abs()
+            env_ok = (d_state <= atol + rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0)
+            frac = float(env_ok.double().mean())
+            walls = int((got_sig[0] > 0.5).sum())
+            require(frac >= 0.99, f'{mode}: only {frac:.4f} of envs agree over {K_G_CHECK} steps')
+            require(walls > 0, f'{mode}: no wall hit in {K_G_CHECK} steps')
+            entry[mode] = {'k': K_G_CHECK, 'envs_agreeing': frac, 'wall_hits': walls,
+                           'max_abs_err_agreeing_envs': float(d_state[:, env_ok].max())}
+        u32 = torch.rand((K_MAIN * n_step, B_MAIN), generator=gen, device=dev)
+        ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kcb, None, 7), 5)
+        injected_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kcb, u32), 5)
+        plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kcb, u32), 1)
+        ops = K_MAIN * B_MAIN * box_step_ops()
+        bound_ms, bound_by = bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_MAIN, ops)
+        kstats['pushing_rollout_box'].update(
+            max_abs_err=max(entry[m]['max_abs_err_agreeing_envs'] for m in ('injected', 'philox')), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        return {'B': B_MAIN, 'K_timed': K_MAIN, 'collision': box_coll, **entry, 'ms': ms,
+                'circle_ms': kstats['pushing_rollout'].get('ms'), 'bound_ms': bound_ms, 'bound_by': bound_by,
+                'plain_ms': plain_ms, 'injected_ms': injected_ms,
+                'injected_bound_ms': bound((19 + K_MAIN * (2 + n_step + 3) + 19) * 4 * B_MAIN, ops)[0],
+                'ptxas': {k: v for k, v in box_ptxas.items() if 'pushing_rollout_kernel' in k}}
+
+    # -- 21. the box main path ---------------------------------------------------------------
+    @phase('box_pushing_main_path')
+    def _():
+        g = torch.Generator(device=dev).manual_seed(30)
+        pcfg = PPO.PPOConfig(obs_dim=12, action_dim=2, hidden=(256, 256), rollout_steps=T_ROLL)
+        policy = PPO.init_params(pcfg, torch.Generator(device=dev).manual_seed(31), device=dev)
+
+        def policy_step(pol, eps_t, obs_pm):
+            mu, log_std, value = PPO.apply_pm(pol, obs_pm)
+            return torch.clamp(mu + torch.exp(log_std)[:, None] * eps_t, -10.0, 10.0), value
+
+        kernels.reset_launches()
+        state, _, info = P.init_batch(cfg_box, prm_box, B_MAIN, g)
+        step = P.make_fused_step(cfg_box, prm_box)
+        s = state
+        for _ in range(3):
+            s, *_ = step(s, torch.full((B_MAIN, 2), 3.0, device=dev), generator=g)
+        step_ar = P.make_fused_step_autoreset(cfg_box, prm_box)
+        s, rewards = state, []
+        for _ in range(5):
+            s, o, r, te, tr, inf = step_ar(s, (torch.rand((B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0,
+                                           generator=g)
+            rewards.append(r)
+        acts = (torch.rand((T_ROLL, B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0
+        outs = {K: P.make_fused_rollout(cfg_box, prm_box, steps_per_launch=K)(s, acts, 200 + K) for K in (1, K_MAIN)}
+        reactive = P.make_reactive_rollout(cfg_box, prm_box, policy_step, T_ROLL)
+        with torch.no_grad():
+            eps = torch.randn((T_ROLL, 2, B_MAIN), generator=g, device=dev)
+            rs, traj, last = reactive(s, policy, g, 300, policy_xs=eps)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        require(all(launches[k] > 0 for k in BOX_KERNELS), f'a box kernel of the path never launched: {launches}')
+        require(all(launches[k] == 0 for k in PUSHING_KERNELS[1:] + TRAIN_KERNELS),
+                f'a circle kernel ran on the box path: {launches}')
+        require(bool(~info['reset_stalled'].any()) and not bool(info['wall_collision'].any()), 'init_batch')
+        checks = {}
+        for K, (fs, rew, term, trunc) in outs.items():
+            for name in ('pos', 'vel', 'obj_pos', 'goal', 'mover_z', 'obj_yaw'):
+                require(bool(torch.isfinite(getattr(fs, name)).all()), f'K={K}: {name} not finite')
+            require(set(torch.unique(rew).tolist()) <= {0.0, -1.0, -50.0}, f'K={K}: rewards {torch.unique(rew)}')
+            require(float(torch.linalg.vector_norm(fs.vel, dim=-1).max()) <= float(prm_box.v_max) * 1.01, f'K={K}: |v|')
+            require(bool(((fs.goal >= prm_box.obj_min_xy) & (fs.goal <= prm_box.obj_max_xy)).all()), f'K={K}: goal')
+            require(bool(term.any()), f'K={K}: no wall hit in {T_ROLL} steps')
+            checks[K] = {'terminations': int(term.sum()), 'truncations': int(trunc.sum()),
+                         'reward_mean': float(rew.mean())}
+        obs_vec, _, r_react, te_react, _, _ = traj
+        require(bool(torch.isfinite(obs_vec).all() and torch.isfinite(rs.pos).all()), 'reactive: not finite')
+        require(obs_vec.shape == (T_ROLL, B_MAIN, 12) and last.shape == (B_MAIN, 12), 'reactive: shapes')
+        checks['reactive'] = {'T': T_ROLL, 'hidden': list(pcfg.hidden),
+                              'terminations': int(te_react.sum()), 'reward_mean': float(r_react.mean())}
+
+        # the eager step against kernel B at std_noise = 0 (phase 18's
+        # scenario): flags equal, fields at phase 18's tolerances; then the
+        # eager step_autoreset for a few steps
+        cfg0, prm0 = P.make_pushing_env(collision_params=box_coll, std_noise=0.0, device=dev)
+        g0 = torch.Generator(device=dev).manual_seed(32)
+        s0 = planted_state(P, cfg0, prm0, B_EAGER, g0)
+        wall = (torch.arange(B_EAGER, device=dev) % 4 == 1)
+        s0.pos[wall, 0] = torch.linspace(0.09, 0.13, int(wall.sum()), device=dev)
+        s0.vel[wall] = torch.tensor([-1.0, 0.2], device=dev)
+        a0 = (torch.rand((B_EAGER, 2), generator=g0, device=dev) * 2 - 1) * 8.0
+        es, _, _, _, _, ei = P.step(cfg0, prm0, s0, a0, generator=g0)
+        fs, _, _, _, _, fi = P.make_fused_step(cfg0, prm0)(s0, a0, seed=7, generator=g0)
+        require(torch.equal(ei['wall_collision'], fi['wall_collision']), 'eager box step: wall flags differ from B')
+        errs = state_errs(es, fs, ((('pos', 'vel', 'obj_pos', 'obj_vel'), 2e-6, 2e-6), (('acc',), 1e-4, 1e-5),
+                                   (('obj_yaw',), 1e-4, 1e-6), (('mover_z',), 3e-5, 3e-6),
+                                   (('obj_w', 'mover_vz'), 3e-5, 1e-4)))
+        se, ends = s0, 0
+        for _ in range(T_BOX_EAGER):
+            se, _, _, te, tr, _ = P.step_autoreset(cfg_box, prm_box, se, a0, generator=g0)
+            ends += int((te | tr).sum())
+        require(bool(torch.isfinite(se.pos).all()) and ends > 0, f'eager step_autoreset: {ends} episode ends')
+        return {'B': B_MAIN, 'collision': box_coll, 'launches': launches, 'rollouts': checks,
+                'eager_vs_B': {'B': B_EAGER, 'max_abs_err': errs, 'wall_hits': int(ei['wall_collision'].sum()),
+                               'objects_moved': int(((es.obj_pos - s0.obj_pos).abs() > 1e-5).any(-1).sum())},
+                'eager_step_autoreset': {'B': B_EAGER, 'steps': T_BOX_EAGER, 'episode_ends': ends}}
+
+    box_launches = report['phases']['box_pushing_main_path'].get('launches', {})
+
+    # -- 22. mesh movers: pushing's mesh+bumper rollout, planning's fused step ----------------
+    @phase('mesh_bumper')
+    def _():
+        # the JAX package's 'pushing mesh+bumper 4096 envs' row (bench.py:643-644)
+        mesh = {'shape': 'mesh', 'mesh': {'bumper_mass': 0.35}}
+        cfgm, prmm = P.make_pushing_env(mover_params=mesh, device=dev)
+        g = torch.Generator(device=dev).manual_seed(33)
+        state, _, _ = P.init_batch(cfgm, prmm, B_MAIN, g)
+        acts = (torch.rand((T_ROLL, B_MAIN, 2), generator=g, device=dev) * 2 - 1) * 10.0
+        paths = {'mesh_bumper': P.make_fused_rollout(cfgm, prmm), 'default_mover': P.make_fused_rollout(config, params)}
+        for fn in paths.values():
+            fn(state, acts, 1)
+        ev = {k: [] for k in paths}
+        for rep in range(5):  # alternating repeats
+            for name, fn in paths.items():
+                (fs, rew, term, trunc), ms, _ = timed(lambda fn=fn, rep=rep: fn(state, acts, 2 + rep))
+                ev[name].append(ms)
+        require(bool(torch.isfinite(fs.pos).all()) and bool((term | trunc).any()), 'mesh rollout')
+        rates = {k: B_MAIN * T_ROLL / (statistics.median(v) / 1e3) for k, v in ev.items()}
+        # planning's fused step (kernel F) with mesh movers and a bumper
+        # (accel_scale < 1), against its plain version in both modes
+        pcfg, pprm = PL.make_planning_env(np.ones((3, 3)), 1, mover_params=mesh, device=dev)
+        pkc = kpl.make_kernel_consts(pcfg, pprm)
+        st = PL.state_to_planes(pcfg, wall_state(pcfg, pprm, B_MAIN, 34, spread_steps=True))
+        act = ((torch.rand((2, B_MAIN), generator=g, device=dev) * 2 - 1) * 10.0).contiguous()
+        n_noise = kpl.autoreset_noise_planes(pcfg.num_cycles, pkc.cand_k, pkc.box)
+        u = torch.rand((n_noise, B_MAIN), generator=g, device=dev)
+        plan = {}
+        for mode, got, ref in (
+                ('injected', kpl.planning_autoreset_cuda(st, act, pkc, u), kpl.planning_autoreset_plain(st, act, pkc, u)),
+                ('philox', kpl.planning_autoreset_cuda(st, act, pkc, None, 7),
+                 kpl.planning_autoreset_plain(st, act, pkc, philox(7, n_noise, B_MAIN)))):
+            e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
+            require(not bad, f'planning mesh ({mode}): planes {bad} disagree')
+            plan[mode] = {'max_abs_err': e, 'wall_hits': int((got[19] > 0).sum())}
+        return {'B': B_MAIN, 'T': T_ROLL, 'K': 1, 'card': card, 'mover': mesh,
+                'accel_scale': float(prmm.accel_scale), 'mover_half': prmm.mover_half.tolist(),
+                'ms_runs': ev, 'env_steps_per_s': rates,
+                'planning_kernel_F': dict(plan, accel_scale=float(pprm.accel_scale[0]),
+                                          tol=f'flags exact, planes rtol {plan_rtol} atol {plan_atol}')}
+
+    # -- 23. no fused step waits for the host ----------------------------------------------
+    @phase('fused_steps_stay_on_card')
+    def _():
+        """Every fused step with a generator on the card, under sync debug
+        mode 'warn': the Philox seed is drawn on the card and read by the
+        kernel there, so no step copies anything to the host."""
+        g = torch.Generator(device=dev).manual_seed(35)
+        cfg1, prm1 = PL.make_planning_env(np.ones((3, 3)), 1, device=dev)
+        cfg4, prm4 = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
+        s_push = P.init_batch(config, params, B_MAIN, g)[0]
+        s_box = P.init_batch(cfg_box, prm_box, B_MAIN, g)[0]
+        s1 = PL.init_batch(cfg1, prm1, B_MAIN, g)[0]
+        s4 = PL.init_batch(cfg4, prm4, B_MAIN, g)[0]
+        a2 = torch.ones((B_MAIN, 2), device=dev)
+        a4 = torch.ones((B_MAIN, M_MAIN, 2), device=dev)
+        steps = {
+            'pushing make_fused_step': (P.make_fused_step(config, params), s_push, a2),
+            'pushing make_fused_step_autoreset': (P.make_fused_step_autoreset(config, params), s_push, a2),
+            'pushing box make_fused_step_autoreset': (P.make_fused_step_autoreset(cfg_box, prm_box), s_box, a2),
+            'planning make_fused_step': (PL.make_fused_step(cfg1, prm1), s1, a2),
+            'planning make_fused_step_autoreset': (PL.make_fused_step_autoreset(cfg1, prm1), s1, a2),
+            'planning 4-mover make_fused_step_autoreset': (PL.make_fused_step_autoreset(cfg4, prm4), s4, a4),
+            'multi_agent make_batched_parallel_step': (multi_agent.make_batched_parallel_step(cfg4, prm4), s4, a4),
+        }
+        res = {}
+        for name, (fn, s, a) in steps.items():
+            fn(s, a, generator=g)  # warm-up
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    fn(s, a, generator=g)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = [str(w.message)[:160] for w in caught if 'called a synchronizing' in str(w.message)]
+            res[name] = {'host_syncs': len(syncs), 'messages': syncs[:3]}
+        bad = {k: v for k, v in res.items() if v['host_syncs']}
+        require(not bad, f'fused steps wait on the host: {bad}')
+        return {'B': B_MAIN, 'generator': 'on the card', 'steps': res}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
         st = kstats[name]
         # each kernel's launches on its own path: A-D on the pushing main
         # path, E-G on the planning main path, H on the M-mover main path,
-        # C-feat on the PPO training path, I on the roofline's peaks
+        # C-feat on the PPO training path, I on the roofline's peaks, the
+        # box variants of B-D and C-feat on the box main path
         path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
-                         else train_launches if name in TRAIN_KERNELS
+                         else train_launches if name in TRAIN_KERNELS else box_launches if name in BOX_KERNELS
                          else measured.get('launches', {}) if name in PEAK_KERNELS else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,

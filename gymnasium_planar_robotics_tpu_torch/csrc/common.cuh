@@ -77,6 +77,18 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// The launch seed of the Philox stream: ``value``, or the int64 that ``dev``
+// points to in device memory when it is not null.  A seed drawn from a
+// generator on the card stays there (no copy to the host before the launch,
+// and a captured graph replays the draw instead of freezing its value).
+struct Seed {
+  uint64_t value;
+  const int64_t* dev;
+  __device__ __forceinline__ uint64_t get() const {
+    return dev != nullptr ? static_cast<uint64_t>(__ldg(dev)) : value;
+  }
+};
+
 struct PhiloxNoise {
   uint2 key;
   uint32_t env;
@@ -86,6 +98,7 @@ struct PhiloxNoise {
   __device__ PhiloxNoise(uint64_t seed, int64_t env_)
       : key(make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32))),
         env(static_cast<uint32_t>(env_)), block(0), word(4), buf(make_uint4(0, 0, 0, 0)) {}
+  __device__ PhiloxNoise(const Seed& seed, int64_t env_) : PhiloxNoise(seed.get(), env_) {}
   __device__ __forceinline__ float uniform() {
     if (word == 4) {
       buf = philox4x32_10(make_uint4(block++, env, 0u, 0u), key);

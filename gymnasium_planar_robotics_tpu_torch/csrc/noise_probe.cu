@@ -28,7 +28,7 @@ __device__ void probe_body(Noise& noise, float* out, int64_t B, int64_t e, int d
 
 template <bool kInject>
 __global__ void __launch_bounds__(kThreads) noise_probe_kernel(const float* __restrict__ noise, float* __restrict__ out,
-                                                               int64_t B, int draws, uint64_t seed) {
+                                                               int64_t B, int draws, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   if constexpr (kInject) {
@@ -44,8 +44,11 @@ __global__ void __launch_bounds__(kThreads) noise_probe_kernel(const float* __re
 
 // noise: [2*draws, B] uniforms, or null for the in-kernel Philox stream.
 // out: [2*draws, B].  Returns cudaGetLastError() after the launch.
-extern "C" int gprt_noise_probe(const float* noise, float* out, int64_t B, int draws, uint64_t seed, void* stream) {
+// seed_value, seed_dev: the Philox seed (gprt::Seed, common.cuh).
+extern "C" int gprt_noise_probe(const float* noise, float* out, int64_t B, int draws, uint64_t seed_value,
+                                const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0 || draws <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (noise != nullptr) {

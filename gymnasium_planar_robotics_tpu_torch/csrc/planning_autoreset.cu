@@ -31,7 +31,7 @@ template <bool kBox, bool kFull, bool kInject>
 __global__ void __launch_bounds__(kThreads)
     planning_autoreset_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                               const float* __restrict__ noise, float* __restrict__ out, int64_t B,
-                              const PlanningLaunch L, uint64_t seed) {
+                              const PlanningLaunch L, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   PlanningState st;
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kBox, bool kFull, bool kInject>
 struct AutoresetBody {
   static void launch(const float* st, const float* act, const float* noise, float* out, int64_t B,
-                     const PlanningLaunch& L, uint64_t seed, cudaStream_t s) {
+                     const PlanningLaunch& L, Seed seed, cudaStream_t s) {
     planning_autoreset_kernel<kBox, kFull, kInject><<<num_blocks(B), kThreads, 0, s>>>(st, act, noise, out, B, L, seed);
   }
 };
@@ -61,10 +61,13 @@ struct AutoresetBody {
 
 // st: [9, B] state planes; act: [2, B]; noise: [(2 + 2p) * num_cycles + 8 +
 // 4 * cand_k, B] uniforms or null for Philox; out: [23, B].
+// seed_value, seed_dev: the Philox seed (gprt::Seed, common.cuh).
 extern "C" int gprt_planning_autoreset(const float* st, const float* act, const float* noise, float* out, int64_t B,
                                        const void* consts, const float* table, int n_cells, int box, int full,
-                                       int jerk, int num_cycles, int cand_k, uint64_t seed, void* stream) {
+                                       int jerk, int num_cycles, int cand_k, uint64_t seed_value,
+                                       const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0) return 0;
   const PlanningLaunch L = make_planning_launch(consts, table, n_cells, jerk, num_cycles, cand_k);
   dispatch_planning<AutoresetBody>(box != 0, full != 0, noise != nullptr, st, act, noise, out, B, L, seed,

@@ -19,7 +19,7 @@ namespace gprt {
 template <bool kBox, bool kFull, bool kInject>
 __global__ void __launch_bounds__(kThreads)
     planning_cycles_kernel(const float* __restrict__ in, const float* __restrict__ noise, float* __restrict__ out,
-                           int64_t B, const PlanningLaunch L, uint64_t seed) {
+                           int64_t B, const PlanningLaunch L, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   Mover m;
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kBox, bool kFull, bool kInject>
 struct CyclesBody {
   static void launch(const float* in, const float* noise, float* out, int64_t B, const PlanningLaunch& L,
-                     uint64_t seed, cudaStream_t s) {
+                     Seed seed, cudaStream_t s) {
     planning_cycles_kernel<kBox, kFull, kInject><<<num_blocks(B), kThreads, 0, s>>>(in, noise, out, B, L, seed);
   }
 };
@@ -58,10 +58,12 @@ extern "C" const char* gprt_planning_const_names() { return GPRT_PLANNING_FIELDS
 // num_cycles, B] uniforms or null for Philox; out: [7, B] (6 mover planes +
 // wall).  consts: host pointer to a gprt::PlanningConsts; table: device
 // wall table of n_cells cells (holed layouts; null when full != 0).
+// seed_value, seed_dev: the Philox seed (gprt::Seed, common.cuh).
 extern "C" int gprt_planning_cycles(const float* in, const float* noise, float* out, int64_t B, const void* consts,
                                     const float* table, int n_cells, int box, int full, int jerk, int num_cycles,
-                                    uint64_t seed, void* stream) {
+                                    uint64_t seed_value, const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0) return 0;
   const PlanningLaunch L = make_planning_launch(consts, table, n_cells, jerk, num_cycles, 0);
   dispatch_planning<CyclesBody>(box != 0, full != 0, noise != nullptr, in, noise, out, B, L, seed,

@@ -362,7 +362,7 @@ template <int M, bool kBox, bool kFull, bool kInject>
 __global__ void __launch_bounds__(kThreads)
     planning_multi_autoreset_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                                     const float* __restrict__ noise, float* __restrict__ out, int64_t B,
-                                    const PlanningLaunch L, const MultiConsts mc, uint64_t seed) {
+                                    const PlanningLaunch L, const MultiConsts mc, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   MultiState<M> s;
@@ -395,7 +395,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int M, bool kBox, bool kFull, bool kInject>
 void launch_multi_kernel(const float* st, const float* act, const float* noise, float* out, int64_t B,
-                         const PlanningLaunch& L, const MultiConsts& mc, uint64_t seed, cudaStream_t s) {
+                         const PlanningLaunch& L, const MultiConsts& mc, Seed seed, cudaStream_t s) {
   planning_multi_autoreset_kernel<M, kBox, kFull, kInject>
       <<<num_blocks(B), kThreads, 0, s>>>(st, act, noise, out, B, L, mc, seed);
 }
@@ -406,7 +406,7 @@ void launch_multi_kernel(const float* st, const float* act, const float* noise, 
 // the 56 instantiations compile in parallel.
 template <int M, bool kBox>
 void launch_planning_multi(bool full, bool inject, const float* st, const float* act, const float* noise, float* out,
-                           int64_t B, const PlanningLaunch& L, const MultiConsts& mc, uint64_t seed, cudaStream_t s) {
+                           int64_t B, const PlanningLaunch& L, const MultiConsts& mc, Seed seed, cudaStream_t s) {
   if (full) {
     (inject ? launch_multi_kernel<M, kBox, true, true> : launch_multi_kernel<M, kBox, true, false>)(
         st, act, noise, out, B, L, mc, seed, s);
@@ -418,6 +418,6 @@ void launch_planning_multi(bool full, bool inject, const float* st, const float*
 
 #define GPRT_MULTI_LAUNCH_SIGNATURE(M, BOX)                                                                    \
   void launch_planning_multi<M, BOX>(bool, bool, const float*, const float*, const float*, float*, int64_t, \
-                                     const PlanningLaunch&, const MultiConsts&, uint64_t, cudaStream_t)
+                                     const PlanningLaunch&, const MultiConsts&, Seed, cudaStream_t)
 
 }  // namespace gprt

@@ -35,11 +35,14 @@ extern "C" const char* gprt_multi_const_names() { return GPRT_MULTI_FIELDS(GPRT_
 // st: [8M + 1, B] state planes; act: [2M, B]; noise: [(2 + 4p) * M *
 // num_cycles + 8M + 4M * cand_k, B] uniforms or null for Philox; out:
 // [18M + 6, B].  Returns cudaErrorInvalidValue for M outside 2 ... 8.
+// seed_value, seed_dev: the Philox seed (gprt::Seed, common.cuh).
 extern "C" int gprt_planning_multi_autoreset(const float* st, const float* act, const float* noise, float* out,
                                              int64_t B, const void* consts, const void* multi_consts,
                                              const float* table, int n_cells, int m, int box, int full, int jerk,
-                                             int num_cycles, int cand_k, uint64_t seed, void* stream) {
+                                             int num_cycles, int cand_k, uint64_t seed_value,
+                                             const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0) return 0;
   const PlanningLaunch L = make_planning_launch(consts, table, n_cells, jerk, num_cycles, cand_k);
   const MultiConsts mc = *static_cast<const MultiConsts*>(multi_consts);

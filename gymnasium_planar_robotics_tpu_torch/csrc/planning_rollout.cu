@@ -35,7 +35,7 @@ template <bool kBox, bool kFull, bool kInject>
 __global__ void __launch_bounds__(kThreads)
     planning_rollout_kernel(const float* __restrict__ st_in, const float* __restrict__ actions,
                             const float* __restrict__ noise, float* __restrict__ st_out,
-                            float* __restrict__ step_out, int64_t B, int K, const PlanningLaunch L, uint64_t seed) {
+                            float* __restrict__ step_out, int64_t B, int K, const PlanningLaunch L, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   PlanningState st;
@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kBox, bool kFull, bool kInject>
 struct RolloutBody {
   static void launch(const float* st, const float* actions, const float* noise, float* st_out, float* step_out,
-                     int64_t B, int K, const PlanningLaunch& L, uint64_t seed, cudaStream_t s) {
+                     int64_t B, int K, const PlanningLaunch& L, Seed seed, cudaStream_t s) {
     planning_rollout_kernel<kBox, kFull, kInject>
         <<<num_blocks(B), kThreads, 0, s>>>(st, actions, noise, st_out, step_out, B, K, L, seed);
   }
@@ -64,11 +64,13 @@ struct RolloutBody {
 // st: [9, B]; actions: [K, 2, B]; noise: [K * ((2 + 2p) * num_cycles + 8 +
 // 4 * cand_k), B] uniforms or null for Philox; st_out: [9, B]; step_out:
 // [3, K, B] (wall, reached, trunc per step).
+// seed_value, seed_dev: the Philox seed (gprt::Seed, common.cuh).
 extern "C" int gprt_planning_rollout(const float* st, const float* actions, const float* noise, float* st_out,
                                      float* step_out, int64_t B, int K, const void* consts, const float* table,
                                      int n_cells, int box, int full, int jerk, int num_cycles, int cand_k,
-                                     uint64_t seed, void* stream) {
+                                     uint64_t seed_value, const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0 || K <= 0) return 0;
   const PlanningLaunch L = make_planning_launch(consts, table, n_cells, jerk, num_cycles, cand_k);
   dispatch_planning<RolloutBody>(box != 0, full != 0, noise != nullptr, st, actions, noise, st_out, step_out, B, K,

@@ -19,6 +19,8 @@ namespace gprt {
 // The constants struct, passed by value to every pushing kernel.  The field
 // order is the contract with the Python side (CONST_FIELDS in
 // ops/kernels/pushing.py), checked at load time through gprt_const_names().
+// wall_x/wall_y: the wall-check size during cycles, c + offset_wall (the
+// radius in both for the circle, the half-extents for the box).
 #define GPRT_CONST_FIELDS(X)                                                   \
   X(v_max) X(a_max) X(dt) X(std_pos) X(std_vel) X(accel_scale) X(total_mass)   \
   X(mover_hx) X(mover_hy) X(obj_hx) X(obj_hy) X(obj_mass) X(contact_k)         \
@@ -26,10 +28,10 @@ namespace gprt {
   X(plow_unit) X(plow_cap) X(cone_zeta) X(cone_vt) X(cone_vt_off)              \
   X(cone_vt_span) X(conez_unit) X(conez_cap) X(mover_height) X(obj_height)     \
   X(imp_k) X(imp_d) X(z0) X(fz_cap0) X(fz_slope) X(damp) X(damp_w)             \
-  X(mu_spin_dt) X(wall_size) X(x0) X(x1) X(y0) X(y1) X(has_fast) X(fx0)        \
-  X(fx1) X(fy0) X(fy1) X(object_noise) X(max_episode_steps) X(min_x) X(min_y)  \
-  X(span_x) X(span_y) X(obj_min_x) X(obj_min_y) X(obj_span_x) X(obj_span_y)    \
-  X(min_mo) X(threshold)
+  X(mu_spin_dt) X(wall_x) X(wall_y) X(x0) X(x1) X(y0) X(y1) X(has_fast)       \
+  X(fx0) X(fx1) X(fy0) X(fy1) X(object_noise) X(max_episode_steps) X(min_x)   \
+  X(min_y) X(span_x) X(span_y) X(obj_min_x) X(obj_min_y) X(obj_span_x)         \
+  X(obj_span_y) X(min_mo) X(threshold)
 
 #define GPRT_DECLARE_FIELD(name) float name;
 struct Consts {
@@ -45,12 +47,31 @@ struct Phys {
   float px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz;
 };
 
+// The per-cycle noisy wall check on the fully populated table
+// (pallas_step._make_wall_checker.check): the position noise pair, for the
+// box (kBox) also two pairs of quaternion noise around the identity, turned
+// into the 2D rotation by quat_to_R2.  True = no wall collision.  The circle
+// keeps the expression it had before the box existed (nvcc may contract
+// it); the box rounds each operation as the plain version does.
+template <bool kBox, class Noise>
+__device__ __forceinline__ bool wall_ok(const Consts& c, Noise& noise, float npx, float npy) {
+  float nwx, nwy;
+  normal_pair(noise, nwx, nwy);
+  if constexpr (!kBox) return circle_valid_full(c, npx + nwx * c.std_pos, npy + nwy * c.std_pos, c.wall_x);
+  float q1, q2, q3, q4;
+  normal_pair(noise, q1, q2);
+  normal_pair(noise, q3, q4);
+  const Rot2 R = quat_to_R2(madd(1.0f, q1, c.std_pos), mul(q2, c.std_pos), mul(q3, c.std_pos), mul(q4, c.std_pos));
+  return box_valid_full(c, madd(npx, nwx, c.std_pos), madd(npy, nwy, c.std_pos), R, c.wall_x, c.wall_y);
+}
+
 // pallas_step._make_pushing_cycles.run: clamp chain (acc or jerk), v2
 // box-push contact with the hysteretic face axis, quasi-3D mover z, wedge
 // cap, cone share, plow load, floor and spin Coulomb friction, noisy wall
-// check, collision latch.  Draws 4 uniforms per cycle (velocity pair, wall
-// pair), also for latched envs.  Returns the wall flag (0 or 1).
-template <bool kJerk, class Noise>
+// check, collision latch.  Draws 2 + 2p uniforms per cycle (the velocity
+// pair, then p = 1 wall pair for the circle, 3 for the box), also for
+// latched envs.  Returns the wall flag (0 or 1).
+template <bool kJerk, bool kBox, class Noise>
 __device__ float run_cycles(const Consts& c, Noise& noise, int num_cycles, Phys& s, float ux, float uy) {
   float done_f = 0.0f, wall_f = 0.0f;
   float caxis = -1.0f;  // hysteretic normal axis: lives only within this step
@@ -149,9 +170,7 @@ __device__ float run_cycles(const Consts& c, Noise& noise, int num_cycles, Phys&
     ow_t = sign0(ow_t) * fmaxf(0.0f, fabsf(ow_t) - c.mu_spin_dt * load);
     const float noyaw = s.oyaw + c.dt * ow_t;
 
-    float nwx, nwy;
-    normal_pair(noise, nwx, nwy);
-    const float new_wall_f = circle_valid_full(c, npx + nwx * c.std_pos, npy + nwy * c.std_pos, c.wall_size) ? 0.0f : 1.0f;
+    const float new_wall_f = wall_ok<kBox>(c, noise, npx, npy) ? 0.0f : 1.0f;
 
     if (!done) {
       s.px = npx; s.py = npy; s.vx = nvx_t; s.vy = nvy_t;
@@ -185,13 +204,14 @@ struct StepAux {
 
 // Cycles, termination, pre-reset observation (3 pairs), in-kernel restart
 // (mover 2, object 2 + 2*(cand_k-1) candidates, goal 2), post-reset
-// observation (3 pairs): 4*num_cycles + 16 + 2*cand_k uniforms.
-template <bool kJerk, class Noise>
+// observation (3 pairs): (2 + 2p)*num_cycles + 16 + 2*cand_k uniforms (p = 1
+// circle, 3 box).  The restart draws no wall check.
+template <bool kJerk, bool kBox, class Noise>
 __device__ void autoreset_step(const Consts& c, Noise& noise, int num_cycles, int cand_k, StepState& st, float ux,
                                float uy, StepAux& aux) {
   Phys& s = st.p;
   const float g_old_x = st.gx, g_old_y = st.gy;
-  const float wall_f = run_cycles<kJerk>(c, noise, num_cycles, s, ux, uy);
+  const float wall_f = run_cycles<kJerk, kBox>(c, noise, num_cycles, s, ux, uy);
   aux.f_qax = s.ax;  // pre-reset qacc (jerk-mode final observation)
   aux.f_qay = s.ay;
 

@@ -4,7 +4,8 @@
 // Replaces: gymnasium_planar_robotics_tpu/ops/pallas_step.py
 // _pushing_autoreset_kernel (body _pushing_autoreset_step), reached from
 // make_fused_pushing_autoreset_cycles; the emit_features variant
-// (pallas_step.py:1066-1078) feeds the reactive rollout.
+// (pallas_step.py:1066-1078) feeds the reactive rollout.  Each comes in the
+// circle and the box collision shape (kBox).
 //
 // Bound on an H100: arithmetic per env (kernel B's cycles, plus 12 normals
 // and 2*cand_k + 4 uniforms for the observations and the restart); bytes
@@ -39,11 +40,11 @@ __device__ __forceinline__ void store_features(float* f, int64_t B, float mpx, f
   f[8 * B] = agx - mpx; f[9 * B] = agy - mpy; f[10 * B] = gx - agx; f[11 * B] = gy - agy;
 }
 
-template <bool kJerk, bool kInject, bool kEmit>
+template <bool kJerk, bool kBox, bool kInject, bool kEmit>
 __global__ void __launch_bounds__(kThreads)
     pushing_autoreset_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                              const float* __restrict__ noise, float* __restrict__ out, float* __restrict__ feat,
-                             int64_t B, const Consts c, int num_cycles, int cand_k, uint64_t seed) {
+                             int64_t B, const Consts c, int num_cycles, int cand_k, Seed seed) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= B) return;
   StepState st;
@@ -53,10 +54,10 @@ __global__ void __launch_bounds__(kThreads)
   StepAux aux;
   if constexpr (kInject) {
     InjectedNoise n(noise, B, e);
-    autoreset_step<kJerk>(c, n, num_cycles, cand_k, st, ux, uy, aux);
+    autoreset_step<kJerk, kBox>(c, n, num_cycles, cand_k, st, ux, uy, aux);
   } else {
     PhiloxNoise n(seed, e);
-    autoreset_step<kJerk>(c, n, num_cycles, cand_k, st, ux, uy, aux);
+    autoreset_step<kJerk, kBox>(c, n, num_cycles, cand_k, st, ux, uy, aux);
   }
   store_state(out, B, e, st);
   store_aux(out, B, e, aux);
@@ -69,44 +70,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kJerk, bool kEmit>
+template <bool kJerk, bool kBox, bool kEmit>
 void launch_by_noise(const float* st, const float* act, const float* noise, float* out, float* feat, int64_t B,
-                     const Consts& c, int num_cycles, int cand_k, uint64_t seed, cudaStream_t s) {
+                     const Consts& c, int num_cycles, int cand_k, Seed seed, cudaStream_t s) {
   if (noise != nullptr) {
-    pushing_autoreset_kernel<kJerk, true, kEmit>
+    pushing_autoreset_kernel<kJerk, kBox, true, kEmit>
         <<<num_blocks(B), kThreads, 0, s>>>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed);
   } else {
-    pushing_autoreset_kernel<kJerk, false, kEmit>
+    pushing_autoreset_kernel<kJerk, kBox, false, kEmit>
         <<<num_blocks(B), kThreads, 0, s>>>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed);
   }
 }
 
-template <bool kJerk>
+template <bool kJerk, bool kBox>
 void launch_autoreset(const float* st, const float* act, const float* noise, float* out, float* feat, int64_t B,
-                      const Consts& c, int num_cycles, int cand_k, uint64_t seed, cudaStream_t s) {
+                      const Consts& c, int num_cycles, int cand_k, Seed seed, cudaStream_t s) {
   if (feat != nullptr) {
-    launch_by_noise<kJerk, true>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
+    launch_by_noise<kJerk, kBox, true>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
   } else {
-    launch_by_noise<kJerk, false>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
+    launch_by_noise<kJerk, kBox, false>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
   }
 }
 
 }  // namespace gprt
 
-// st: [19, B] state planes; act: [2, B]; noise: [4*num_cycles + 16 +
-// 2*cand_k, B] uniforms or null for Philox; out: [36, B]; feat: [2, 12, B]
-// feature blocks, or null for none.
+// st: [19, B] state planes; act: [2, B]; noise: [(2 + 2p)*num_cycles + 16 +
+// 2*cand_k, B] uniforms (p = 1 circle, 3 box) or null for Philox; out:
+// [36, B]; feat: [2, 12, B] feature blocks, or null for none.  The Philox
+// seed is *seed_dev when seed_dev (device memory) is not null, else
+// seed_value.
 extern "C" int gprt_pushing_autoreset(const float* st, const float* act, const float* noise, float* out, float* feat,
                                       int64_t B, const void* consts, int num_cycles, int cand_k, int learn_jerk,
-                                      uint64_t seed, void* stream) {
+                                      int box, uint64_t seed_value, const int64_t* seed_dev, void* stream) {
   using namespace gprt;
+  const Seed seed{seed_value, seed_dev};
   if (B <= 0) return 0;
   const Consts c = *static_cast<const Consts*>(consts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (learn_jerk) {
-    launch_autoreset<true>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
+    (box ? launch_autoreset<true, true> : launch_autoreset<true, false>)(st, act, noise, out, feat, B, c,
+                                                                         num_cycles, cand_k, seed, s);
   } else {
-    launch_autoreset<false>(st, act, noise, out, feat, B, c, num_cycles, cand_k, seed, s);
+    (box ? launch_autoreset<false, true> : launch_autoreset<false, false>)(st, act, noise, out, feat, B, c,
+                                                                           num_cycles, cand_k, seed, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

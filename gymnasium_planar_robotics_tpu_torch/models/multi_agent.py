@@ -8,9 +8,12 @@ mode) as observation, its own position and goal as achieved and desired
 goal, shared-fate termination, reward +-50 on a shared success or collision,
 else -1 if its own goal is not reached.
 
-The step always runs ``planning.make_fused_step_autoreset``; the device of
-the tensors picks the kernel or its plain version (there is no backend
-switch, and no ``jit`` knob).
+The step runs ``planning.make_fused_step_autoreset`` where a fused kernel
+covers the configuration (f32 params, at most ``MAX_MOVERS`` movers), and
+``planning.batched_step_autoreset`` (the eager step) elsewhere, as the JAX
+package falls back to its XLA path; the device of the tensors picks the
+kernel or its plain version (there is no backend switch, and no ``jit``
+knob).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import planning
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.planning_multi import MAX_MOVERS
 
 
 class AgentBatch(NamedTuple):
@@ -57,18 +61,30 @@ def per_agent_rewards(config, params, achieved, desired, reward_shared):
     return torch.where(shared_event[..., None], reward_shared[..., None].to(own.dtype), own)
 
 
+def fused_covers(config: planning.PlanningConfig, params: planning.PlanningParams) -> bool:
+    """Whether a fused kernel steps this configuration: f32 params and at
+    most ``MAX_MOVERS`` movers (kernel F for one, H for more)."""
+    return params.v_max.dtype == torch.float32 and config.num_movers <= MAX_MOVERS
+
+
 def make_batched_parallel_step(config: planning.PlanningConfig, params: planning.PlanningParams):
     """Returns ``step(state, actions [B, N, 2], noise=None, seed=None,
     generator=None) -> (state, AgentBatch)`` over the batched
-    ``PlanningState``; ``noise``, ``seed`` and ``generator`` go to the fused
-    step."""
-    fused_step = planning.make_fused_step_autoreset(config, params)
+    ``PlanningState``.  ``noise`` and ``generator`` go to the step taken:
+    the fused step's uniforms where ``fused_covers``, else the eager step's
+    standard normals (``planning.draw_step_noise``); ``seed`` keys the fused
+    step's Philox stream (the eager step takes none)."""
     n = config.num_movers
+    fused_step = planning.make_fused_step_autoreset(config, params) if fused_covers(config, params) else None
 
     def step(state, actions, noise=None, seed=None, generator=None):
         b = actions.shape[0]
-        state, obs, reward, terminated, truncated, info = fused_step(
-            state, actions.reshape(b, n * 2), noise=noise, seed=seed, generator=generator)
+        flat = actions.reshape(b, n * 2)
+        if fused_step is not None:
+            out = fused_step(state, flat, noise=noise, seed=seed, generator=generator)
+        else:
+            out = planning.batched_step_autoreset(config, params, state, flat, noise=noise, generator=generator)
+        state, obs, reward, terminated, truncated, info = out
         observation, achieved, desired = split_obs(config, obs)
         # rewards come from the episode's final observation: on done steps
         # ``obs`` is already the next episode's first one
@@ -81,5 +97,5 @@ def make_batched_parallel_step(config: planning.PlanningConfig, params: planning
         )
         return state, out
 
-    step.noise_planes = fused_step.noise_planes
+    step.noise_planes = None if fused_step is None else fused_step.noise_planes
     return step

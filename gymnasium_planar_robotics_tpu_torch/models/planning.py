@@ -27,8 +27,8 @@ Differences from the JAX package, by design:
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
 Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): more than 8
-movers on the fused paths (kernel H's instantiations), mesh movers and f64
-on the fused paths.
+movers on the fused paths (kernel H's instantiations).  The fused paths run
+in f32 (the eager step takes f64), as in the JAX package.
 ``make_fused_step`` and ``make_reactive_rollout`` cover 1 mover, as in the
 JAX package (``pallas_step.supports``).
 
@@ -54,6 +54,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
+from gymnasium_planar_robotics_tpu_torch.utils import meshes
 
 REWARD_SUCCESS = 50.0  # benchmark_planning_env.py:220
 
@@ -100,10 +101,6 @@ class PlanningState:
     steps: torch.Tensor  # [B] int32
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP.md)')
-
-
 def make_planning_env(
     layout_tiles,
     num_movers: int,
@@ -140,10 +137,23 @@ def make_planning_env(
     accel_scale = np.ones((num_movers,))
     mover_shape = mover_params.get('shape', 'box')
     if mover_shape == 'mesh':
-        raise _not_ported("mover shape 'mesh'")
-    assert mover_shape in ('box', 'cylinder'), f'unknown mover shape {mover_shape!r}'
-    mover_size = np.asarray(mover_params.get('size', np.array([0.155 / 2, 0.155 / 2, 0.012 / 2])))
-    mover_size = np.broadcast_to(mover_size.reshape(-1, 3), (num_movers, 3))
+        # size from the (scaled) mesh AABB; a bumper geom carries its own
+        # mass on the same body while the actuator gain stays the configured
+        # mover mass, so the real acceleration is the command scaled by
+        # m_gain / m_total
+        mesh_cfg = mover_params.get('mesh', {})
+        mover_size = meshes.resolve_mover_size('mesh', None, mesh_cfg.get('mover_stl_path', 'beckhoff_apm4330_mover'),
+                                               mesh_cfg.get('scale', (1.0, 1.0, 1.0)))
+        mover_size = np.broadcast_to(mover_size.reshape(-1, 3), (num_movers, 3))
+        if mesh_cfg.get('bumper_stl_path', 'beckhoff_apm4330_bumper') is not None:
+            bumper_mass = np.broadcast_to(np.asarray(mesh_cfg.get('bumper_mass', 0.1), dtype=np.float64).reshape(-1),
+                                          (num_movers,))
+            assert (bumper_mass >= 0).all(), 'Bumper mass must be non-negative.'
+            accel_scale = mover_mass / (mover_mass + bumper_mass)
+    else:
+        assert mover_shape in ('box', 'cylinder'), f'unknown mover shape {mover_shape!r}'
+        mover_size = np.asarray(mover_params.get('size', np.array([0.155 / 2, 0.155 / 2, 0.012 / 2])))
+        mover_size = np.broadcast_to(mover_size.reshape(-1, 3), (num_movers, 3))
 
     c_shape = collision_params.get('shape', 'circle')
     c_size_in = collision_params.get('size', 0.11)

@@ -18,9 +18,9 @@ Differences from the JAX package, by design:
   draw from a Philox stream inside the kernel;
 - every function is batched: the state carries the batch as its leading
   axis, so ``batched_step`` is ``step``;
-- the configuration covers the fixed 3x3 table with the circle collision
-  shape and box/cylinder movers; mesh movers and the box collision shape
-  raise ``NotImplementedError``;
+- the configuration covers the fixed 3x3 table with the circle or box
+  collision shape and box, cylinder or mesh movers (the predefined meshes
+  are generated into the port's own ``assets/``, ``utils/meshes``);
 - any batch size runs without padding (the kernels mask the tail block);
 - ``make_pushing_env`` and the numpy converters put their tensors on the
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
@@ -44,6 +44,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
+from gymnasium_planar_robotics_tpu_torch.utils import meshes
 
 REWARD_WALL_COLLISION = -50.0
 
@@ -153,17 +154,8 @@ def make_pushing_env(
             f'unsupported mover_params keys for the pushing env: {sorted(unsupported)} '
             "(supported: 'mass', 'size', 'shape', 'mesh')"
         )
-    mover_shape = mover_params.get('shape', 'box')
-    if mover_shape == 'mesh':
-        raise NotImplementedError("mover shape 'mesh' is not ported yet: it comes with the mesh-mover slice (ROADMAP.md)")
-    if mover_shape not in ('box', 'cylinder'):
-        raise ValueError(f'unknown mover shape {mover_shape!r}')
     c_shape = collision_params.get('shape', 'circle')
-    if c_shape == 'box':
-        raise NotImplementedError(
-            "collision shape 'box' is not ported yet: it comes with the planning kernels (ROADMAP.md)"
-        )
-    if c_shape != 'circle':
+    if c_shape not in ('circle', 'box'):
         raise ValueError(f'unknown collision shape {c_shape!r}')
     if reward_mode not in ('sparse', 'dense'):
         raise ValueError(f'unknown reward_mode {reward_mode!r}')
@@ -173,8 +165,23 @@ def make_pushing_env(
     grid = make_tile_grid(layout, tile_size, dtype=dtype, device=device)
 
     mover_mass = float(np.asarray(mover_params.get('mass', 1.24)).reshape(-1)[0])
-    mover_size = np.asarray(mover_params.get('size', np.array([0.155 / 2, 0.155 / 2, 0.012 / 2]))).reshape(-1)
+    mover_shape = mover_params.get('shape', 'box')
     bumper_mass = 0.0
+    if mover_shape == 'mesh':
+        # size from the (scaled) mesh AABB; a bumper's mass joins the body
+        # while the actuator gain stays the configured mover mass
+        mesh_cfg = mover_params.get('mesh', {})
+        mover_size = np.asarray(meshes.resolve_mover_size(
+            'mesh', None, mesh_cfg.get('mover_stl_path', 'beckhoff_apm4330_mover'),
+            mesh_cfg.get('scale', (1.0, 1.0, 1.0)))).reshape(-1)
+        if mesh_cfg.get('bumper_stl_path', 'beckhoff_apm4330_bumper') is not None:
+            bumper_mass = float(np.asarray(mesh_cfg.get('bumper_mass', 0.1)).reshape(-1)[0])
+            if bumper_mass < 0:
+                raise ValueError('Bumper mass must be non-negative.')
+    elif mover_shape in ('box', 'cylinder'):
+        mover_size = np.asarray(mover_params.get('size', np.array([0.155 / 2, 0.155 / 2, 0.012 / 2]))).reshape(-1)
+    else:
+        raise ValueError(f'unknown mover shape {mover_shape!r}')
     total_mass = mover_mass + bumper_mass
     accel_scale = mover_mass / total_mass
 
@@ -187,9 +194,14 @@ def make_pushing_env(
     std = np.broadcast_to(std, (3,)) if std.shape == (1,) else std
 
     object_half = 0.07 / 2
-    margin = np.asarray(c_size_in).reshape(-1)[0] + c_offset + c_offset_wall
-    margin = np.array([margin, margin])
-    min_mo = max(float(np.linalg.norm(object_half + mover_size[:2])), float(np.asarray(c_size_in).reshape(-1)[0] + c_offset))
+    mover_reach = float(np.linalg.norm(object_half + mover_size[:2]))
+    if c_shape == 'circle':
+        margin = np.asarray(c_size_in).reshape(-1)[0] + c_offset + c_offset_wall
+        margin = np.array([margin, margin])
+        min_mo = max(mover_reach, float(np.asarray(c_size_in).reshape(-1)[0] + c_offset))
+    else:
+        margin = np.asarray(c_size_in).reshape(-1, 2)[0] + c_offset + c_offset_wall
+        min_mo = max(mover_reach, float(np.linalg.norm(np.asarray(c_size_in).reshape(-1, 2)[0] + c_offset)))
     # the workspace bound: max tile center + tile_size/2 = 0.66 on the 3x3 table
     hi = np.array([5 * tile_size[0] + tile_size[0] / 2, 5 * tile_size[1] + tile_size[1] / 2])
 
@@ -372,12 +384,18 @@ def reset(
     generator: torch.Generator | None = None,
     mover_start_xy_pos=None,
     object_goal_xy_pos=None,
+    noise=None,
 ):
     """Reset ``batch`` envs: mover uniform over the table, object = the first
     accepted of ``max_reset_trials`` uniform draws over the inner box that
     lies farther than ``min_mo_dist`` from the mover, goal uniform over the
     inner box.  Returns ``(state, obs, info)`` with ``reset_stalled`` (no
-    draw accepted) and ``reset_trials`` in ``info``."""
+    draw accepted) and ``reset_trials`` in ``info``.
+
+    ``noise`` (parity tests): the standard normals of the start's wall check
+    and of the first observation, ``{'pose': [B, P], 'obs': [6, B]}`` with
+    P = 2 (circle: xy) or 6 (box: xy, then the quaternion's four
+    components around the identity); drawn with kernel A when not given."""
     device, dtype = params.min_xy.device, params.min_xy.dtype
     k = config.max_reset_trials
     u = draw_uniforms(2 + 2 * k + 2, batch, device, generator)
@@ -412,9 +430,12 @@ def reset(
     )
     # wall check of the noisy start pose with the reset-time size
     # (c + offset_wall + offset), by the dense rule
-    n = noise_probe(1, batch, device, generator=generator)
-    wall = _wall_collision_with_noise(params, mover_xy, n.T * params.std_noise[0], with_offset=True)
-    obs = _get_obs(config, params, state, generator)
+    if noise is None:
+        noise = {'pose': noise_probe(_pose_noise_dims(config) // 2, batch, device, generator=generator).T,
+                 'obs': None}
+    wall = _wall_collision_with_noise(config, params, mover_xy, noise['pose'] * params.std_noise[0],
+                                      with_offset=True)
+    obs = _get_obs(config, params, state, generator, noise['obs'])
     info = _get_info(params, obs, wall)
     info['reset_stalled'] = ~obj_ok
     info['reset_trials'] = trials
@@ -426,13 +447,23 @@ def init_batch(config: PushingConfig, params: PushingParams, batch: int, generat
     return reset(config, params, batch, generator)
 
 
-def _wall_collision_with_noise(params: PushingParams, pos: torch.Tensor, noise: torch.Tensor, with_offset: bool):
-    """The mover's wall check at ``pos + noise`` (``noise`` the scaled pose
-    noise ``[B, 2]``), size c + offset_wall (+ offset), dense rule."""
+def _pose_noise_dims(config: PushingConfig) -> int:
+    return 6 if config.collision_shape == 'box' else 2
+
+
+def _wall_collision_with_noise(config: PushingConfig, params: PushingParams, pos: torch.Tensor, noise: torch.Tensor,
+                               with_offset: bool):
+    """The mover's wall check at ``pos`` under the scaled pose noise
+    ``noise`` ``[B, P]`` (xy; for the box also the quaternion's four
+    components around the identity), size c + offset_wall (+ offset), dense
+    rule."""
     c = params.c_size + params.c_offset_wall
     if with_offset:
         c = c + params.c_offset
-    return ~walls.qpos_is_valid(params.grid, pos + noise, c, collision_shape='circle')
+    quat = None
+    if config.collision_shape == 'box':
+        quat = common.identity_quats((), pos.dtype, pos.device) + noise[:, 2:]
+    return ~walls.qpos_is_valid(params.grid, pos + noise[:, :2], c, quat=quat, collision_shape=config.collision_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -442,12 +473,13 @@ def _wall_collision_with_noise(params: PushingParams, pos: torch.Tensor, noise: 
 
 def draw_step_noise(config: PushingConfig, batch: int, dtype, device, generator=None) -> dict:
     """The standard normals one eager step consumes, from ``generator``:
-    ``'vel'`` ``[C, B, 2]`` (velocity readings), ``'pose'`` ``[C, B, 2]``
-    (the wall check's pose), ``'obs'`` ``[6, B]`` (the observation's pos,
-    vel and object pairs; ``None`` here: kernel A draws them)."""
+    ``'vel'`` ``[C, B, 2]`` (velocity readings), ``'pose'`` ``[C, B, P]``
+    (the wall check's pose: xy, for the box also the quaternion's four
+    components), ``'obs'`` ``[6, B]`` (the observation's pos, vel and object
+    pairs; ``None`` here: kernel A draws them)."""
     c = config.num_cycles
     return {'vel': common.normals((c, batch, 2), dtype, device, generator),
-            'pose': common.normals((c, batch, 2), dtype, device, generator), 'obs': None}
+            'pose': common.normals((c, batch, _pose_noise_dims(config)), dtype, device, generator), 'obs': None}
 
 
 def _step_core(config: PushingConfig, params: PushingParams, state: PushingState, action, noise=None,
@@ -533,7 +565,7 @@ def _step_core(config: PushingConfig, params: PushingParams, state: PushingState
         w_obj = contact.coulomb_spin_step(w_obj, params.mu_spin * dt * load)
         new_obj_yaw = obj_yaw + dt * w_obj
 
-        new_wall = _wall_collision_with_noise(params, new_pos, pose_noise[k], with_offset=False)
+        new_wall = _wall_collision_with_noise(config, params, new_pos, pose_noise[k], with_offset=False)
 
         d2 = done[:, None]
         pos = torch.where(d2, pos, new_pos)
@@ -661,7 +693,7 @@ def make_fused_step(config: PushingConfig, params: PushingParams):
         truncated = torch.zeros_like(wall)
         return new_state, obs, reward, terminated, truncated, info
 
-    step_fn.noise_planes = kpush.cycles_noise_planes(config.num_cycles)
+    step_fn.noise_planes = kpush.cycles_noise_planes(config.num_cycles, kc.box)
     return step_fn
 
 
@@ -700,7 +732,7 @@ def make_fused_step_autoreset(config: PushingConfig, params: PushingParams, cand
         obs = _obs_dict(config, s_mp, s_mv, new_state.acc, s_ag, new_state.goal)
         return new_state, obs, reward, wall, truncated, info
 
-    step_fn.noise_planes = kpush.autoreset_noise_planes(config.num_cycles, cand_k)
+    step_fn.noise_planes = kpush.autoreset_noise_planes(config.num_cycles, cand_k, kc.box)
     return step_fn
 
 

@@ -16,7 +16,8 @@ import torch
 
 LAUNCHES = {
     'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_autoreset_features': 0,
-    'pushing_rollout': 0,
+    'pushing_rollout': 0, 'pushing_cycles_box': 0, 'pushing_autoreset_box': 0, 'pushing_autoreset_features_box': 0,
+    'pushing_rollout_box': 0,
     'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0, 'planning_multi_autoreset': 0,
     'peak_fma': 0, 'peak_transc': 0,
 }
@@ -64,9 +65,30 @@ def draw_uniforms(n: int, batch: int, device, generator: torch.Generator | None 
     return torch.rand((n, batch), generator=generator, device=gdev, dtype=torch.float32).to(device)
 
 
-def draw_seed(generator: torch.Generator | None = None) -> int:
-    gdev = generator.device if generator is not None else torch.device('cpu')
-    return int(torch.randint(0, 2**31 - 1, (), generator=generator, device=gdev))
+def draw_seed(generator: torch.Generator | None = None) -> int | torch.Tensor:
+    """A Philox launch seed drawn from ``generator``: an int from a CPU
+    generator (or the CPU's default one), a one-element int64 tensor from a
+    generator on the card.  The kernel reads the tensor at entry, so the
+    seed never travels to the host (no launch waits for the card, and a
+    captured graph replays the draw)."""
+    if generator is not None and generator.device.type == 'cuda':
+        return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device)
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+
+def seed_args(seed: int | torch.Tensor, device) -> tuple[int, int | None]:
+    """The two seed arguments of a kernel's C interface: an int goes by
+    value (address None), a one-element int64 tensor on ``device`` by its
+    address.  Either keys the same Philox stream for the same value.  The
+    tensor may be freed once the launch is enqueued: the caching allocator
+    hands its memory out again only in the stream's order, after the kernel
+    has read it."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != torch.device(device):
+            raise ValueError(f'a seed tensor must be one int64 on {device}, got {seed.dtype} {tuple(seed.shape)} '
+                             f'on {seed.device}')
+        return 0, seed.data_ptr()
+    return seed & 0xFFFFFFFFFFFFFFFF, None
 
 
 def noise_ptr(uniforms: torch.Tensor | None, n: int, b: int, device) -> int | None:
@@ -86,11 +108,12 @@ def dispatch(inputs: tuple, n_noise: int, uniforms, seed: int | None, generator,
     CPU: ``plain(uniforms)``, with ``[n_noise, B]`` uniforms drawn from
     ``generator`` when none are given.  CUDA: ``cuda(uniforms, seed)``;
     without ``uniforms`` the kernel draws its Philox stream under ``seed``
-    (drawn from ``generator`` when not given)."""
+    (``draw_seed(generator)`` when not given: on the card for a card
+    generator)."""
     if not on_cuda(*inputs, uniforms):
         if uniforms is None:
             uniforms = draw_uniforms(n_noise, inputs[0].shape[1], inputs[0].device, generator)
         return plain(uniforms)
     if uniforms is None and seed is None:
         seed = draw_seed(generator)
-    return cuda(uniforms, seed or 0)
+    return cuda(uniforms, 0 if seed is None else seed)

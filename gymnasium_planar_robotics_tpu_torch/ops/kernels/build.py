@@ -123,29 +123,31 @@ def lib() -> ctypes.CDLL:
             getattr(handle, names).restype = ctypes.c_char_p
             getattr(handle, names).argtypes = []
         handle.gprt_noise_probe.restype = i32
-        handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p]
+        handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, p]
         handle.gprt_pushing_cycles.restype = i32
-        handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, u64, p]
-        # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, seed, stream)
+        handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, p]
+        # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, box, seed, seed_dev, stream)
         handle.gprt_pushing_autoreset.restype = i32
-        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, u64, p]
+        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, i32, u64, p, p]
         handle.gprt_pushing_rollout.restype = i32
-        handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, u64, p]
-        # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, stream)
+        handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, i32, u64, p, p]
+        # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, seed_dev, stream)
         handle.gprt_planning_cycles.restype = i32
-        handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p]
-        # (st, act, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, cand_k, seed, stream)
+        handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p, p]
+        # (st, act, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, cand_k, seed, seed_dev,
+        #  stream)
         handle.gprt_planning_autoreset.restype = i32
-        handle.gprt_planning_autoreset.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, u64, p]
+        handle.gprt_planning_autoreset.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, u64, p, p]
         # (st, actions, noise, st_out, step_out, B, K, consts, table, n_cells, box, full, jerk, num_cycles,
-        #  cand_k, seed, stream)
+        #  cand_k, seed, seed_dev, stream)
         handle.gprt_planning_rollout.restype = i32
-        handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p]
+        handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p,
+                                                 p]
         # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, box, full, jerk, num_cycles, cand_k,
-        #  seed, stream)
+        #  seed, seed_dev, stream)
         handle.gprt_planning_multi_autoreset.restype = i32
         handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, i32, i32, i32, i32, i32, i32, i32,
-                                                         u64, p]
+                                                         u64, p, p]
         # (x, out, n, k, transc, stream); chains per thread of each probe
         handle.gprt_peak.restype = i32
         handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]

@@ -128,7 +128,8 @@ def noise_probe_plain(uniforms: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | None = None, seed: int = 0) -> torch.Tensor:
+def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | None = None,
+                     seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel A on the card: injected ``uniforms`` or the Philox stream of ``seed``."""
     device = torch.device(device)
     if device.type != 'cuda':
@@ -143,7 +144,7 @@ def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | No
     with torch.cuda.device(device):
         err = build.lib().gprt_noise_probe(
             uniforms.data_ptr() if uniforms is not None else None, out.data_ptr(), batch, draws,
-            seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            *kernels.seed_args(seed, device), kernels.stream_ptr(out),
         )
     build.check(err, 'noise_probe')
     kernels.LAUNCHES['noise_probe'] += 1
@@ -165,4 +166,4 @@ def noise_probe(draws: int, batch: int, device, *, uniforms: torch.Tensor | None
         return noise_probe_plain(uniforms)
     if device.type != 'cuda':
         raise ValueError(f'unsupported device {device}')
-    return noise_probe_cuda(draws, batch, device, uniforms, seed or 0)
+    return noise_probe_cuda(draws, batch, device, uniforms, 0 if seed is None else seed)

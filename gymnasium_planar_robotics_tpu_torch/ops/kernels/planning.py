@@ -68,19 +68,6 @@ def supports(config, params) -> bool:
             and to_numpy(params.v_max).dtype == np.float32)
 
 
-def wall_sizes(config, params):
-    """(step size, sample size) of the wall checks (``pallas_step._wall_sizes``):
-    c + offset_wall during cycles, c + offset + offset_wall at reset
-    sampling; a float radius for the circle, an (hx, hy) pair for the box."""
-    off = float(to_numpy(params.c_offset))
-    offw = float(to_numpy(params.c_offset_wall))
-    if config.collision_shape == 'box':
-        c = to_numpy(params.c_size).astype(np.float64).reshape(-1, 2)[0]
-        return (float(c[0]) + offw, float(c[1]) + offw), (float(c[0]) + off + offw, float(c[1]) + off + offw)
-    c = float(to_numpy(params.c_size).reshape(-1)[0])
-    return c + offw, c + off + offw
-
-
 @dataclasses.dataclass(frozen=True)
 class KernelConsts:
     """Everything a planning kernel launch needs besides its tensors.
@@ -125,7 +112,7 @@ def make_kernel_consts(config, params, cand_k: int = 16) -> KernelConsts:
             'kernels E-G cover 1 mover, and the JAX package has no M-mover make_fused_step either '
             '(pallas_step.supports): M movers step through make_fused_step_autoreset and make_fused_rollout (kernel H)')
     if not supports(config, params):
-        raise NotImplementedError('the fused planning kernels run in f32: f64 comes with the eager step (ROADMAP.md)')
+        raise NotImplementedError('the fused planning kernels run in f32; f64 params step through the eager step')
     return shared_consts(config, params, cand_k)
 
 
@@ -133,7 +120,7 @@ def shared_consts(config, params, cand_k: int = 16) -> KernelConsts:
     """``make_kernel_consts`` without its checks: the fields kernels E-H
     share (the size and ``accel_scale`` fields are the first mover's)."""
     box = config.collision_shape == 'box'
-    wall_size, sample_size = wall_sizes(config, params)
+    wall_size, sample_size = walls.wall_sizes(config, params)
     wall_x, wall_y = wall_size if box else (wall_size,) * 2
     sample_x, sample_y = sample_size if box else (sample_size,) * 2
     std = to_numpy(params.std_noise)
@@ -315,7 +302,7 @@ def launch_args(kc: KernelConsts, device):
             int(kc.box), int(kc.rule.full), int(kc.learn_jerk), kc.num_cycles)
 
 
-def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
+def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel E on the card."""
     b = planes.shape[1]
     kernels.check_plane(planes, 'planes', (N_CYCLES_IN, b))
@@ -324,14 +311,15 @@ def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0)
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_planning_cycles(
             planes.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, planes.device),
-            seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            *kernels.seed_args(seed, planes.device), kernels.stream_ptr(out),
         )
     build.check(err, 'planning_cycles')
     kernels.LAUNCHES['planning_cycles'] += 1
     return out
 
 
-def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
+def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None,
+                            seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel F on the card."""
     b = state.shape[1]
     kernels.check_plane(state, 'state', (N_STATE, b))
@@ -341,14 +329,14 @@ def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, state.device),
-            kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            kc.cand_k, *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
         )
     build.check(err, 'planning_autoreset')
     kernels.LAUNCHES['planning_autoreset'] += 1
     return out
 
 
-def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: int = 0):
+def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0):
     """Kernel G on the card."""
     b = state.shape[1]
     k = actions.shape[0]
@@ -361,7 +349,8 @@ def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed:
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
-            *launch_args(kc, state.device), kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(st_out),
+            *launch_args(kc, state.device), kc.cand_k, *kernels.seed_args(seed, state.device),
+            kernels.stream_ptr(st_out),
         )
     build.check(err, 'planning_rollout')
     kernels.LAUNCHES['planning_rollout'] += 1

@@ -94,7 +94,7 @@ def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
     if not 2 <= m <= MAX_MOVERS:
         raise NotImplementedError(f'kernel H is instantiated for 2 to {MAX_MOVERS} movers, got {m} (ROADMAP.md)')
     if config.collision_shape not in ('circle', 'box') or to_numpy(params.v_max).dtype != np.float32:
-        raise NotImplementedError('the fused planning kernels run in f32: f64 comes with the eager step (ROADMAP.md)')
+        raise NotImplementedError('the fused planning kernels run in f32; f64 params step through the eager step')
     box = config.collision_shape == 'box'
     offset = float(to_numpy(params.c_offset))
     offset_wall = float(to_numpy(params.c_offset_wall))
@@ -336,7 +336,8 @@ def _noise_planes(mc: MultiConsts) -> int:
     return multi_noise_planes(mc.base.num_cycles, mc.m, mc.base.cand_k, mc.base.box)
 
 
-def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
+def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None,
+                                  seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel H on the card."""
     b, m = state.shape[1], mc.m
     kernels.check_plane(state, 'state', (n_multi_state(m), b))
@@ -351,7 +352,8 @@ def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None,
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_multi_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, args[0], mc.vector.ctypes.data,
-            args[1], args[2], m, *args[3:], kc.cand_k, seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            args[1], args[2], m, *args[3:], kc.cand_k, *kernels.seed_args(seed, state.device),
+            kernels.stream_ptr(out),
         )
     build.check(err, 'planning_multi_autoreset')
     kernels.LAUNCHES['planning_multi_autoreset'] += 1

@@ -11,6 +11,11 @@ Counterpart of ``gymnasium_planar_robotics_tpu/ops/pallas_step.py``:
 - kernel D, ``pushing_rollout``: ``_pushing_rollout_kernel`` (K autoreset
   steps in one launch).
 
+Each kernel comes in the circle and the box collision shape (``kc.box``):
+the box's per-cycle wall check draws two more normal pairs (the quaternion
+noise) and tests the rotated rectangle's vertices, and its launches count
+under the kernel's name with ``_box`` appended.
+
 State travels as structure-of-arrays f32 planes ``[planes, B]``: the 16
 physics planes (pos, vel, acc, act, obj_pos, obj_vel x/y pairs, yaw, omega,
 mover z, mover vz), then goal x/y and the step counter for the 19-plane
@@ -29,7 +34,8 @@ from gymnasium_planar_robotics_tpu_torch.ops import kernels
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, to_numpy
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain, scalar
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
-from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import circle_valid_full, full_layout_bounds, grid_np
+from gymnasium_planar_robotics_tpu_torch.ops.kernels.walls import (box_valid_full, circle_valid_full, full_layout_bounds,
+                                                                   grid_np, quat_to_R2, wall_sizes)
 
 #: field order of ``gprt::Consts`` in ``csrc/pushing.cuh``
 CONST_FIELDS = (
@@ -39,7 +45,7 @@ CONST_FIELDS = (
     'plow_unit', 'plow_cap', 'cone_zeta', 'cone_vt', 'cone_vt_off',
     'cone_vt_span', 'conez_unit', 'conez_cap', 'mover_height', 'obj_height',
     'imp_k', 'imp_d', 'z0', 'fz_cap0', 'fz_slope', 'damp', 'damp_w',
-    'mu_spin_dt', 'wall_size', 'x0', 'x1', 'y0', 'y1', 'has_fast', 'fx0',
+    'mu_spin_dt', 'wall_x', 'wall_y', 'x0', 'x1', 'y0', 'y1', 'has_fast', 'fx0',
     'fx1', 'fy0', 'fy1', 'object_noise', 'max_episode_steps', 'min_x', 'min_y',
     'span_x', 'span_y', 'obj_min_x', 'obj_min_y', 'obj_span_x', 'obj_span_y',
     'min_mo', 'threshold',
@@ -50,15 +56,17 @@ N_AUTORESET_OUT = 36  # 19 state + post-reset obs 6 + pre-reset obs 8 + wall, st
 N_FEATURES = 12  # rows of one policy feature block
 
 
-def cycles_noise_planes(num_cycles: int) -> int:
-    """Uniforms one step of cycles draws: a velocity pair and a wall pair per cycle."""
-    return 4 * num_cycles
+def cycles_noise_planes(num_cycles: int, box: bool = False) -> int:
+    """Uniforms one step of cycles draws: per cycle a velocity pair and the
+    wall check's pose, one pair (circle) or three (box: xy, then the
+    quaternion noise) (``pallas_step._step_noise_planes``)."""
+    return (2 + 2 * (3 if box else 1)) * num_cycles
 
 
-def autoreset_noise_planes(num_cycles: int, cand_k: int) -> int:
+def autoreset_noise_planes(num_cycles: int, cand_k: int, box: bool = False) -> int:
     """cycles + pre-obs (3 pairs) + restart (mover 2 + object 2*cand_k +
     goal 2) + post-obs (3 pairs)."""
-    return cycles_noise_planes(num_cycles) + 16 + 2 * cand_k
+    return cycles_noise_planes(num_cycles, box) + 16 + 2 * cand_k
 
 
 # ---------------------------------------------------------------------------
@@ -68,16 +76,14 @@ def autoreset_noise_planes(num_cycles: int, cand_k: int) -> int:
 
 def pushing_consts(config, params) -> dict:
     """The pushing kernels' trace-time constants (``pallas_step._pushing_consts``)."""
-    if config.collision_shape != 'circle':
-        raise NotImplementedError('the pushing kernels cover the circle collision shape (ROADMAP.md)')
     p = {f.name: to_numpy(getattr(params, f.name)) for f in dataclasses.fields(params) if f.name != 'grid'}
     return dict(
         grid_np=grid_np(params),
         num_cycles=config.num_cycles,
         learn_jerk=config.learn_jerk,
-        box=False,
-        # the circle radius during cycles: c + offset_wall (pallas_step._wall_sizes)
-        wall_size=float(p['c_size'].reshape(-1)[0]) + float(p['c_offset_wall']),
+        box=config.collision_shape == 'box',
+        # during cycles c + offset_wall: the circle's radius, the box's half-extents
+        wall_size=wall_sizes(config, params)[0],
         v_max=float(p['v_max']),
         a_max=float(p['a_max']),
         dt=float(p['dt']),
@@ -155,6 +161,7 @@ class KernelConsts:
     num_cycles: int
     cand_k: int
     learn_jerk: bool
+    box: bool
 
 
 def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
@@ -166,7 +173,9 @@ def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
     (x0, x1, y0, y1), fast = full_layout_bounds(g)
     # sums the Pallas kernel forms in Python float64 before rounding to f32
     v = dict(pc)
+    wall_x, wall_y = pc['wall_size'] if pc['box'] else (pc['wall_size'],) * 2
     v.update(
+        wall_x=wall_x, wall_y=wall_y,
         cone_vt_span=pc['cone_vt_off'] - pc['cone_vt_hi'],
         damp=1.0 + pc['dt'] * pc['obj_damping'] / pc['obj_mass'],
         damp_w=1.0 + pc['dt'] * pc['obj_damping'] / pc['obj_inertia'],
@@ -188,7 +197,12 @@ def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
     vector = np.array([v[k] for k in CONST_FIELDS], dtype=np.float32)
     f = {k: float(x) for k, x in zip(CONST_FIELDS, vector)}
     return KernelConsts(f=f, vector=vector, num_cycles=config.num_cycles, cand_k=cand_k,
-                        learn_jerk=bool(config.learn_jerk))
+                        learn_jerk=bool(config.learn_jerk), box=pc['box'])
+
+
+def launch_name(name: str, kc: KernelConsts) -> str:
+    """The ``LAUNCHES`` key of kernel ``name`` in ``kc``'s collision shape."""
+    return name + '_box' if kc.box else name
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +210,21 @@ def make_kernel_consts(config, params, cand_k: int = 32) -> KernelConsts:
 # ---------------------------------------------------------------------------
 
 
-def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk: bool, phys, ux, uy):
+def _wall_ok_plain(f: dict, noise: UniformStream, box: bool, npx, npy):
+    """The per-cycle noisy wall check (``_make_wall_checker.check``) on the
+    fully populated table: position noise, for the box also quaternion
+    noise around the identity.  True = no wall collision."""
+    sp = f['std_pos']
+    nwx, nwy = noise.normal_pair()
+    if not box:
+        return circle_valid_full(f, npx + nwx * sp, npy + nwy * sp, f['wall_x'])
+    q1, q2 = noise.normal_pair()
+    q3, q4 = noise.normal_pair()
+    R = quat_to_R2(1.0 + q1 * sp, q2 * sp, q3 * sp, q4 * sp)
+    return box_valid_full(f, npx + nwx * sp, npy + nwy * sp, R, f['wall_x'], f['wall_y'])
+
+
+def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk: bool, box: bool, phys, ux, uy):
     """``_make_pushing_cycles.run``: 16 physics planes in, 16 out + wall."""
     px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz = phys
     dt = f['dt']
@@ -300,9 +328,7 @@ def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk
         ow_t = torch.sign(ow_t) * torch.clamp(torch.abs(ow_t) - f['mu_spin_dt'] * load, min=0.0)
         noyaw = oyaw + dt * ow_t
 
-        nwx, nwy = noise.normal_pair()
-        ok = circle_valid_full(f, npx + nwx * f['std_pos'], npy + nwy * f['std_pos'], f['wall_size'])
-        new_wall_f = torch.where(ok, 0.0, 1.0)
+        new_wall_f = torch.where(_wall_ok_plain(f, noise, box, npx, npy), 0.0, 1.0)
 
         px = torch.where(done, px, npx)
         py = torch.where(done, py, npy)
@@ -334,7 +360,7 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     f = kc.f
     phys, (gx, gy, steps) = st[:16], st[16:19]
     g_old_x, g_old_y = gx, gy
-    phys, wall_f = _run_cycles_plain(f, noise, kc.num_cycles, kc.learn_jerk, phys, ux, uy)
+    phys, wall_f = _run_cycles_plain(f, noise, kc.num_cycles, kc.learn_jerk, kc.box, phys, ux, uy)
     px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz = phys
     f_qax, f_qay = ax, ay
 
@@ -414,9 +440,9 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
 
 def pushing_cycles_plain(planes: torch.Tensor, kc: KernelConsts, uniforms: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B: ``[18, B]`` (16 physics + action x/y) ->
-    ``[17, B]`` (16 physics + wall) over ``[4*num_cycles, B]`` uniforms."""
+    ``[17, B]`` (16 physics + wall) over ``[cycles_noise_planes, B]`` uniforms."""
     noise = UniformStream(uniforms)
-    phys, wall = _run_cycles_plain(kc.f, noise, kc.num_cycles, kc.learn_jerk, list(planes[:16]),
+    phys, wall = _run_cycles_plain(kc.f, noise, kc.num_cycles, kc.learn_jerk, kc.box, list(planes[:16]),
                                    planes[16], planes[17])
     noise.finalize()
     return torch.stack(phys + [wall])
@@ -478,23 +504,24 @@ def _consts_ptr(kc: KernelConsts) -> int:
     return kc.vector.ctypes.data
 
 
-def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int = 0) -> torch.Tensor:
-    """Kernel B on the card."""
+def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0) -> torch.Tensor:
+    """Kernel B on the card (``seed``: ``kernels.seed_args``)."""
     b = planes.shape[1]
     kernels.check_plane(planes, 'planes', (18, b))
-    noise_ptr = kernels.noise_ptr(uniforms, cycles_noise_planes(kc.num_cycles), b, planes.device)
+    noise_ptr = kernels.noise_ptr(uniforms, cycles_noise_planes(kc.num_cycles, kc.box), b, planes.device)
     out = torch.empty((17, b), dtype=torch.float32, device=planes.device)
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_pushing_cycles(
             planes.data_ptr(), noise_ptr, out.data_ptr(), b, _consts_ptr(kc), kc.num_cycles,
-            int(kc.learn_jerk), seed & 0xFFFFFFFFFFFFFFFF, kernels.stream_ptr(out),
+            int(kc.learn_jerk), int(kc.box), *kernels.seed_args(seed, planes.device), kernels.stream_ptr(out),
         )
-    build.check(err, 'pushing_cycles')
-    kernels.LAUNCHES['pushing_cycles'] += 1
+    name = launch_name('pushing_cycles', kc)
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
-def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int = 0,
+def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0,
                            emit_features: bool = False):
     """Kernel C on the card; with ``emit_features`` its C-feat variant,
     which also writes the ``[2, 12, B]`` feature blocks and counts under its
@@ -502,38 +529,41 @@ def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed:
     b = state.shape[1]
     kernels.check_plane(state, 'state', (N_STATE, b))
     kernels.check_plane(action, 'action', (2, b))
-    noise_ptr = kernels.noise_ptr(uniforms, autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
+    n_noise = autoreset_noise_planes(kc.num_cycles, kc.cand_k, kc.box)
+    noise_ptr = kernels.noise_ptr(uniforms, n_noise, b, state.device)
     out = torch.empty((N_AUTORESET_OUT, b), dtype=torch.float32, device=state.device)
     feat = torch.empty((2, N_FEATURES, b), dtype=torch.float32, device=state.device) if emit_features else None
     with torch.cuda.device(state.device):
         err = build.lib().gprt_pushing_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), feat.data_ptr() if emit_features else None,
-            b, _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), seed & 0xFFFFFFFFFFFFFFFF,
-            kernels.stream_ptr(out),
+            b, _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
+            *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
         )
-    name = 'pushing_autoreset_features' if emit_features else 'pushing_autoreset'
+    name = launch_name('pushing_autoreset_features' if emit_features else 'pushing_autoreset', kc)
     build.check(err, name)
     kernels.LAUNCHES[name] += 1
     return (out, feat) if emit_features else out
 
 
-def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: int = 0):
+def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0):
     """Kernel D on the card."""
     b = state.shape[1]
     k = actions.shape[0]
     kernels.check_plane(state, 'state', (N_STATE, b))
     kernels.check_plane(actions, 'actions', (k, 2, b))
-    noise_ptr = kernels.noise_ptr(uniforms, k * autoreset_noise_planes(kc.num_cycles, kc.cand_k), b, state.device)
+    n_noise = k * autoreset_noise_planes(kc.num_cycles, kc.cand_k, kc.box)
+    noise_ptr = kernels.noise_ptr(uniforms, n_noise, b, state.device)
     st_out = torch.empty((N_STATE, b), dtype=torch.float32, device=state.device)
     step_out = torch.empty((3, k, b), dtype=torch.float32, device=state.device)
     with torch.cuda.device(state.device):
         err = build.lib().gprt_pushing_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
-            _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), seed & 0xFFFFFFFFFFFFFFFF,
-            kernels.stream_ptr(st_out),
+            _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
+            *kernels.seed_args(seed, state.device), kernels.stream_ptr(st_out),
         )
-    build.check(err, 'pushing_rollout')
-    kernels.LAUNCHES['pushing_rollout'] += 1
+    name = launch_name('pushing_rollout', kc)
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return st_out, step_out
 
 
@@ -544,7 +574,7 @@ def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: 
 
 def pushing_cycles(planes, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
     """Kernel B, or its plain version on CPU tensors (``kernels.dispatch``)."""
-    return kernels.dispatch((planes,), cycles_noise_planes(kc.num_cycles), uniforms, seed, generator,
+    return kernels.dispatch((planes,), cycles_noise_planes(kc.num_cycles, kc.box), uniforms, seed, generator,
                             lambda u: pushing_cycles_plain(planes, kc, u),
                             lambda u, s: pushing_cycles_cuda(planes, kc, u, s))
 
@@ -553,14 +583,14 @@ def pushing_autoreset(state, action, kc: KernelConsts, *, uniforms=None, seed: i
                       emit_features: bool = False):
     """Kernel C, or its plain version on CPU tensors: ``out [36, B]``, or
     ``(out, feat [2, 12, B])`` with ``emit_features`` (C-feat)."""
-    return kernels.dispatch((state, action), autoreset_noise_planes(kc.num_cycles, kc.cand_k), uniforms, seed,
+    return kernels.dispatch((state, action), autoreset_noise_planes(kc.num_cycles, kc.cand_k, kc.box), uniforms, seed,
                             generator, lambda u: pushing_autoreset_plain(state, action, kc, u, emit_features),
                             lambda u, s: pushing_autoreset_cuda(state, action, kc, u, s, emit_features))
 
 
 def pushing_rollout(state, actions, kc: KernelConsts, *, uniforms=None, seed: int | None = None, generator=None):
     """Kernel D, or its plain version on CPU tensors."""
-    n = actions.shape[0] * autoreset_noise_planes(kc.num_cycles, kc.cand_k)
+    n = actions.shape[0] * autoreset_noise_planes(kc.num_cycles, kc.cand_k, kc.box)
     return kernels.dispatch((state, actions), n, uniforms, seed, generator,
                             lambda u: pushing_rollout_plain(state, actions, kc, u),
                             lambda u, s: pushing_rollout_cuda(state, actions, kc, u, s))

@@ -9,7 +9,8 @@ Counterparts in ``gymnasium_planar_robotics_tpu/ops/pallas_step.py``:
 - ``box_valid_general``: ``_make_wall_valid_box_general``, holed layout
   with the missing-corner rectangle tests;
 - ``seg_intersect``, ``quat_to_R2``: ``_seg_intersect``, ``_quat_to_R2``;
-- ``wall_check`` / ``sample_valid_at``: ``_make_wall_checker``.
+- ``wall_check`` / ``sample_valid_at``: ``_make_wall_checker``;
+- ``wall_sizes``: ``_wall_sizes``, the checks' sizes of both families.
 
 The Pallas kernels unroll the holed-layout rule over the cells at trace
 time and prune each cell's terms by its static neighbours.  ``WallRule``
@@ -52,6 +53,19 @@ def grid_np(params) -> dict:
         'corner_xy': to_numpy(g.corner_xy).astype(np.float64),
         'corner_onehot': to_numpy(g.corner_onehot),
     }
+
+
+def wall_sizes(config, params):
+    """(step size, sample size) of the wall checks (``pallas_step._wall_sizes``):
+    c + offset_wall during cycles, c + offset + offset_wall at reset
+    sampling; a float radius for the circle, an (hx, hy) pair for the box."""
+    off = float(to_numpy(params.c_offset))
+    offw = float(to_numpy(params.c_offset_wall))
+    if config.collision_shape == 'box':
+        c = to_numpy(params.c_size).astype(np.float64).reshape(-1, 2)[0]
+        return (float(c[0]) + offw, float(c[1]) + offw), (float(c[0]) + off + offw, float(c[1]) + off + offw)
+    c = float(to_numpy(params.c_size).reshape(-1)[0])
+    return c + offw, c + off + offw
 
 
 def full_layout_bounds(g: dict):

@@ -44,6 +44,10 @@ PUBLISHED_MUFU = 132 * 16 * PUBLISHED_CLOCK
 OPS = {
     'normal_pair': (5, 4),
     'pushing_cycle': (268, 30),
+    # the box collision shape's cycle: the circle's plus the box wall check's
+    # extra, which is planning's (two more normal pairs, quat_to_R2, four
+    # vertex transforms and their tests in place of the circle's)
+    'pushing_cycle_box': (371, 41),
     'pushing_step_extra': (110, 26),  # observations, termination, restart selects
     'pushing_candidate': (16, 1),  # one object candidate of the restart (all cand_k are drawn and tested)
     'pushing_features': (8, 0),  # C-feat: the four differences of each of the two feature blocks

@@ -98,3 +98,42 @@ def test_uniform_stream_asserts_its_draw_count():
 def test_dispatch_rejects_mixed_devices():
     with pytest.raises(ValueError, match='must all be on the CPU'):
         kernels.on_cuda(torch.zeros(1), torch.zeros(1, device='meta'))
+
+
+def test_draw_seed_keeps_a_cpu_seed_an_int():
+    """A CPU generator (or none) gives the launch seed as a Python int, the
+    value the kernels have always been keyed with."""
+    got = kernels.draw_seed(torch.Generator().manual_seed(5))
+    assert isinstance(got, int)
+    assert got == int(torch.randint(0, 2**31 - 1, (), generator=torch.Generator().manual_seed(5)))
+    torch.manual_seed(6)
+    got = kernels.draw_seed()
+    torch.manual_seed(6)
+    assert isinstance(got, int) and got == int(torch.randint(0, 2**31 - 1, ()))
+
+
+def test_seed_args_by_value_or_by_address():
+    """An int seed goes by value (masked to 64 bits), a one-element int64
+    tensor by its address on the launch's device; anything else raises."""
+    assert kernels.seed_args(7, 'cpu') == (7, None)
+    assert kernels.seed_args(-1, 'cpu') == (2**64 - 1, None)
+    t = torch.tensor([7], dtype=torch.int64)
+    assert kernels.seed_args(t, 'cpu') == (0, t.data_ptr())
+    for bad in (torch.tensor([7], dtype=torch.int32), torch.tensor([7, 8]), torch.tensor([7], device='meta')):
+        with pytest.raises(ValueError, match='seed tensor'):
+            kernels.seed_args(bad, 'cpu')
+
+
+def test_dispatch_hands_the_kernel_the_drawn_seed(monkeypatch):
+    """The card path gets ``draw_seed(generator)`` untouched (an int here, a
+    card tensor for a card generator: no ``int()`` of it), or 0 beside
+    injected uniforms."""
+    monkeypatch.setattr(kernels, 'on_cuda', lambda *t: True)
+    x = torch.zeros((2, 4))
+    seen = []
+    kernels.dispatch((x,), 2, None, None, torch.Generator().manual_seed(5), None, lambda u, s: seen.append((u, s)))
+    kernels.dispatch((x,), 2, None, 11, None, None, lambda u, s: seen.append((u, s)))
+    u = torch.zeros((2, 4))
+    kernels.dispatch((x,), 2, u, None, None, None, lambda u, s: seen.append((u, s)))
+    assert seen[0] == (None, kernels.draw_seed(torch.Generator().manual_seed(5)))
+    assert seen[1] == (None, 11) and seen[2][0] is u and seen[2][1] == 0

@@ -48,6 +48,10 @@ CASES = {
         'collision_params': {'size': 0.12, 'offset': 0.02, 'offset_wall': 0.003}, 'v_max': 1.0, 'a_max': 8.0,
     }),
     'two_movers': (FULL, 2, {}),
+    # mesh movers with a bumper (the JAX package's tests/test_pushing_env.py:288 settings)
+    'mesh_bumper': (FULL, 1, {'mover_params': {'shape': 'mesh', 'mesh': {'bumper_mass': 0.35}}}),
+    'mesh_bumpers_two_box': (FULL, 2, {'mover_params': {'shape': 'mesh', 'mesh': {'bumper_mass': [0.3, 0.4]}},
+                                       'collision_params': {'shape': 'box', 'size': [0.08, 0.08]}}),
 }
 
 
@@ -260,8 +264,6 @@ def test_not_ported_paths_raise():
         for make in makers:
             with pytest.raises(NotImplementedError, match='f64'):
                 make(cfg64, prm64)
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        tplan.make_planning_env(FULL, 1, mover_params={'shape': 'mesh'}, device='cpu')
     cfg9e, prm9e = tplan.make_planning_env(np.ones((6, 6)), 9, num_cycles=2, dtype=torch.float64, device='cpu')
     g = torch.Generator().manual_seed(0)
     state9 = tplan.init_batch(cfg9e, prm9e, 3, g)[0]

@@ -29,8 +29,16 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'gymnasium_planar_robotics_tpu_torch'
 
+# the JAX package's mesh-bumper pushing settings (tests/test_pushing_env.py:288)
+MESH_BUMPER = {'shape': 'mesh', 'mesh': {'bumper_mass': 0.35}}
 CASES = {
     'default': {},
+    'box': {'collision_params': {'shape': 'box', 'size': [0.1, 0.1]}},
+    'mesh_bumper': {'mover_params': MESH_BUMPER},
+    'box_mesh_bumper_jerk': {
+        'collision_params': {'shape': 'box', 'size': [0.09, 0.08], 'offset': 0.01, 'offset_wall': 0.005},
+        'mover_params': MESH_BUMPER, 'learn_jerk': True, 'num_cycles': 10,
+    },
     'jerk': {'learn_jerk': True, 'num_cycles': 10},
     'custom_collision': {
         'collision_params': {'size': 0.1, 'offset': 0.01, 'offset_wall': 0.005},
@@ -118,9 +126,10 @@ def test_kernel_constants_match_pallas(case):
     kc = kpush.make_kernel_consts(tcfg, tprm, 5)
     f32 = lambda x: float(np.float32(x))  # noqa: E731
     (x0, x1, y0, y1), fast = pallas_step._full_layout_bounds(want['grid_np'])
+    wall_x, wall_y = want['wall_size'] if want['box'] else (want['wall_size'],) * 2
     expect = {
         'dt': want['dt'], 'mu_g_dt': want['mu_g_dt'], 'plow_unit': want['plow_unit'],
-        'conez_unit': want['conez_unit'], 'wall_size': want['wall_size'],
+        'conez_unit': want['conez_unit'], 'wall_x': wall_x, 'wall_y': wall_y,
         'damp': 1.0 + want['dt'] * want['obj_damping'] / want['obj_mass'],
         'damp_w': 1.0 + want['dt'] * want['obj_damping'] / want['obj_inertia'],
         'mu_spin_dt': want['mu_spin'] * want['dt'],
@@ -133,7 +142,12 @@ def test_kernel_constants_match_pallas(case):
     for k, v in expect.items():
         assert kc.f[k] == f32(v), (k, kc.f[k], v)
     assert kc.vector.dtype == np.float32 and kc.vector.shape == (len(kpush.CONST_FIELDS),)
-    assert (kc.num_cycles, kc.cand_k, kc.learn_jerk) == (jcfg.num_cycles, 5, jcfg.learn_jerk)
+    assert (kc.num_cycles, kc.cand_k, kc.learn_jerk, kc.box) == (jcfg.num_cycles, 5, jcfg.learn_jerk, want['box'])
+    for cand_k in (2, 32):
+        assert kpush.autoreset_noise_planes(jcfg.num_cycles, cand_k, kc.box) == \
+            pallas_step._pushing_autoreset_noise_planes(jcfg.num_cycles, cand_k, want['box'])
+    assert kpush.cycles_noise_planes(jcfg.num_cycles, kc.box) == \
+        pallas_step._pushing_cycles_noise_planes(jcfg.num_cycles, want['box'])
 
 
 def test_const_fields_match_cuda_struct():
@@ -177,15 +191,6 @@ def test_numpy_round_trip_is_lossless(case):
     again = tpush.state_to_numpy(tpush.planes_to_state(tpush.state_to_planes(port_state)))
     for name, v in again.items():
         np.testing.assert_array_equal(v, jnp_state[name])
-
-
-@pytest.mark.parametrize('kwargs', [
-    {'collision_params': {'shape': 'box', 'size': [0.1, 0.1]}},
-    {'mover_params': {'shape': 'mesh'}},
-])
-def test_unported_shapes_raise(kwargs):
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        tpush.make_pushing_env(**kwargs, device='cpu')
 
 
 def test_emit_features_raises():
