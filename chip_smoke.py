@@ -16,12 +16,18 @@ phase:
    states with the mover planted at the object, in both noise modes:
    injected uniforms, and the kernel's own Philox stream (seed 7, the mode
    the public path launches) against the plain version fed the host copy
-   of that stream (``noise.philox_uniforms``);
+   of that stream (``noise.philox_uniforms``); C and D also at 65,536 envs,
+   where the wrapper launches blocks without the producer warp: held
+   against their plain versions in both modes (D over 3 steps; an env that
+   hits the wall may latch it a control cycle apart) and timed
+   with and without the producer warp at both widths, with the ring layout,
+   the consumer's cycle loop in SASS (instructions and MUFU per cycle) and
+   ``ptxas -v``;
 4. the public pushing path: ``make_pushing_env`` -> ``init_batch(4096)`` ->
    ``make_fused_step`` and ``make_fused_step_autoreset`` for a few steps ->
    ``make_fused_rollout`` for 64 steps at K=1 and K=32 (Philox noise), with
    every launch counter set to 0 before and read after; K=32 against K=1 at
-   ``std_noise=0`` on envs that never restart;
+   ``std_noise=0`` on envs that never restart, bit for bit;
 5. env-steps/s of the pushing ``make_fused_rollout`` at 4096 and 65,536
    envs, kernels against the plain versions on the card, at K=1 and K=32;
 6. kernels E, F and G (single-mover planning) against their plain versions
@@ -51,7 +57,8 @@ phase:
 12. kernel C-feat (kernel C with the policy feature blocks) against its
    plain version at 4096 envs, planted states, acc and jerk, in both noise
    modes: its 36 planes equal kernel C's at the same noise bit for bit, its
-   blocks equal its own planes' rows and differences bit for bit;
+   blocks equal its own planes' rows and differences bit for bit; timed as
+   kernel C in 3.;
 13. the PPO training path: ``ppo.make_train_step_reactive`` over
    ``pushing.make_reactive_rollout`` (dense shaping) with the recipe
    ``baseline`` of ``tools/train_push_strong.py`` ((128, 128) trunk, 25
@@ -86,7 +93,8 @@ phase:
    versions at 4096 envs (box half-extents 0.09, bench.py:653-655), a
    quarter of the envs driven into the -x wall, in both noise modes (D held
    over 8 steps and timed at K=32), each timed beside its circle twin and
-   its bound (``roofline.OPS['pushing_cycle_box']``);
+   its bound (``roofline.OPS['pushing_cycle_box']``), C, C-feat and D as
+   in 3.;
 21. the box main path: ``make_fused_step``, ``make_fused_step_autoreset``,
    ``make_fused_rollout`` at K=1 and K=32 and ``make_reactive_rollout`` with
    a (256, 256) policy at 4096 envs, counters set to 0 before and read
@@ -121,6 +129,7 @@ result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -137,6 +146,7 @@ ROOT = Path(__file__).resolve().parent
 PKG = 'gymnasium_planar_robotics_tpu_torch'
 B_MAIN = 4096
 B_LARGE = 65536
+K_LARGE_CHECK = 3  # kernel D's steps held against its plain version at B_LARGE
 T_ROLL = 64
 K_MAIN = 32
 DEVICE = 'cuda:0'
@@ -262,17 +272,19 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def sass_loop_counts(lib_path: str, kernel: str) -> dict:
-    """FP32 and MUFU instructions per chain step in the main loop of
-    ``kernel`` (a substring of its mangled name) of the built library, from
-    ``cuobjdump -sass``: the instructions between the widest backward
-    branch and its target, over that loop's count of ``FMUL`` by 0.49 (the
-    step's first operation, rounded on its own: one per step, so the
-    loop's unrolling cancels out)."""
+@functools.lru_cache(maxsize=None)
+def sass_text(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the built library, run once (tens of seconds)."""
     cuobjdump = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
-    text = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True, check=True).stdout
+    return subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True, check=True).stdout
+
+
+def sass_loops(lib_path: str, kernel: str):
+    """The loops of ``kernel`` (a substring of its mangled name) in the built
+    library: for each backward branch, the ``(op, args)`` of the
+    instructions between its target and itself."""
     body, inside = [], False
-    for ln in text.splitlines():
+    for ln in sass_text(lib_path).splitlines():
         if 'Function : ' in ln:
             inside = kernel in ln
             continue
@@ -283,14 +295,39 @@ def sass_loop_counts(lib_path: str, kernel: str) -> dict:
     for addr, op, args in body:
         t = re.match(r'\s*(0x[0-9a-f]+|\d+)', args) if op.startswith('BRA') else None
         if t and int(t.group(1), 0) < addr:
-            loops.append((int(t.group(1), 0), addr))
-    lo, hi = max(loops, key=lambda r: r[1] - r[0])
-    loop = [(op, args) for addr, op, args in body if lo <= addr <= hi]
+            loops.append([(o, a) for ad, o, a in body if int(t.group(1), 0) <= ad <= addr])
+    return loops
+
+
+def sass_loop_counts(lib_path: str, kernel: str) -> dict:
+    """FP32 and MUFU instructions per chain step in the main loop of
+    ``kernel`` (``sass_loops``): the widest loop, over its count of ``FMUL``
+    by 0.49 (the step's first operation, rounded on its own: one per step,
+    so the loop's unrolling cancels out)."""
+    loop = max(sass_loops(lib_path, kernel), key=len)
     fp32 = sum(op.split('.')[0] in ('FFMA', 'FADD', 'FMUL', 'FMNMX', 'FSETP', 'FSEL', 'FSET') for op, _ in loop)
     mufu = sum(op.startswith('MUFU') for op, _ in loop)
     steps = sum(op.startswith('FMUL') and '0.4900000' in args for op, args in loop)
     return {'fp32_per_step': fp32 / steps, 'mufu_per_step': mufu / steps, 'steps_in_loop': steps,
             'loop_instructions': len(loop)}
+
+
+def sass_cycle_counts(lib_path: str, kernel: str) -> dict:
+    """Instructions and MUFU (special-function) instructions per control
+    cycle in the cycle loop of ``kernel`` (``sass_loops``): the innermost
+    loop holding the cycle's marker (the ``FMNMX`` with 1e-12 of the floor
+    friction's ``fmaxf(speed, 1e-12f)``: one per cycle, so the loop's
+    unrolling cancels out).  Static counts: a stage hand-over inside the
+    loop counts once a cycle though it runs once a stage."""
+    marked = [(loop, sum(o.startswith('FMNMX') and re.search(r'e-1[23]', a) is not None for o, a in loop))
+              for loop in sass_loops(lib_path, kernel)]
+    marked = [(loop, n) for loop, n in marked if n]
+    if not marked:
+        return {'error': f'no cycle loop found in {kernel}'}
+    loop, cycles = min(marked, key=lambda m: len(m[0]))
+    return {'instructions_per_cycle': len(loop) / cycles,
+            'mufu_per_cycle': sum(o.startswith('MUFU') for o, _ in loop) / cycles,
+            'cycles_in_loop': cycles, 'loop_instructions': len(loop)}
 
 
 def planted_state(P, config, params, b: int, gen, vel=(0.4, 0.0)):
@@ -450,6 +487,110 @@ def main() -> int:
                 bad.append(i)
         return max(errs), bad, errs
 
+    # feature rows against the plain version's: the planes' tolerance, atol
+    # doubled for the rows that are differences of two planes
+    feat_rtol, feat_atol = 3e-5, 6e-6
+
+    def with_producer(producer: int, fn):
+        """``fn()`` with kernels C and D launching blocks with (1) or without
+        (0) the producer warp at every width."""
+        saved = kp.WIDE_BATCH
+        kp.WIDE_BATCH = (1 << 62) if producer else 0
+        try:
+            return fn()
+        finally:
+            kp.WIDE_BATCH = saved
+
+    def split_report(launch, main_args, large_args, kernel: str, grouped: bool = True) -> dict:
+        """Kernels C and D's two block shapes: the time of ``launch(*args)``
+        (Philox) at B_MAIN and B_LARGE with and without the producer warp (the
+        wrapper takes one at each width, the other shows when the threshold
+        goes stale), the ring layout, and the consumer's cycle loop in SASS
+        (``kernel``: its acc Philox instantiation)."""
+        def ms_of(fn):
+            return time_groups(fn)[0] if grouped else statistics.median(time_ms(fn, 5) for _ in range(3))
+
+        by_p = {b: {p: ms_of(lambda args=args, p=p: with_producer(p, lambda: launch(*args))) for p in (0, 1)}
+                for b, args in ((B_MAIN, main_args), (B_LARGE, large_args))}
+        # ptxas -v of the kernel's instantiations of this shape (acc or jerk,
+        # either noise mode): both roles run in one block, one warpgroup, so
+        # they share its register allocation
+        name, flags = kernel.split('IL', 1)
+        shape = re.compile(name + r'ILb[01]ELb' + re.findall(r'b([01])', flags)[1] + 'E')
+        ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items() if shape.search(k)}
+        producers = {b: kp.producer_warps(b) for b in (B_MAIN, B_LARGE)}
+        return {'ms_large': by_p[B_LARGE][producers[B_LARGE]], 'B_large': B_LARGE, 'producers': producers,
+                'wide_batch': kp.WIDE_BATCH, 'ms_by_producers': by_p, 'layout': kp.split_layout(),
+                'consumer_sass': sass_cycle_counts(build.build_info['path'], kernel), 'ptxas_both_roles': ptxas}
+
+    def large_state(cfg, prm, steps=True):
+        """A B_LARGE-env state as the B_MAIN phases build theirs."""
+        state = planted_state(P, cfg, prm, B_LARGE, gen)
+        if steps:
+            state.steps = torch.randint(0, cfg.max_episode_steps, (B_LARGE,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+        return P.state_to_planes(state)
+
+    def large_modes(n_noise):
+        u = torch.rand((n_noise, B_LARGE), generator=gen, device=dev)
+        return (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, B_LARGE)))
+
+    def check_large_autoreset(kc_, st, act, emit=False) -> dict:
+        """Kernel C (C-feat with ``emit``) at B_LARGE through the wrapper's
+        own block shape, in both noise modes, against its plain version: the
+        flags (wall, stalled, trials) equal for every env, the planes at the
+        plane-class tolerances except that an env which hit the wall in this
+        step may latch it one control cycle apart (the noisy wall check's
+        last-ulp rounding at a crossing decides the cycle) on at most 0.1% of
+        the envs; the feature blocks its own planes and, on the envs that
+        agree, within feat_rtol/feat_atol."""
+        res = {'B': B_LARGE, 'producers': kp.producer_warps(B_LARGE)}
+        for mode, uk, seed, uref in large_modes(kp.autoreset_noise_planes(kc_.num_cycles, kc_.cand_k, kc_.box)):
+            got = kp.pushing_autoreset_cuda(st, act, kc_, uk, seed, emit)
+            ref = kp.pushing_autoreset_plain(st, act, kc_, uref, emit)
+            if emit:
+                (got, feat), (ref, ref_feat) = got, ref
+                require(torch.equal(feat, kp.features_from_planes(st, got)),
+                        f'B={B_LARGE} {mode}: the blocks are not the launch\'s own planes')
+            require(torch.equal(got[33:36], ref[33:36]), f'B={B_LARGE} {mode}: wall, stalled or trials differ')
+            env_ok = torch.ones(B_LARGE, dtype=torch.bool, device=dev)
+            for i in range(got.shape[0]):
+                rtol, atol = plane_tol(i)
+                env_ok &= (got[i] - ref[i]).abs() <= atol + rtol * ref[i].abs()
+            latched = int((~env_ok).sum())
+            require(bool((got[33][~env_ok] > 0).all()), f'B={B_LARGE} {mode}: an env that hit no wall disagrees')
+            require(latched <= 1e-3 * B_LARGE, f'B={B_LARGE} {mode}: {latched} envs latch the wall apart')
+            if emit:
+                err_feat, ok_feat = compare(feat[..., env_ok], ref_feat[..., env_ok], feat_rtol, feat_atol)
+                require(ok_feat, f'B={B_LARGE} {mode}: feature blocks disagree: {err_feat}')
+                res[f'max_abs_err_features_{mode}'] = err_feat
+            res[f'max_abs_err_{mode}'] = float((got[:, env_ok] - ref[:, env_ok]).abs().max())
+            res[f'wall_latch_envs_{mode}'] = latched
+            res[f'restarts_{mode}'] = int(((got[18] == 0) & (st[18] > 0)).sum())
+        return res
+
+    def check_large_rollout(kc_, st) -> dict:
+        """Kernel D at B_LARGE over K_LARGE_CHECK steps through the wrapper's
+        own block shape, in both noise modes, against its plain version: the
+        envs whose signals are equal and whose state agrees at the plane
+        tolerances x10, at least 99%."""
+        acts = ((torch.rand((K_LARGE_CHECK, 2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        rtol = torch.tensor([plane_tol(i)[0] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
+        atol = torch.tensor([plane_tol(i)[1] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
+        n = K_LARGE_CHECK * kp.autoreset_noise_planes(kc_.num_cycles, kc_.cand_k, kc_.box)
+        res = {'B': B_LARGE, 'K': K_LARGE_CHECK, 'producers': kp.producer_warps(B_LARGE)}
+        for mode, uk, seed, uref in large_modes(n):
+            got_st, got_sig = kp.pushing_rollout_cuda(st, acts, kc_, uk, seed)
+            ref_st, ref_sig = kp.pushing_rollout_plain(st, acts, kc_, uref)
+            require(bool(torch.isfinite(got_st).all()), f'B={B_LARGE} {mode}: kernel D state is not finite')
+            d_state = (got_st - ref_st).abs()
+            env_ok = (d_state <= atol + rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0)
+            frac = float(env_ok.double().mean())
+            require(frac >= 0.99, f'B={B_LARGE} {mode}: only {frac:.4f} of envs agree over {K_LARGE_CHECK} steps')
+            res[mode] = {'envs_agreeing': frac, 'max_abs_err_agreeing_envs': float(d_state[:, env_ok].max()),
+                         'wall_hits': int((got_sig[0] > 0.5).sum())}
+        return res
+
     @phase('kernel_B_pushing_cycles')
     def _():
         state = planted_state(P, config, params, B_MAIN, gen)
@@ -503,9 +644,15 @@ def main() -> int:
         bound_ms, bound_by = bound((21 + 36) * 4 * B_MAIN, ops)
         kstats['pushing_autoreset'].update(max_abs_err=max(err, err_p), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                            bound_by=bound_by)
-        return {'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'restarts': restarts,
+        st_l = large_state(config, params)
+        act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        large = check_large_autoreset(kc, st_l, act_l)
+        split = split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kc, None, 7), (st, act), (st_l, act_l),
+                             'pushing_autoreset_kernelILb0ELb0ELb0ELb0E')
+        return {'large': large, 'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'restarts': restarts,
                 'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
-                'injected_ms': injected_ms, 'injected_bound_ms': bound((21 + n_noise + 36) * 4 * B_MAIN, ops)[0]}
+                'injected_ms': injected_ms, 'injected_bound_ms': bound((21 + n_noise + 36) * 4 * B_MAIN, ops)[0],
+                'bound_ms_large': bound((21 + 36) * 4 * B_LARGE, B_LARGE * pushing_step_ops())[0], **split}
 
     @phase('kernel_D_pushing_rollout')
     def _():
@@ -540,7 +687,14 @@ def main() -> int:
         bound_ms, bound_by = bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_MAIN, ops)
         kstats['pushing_rollout'].update(max_abs_err=max(err_ok, err_ok_p), ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound_ms, bound_by=bound_by)
-        return {'K': K_MAIN, 'envs_agreeing': frac, 'envs_agreeing_philox': frac_p,
+        st_l = large_state(config, params, steps=False)
+        large = check_large_rollout(kc, st_l)
+        acts_l = ((torch.rand((K_MAIN, 2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        split = split_report(lambda s_, a_: kp.pushing_rollout_cuda(s_, a_, kc, None, 7), (st, acts), (st_l, acts_l),
+                             'pushing_rollout_kernelILb0ELb0ELb0E', grouped=False)
+        return {'K': K_MAIN, 'large': large, **split, 'envs_agreeing': frac, 'envs_agreeing_philox': frac_p,
+                'bound_ms_large': bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_LARGE,
+                                        K_MAIN * B_LARGE * pushing_step_ops())[0],
                 'max_abs_err_agreeing_envs': err_ok, 'max_abs_err_agreeing_envs_philox': err_ok_p,
                 'max_abs_err_all_envs': err,
                 'restarts_kernel': int((got_sig[2] > 0.5).sum() + (got_sig[0] > 0.5).sum()),
@@ -609,10 +763,12 @@ def main() -> int:
             e, ok = compare(a, b, 3e-5, 3e-6)
             errs[name] = e
             require(ok, f'K={K_MAIN} vs K=1 {name}: {e}')
+            # kernels C and D run one consumer step: the same bits
+            require(torch.equal(a, b), f'K={K_MAIN} vs K=1 {name}: not bit-equal (max {e})')
         contact = float((r1[0].obj_pos - s0.obj_pos)[live].abs().max())
         require(contact > 1e-5, 'contact never moved an object in the K comparison')
         return {'launches': launches, 'rollouts': checks, 'k32_vs_k1_live_envs': int(live.sum()),
-                'k32_vs_k1_max_abs_err': errs, 'tol': 'rtol 3e-5 atol 3e-6'}
+                'k32_vs_k1_max_abs_err': errs, 'tol': 'bit-equal (and rtol 3e-5 atol 3e-6)'}
 
     main_launches = report['phases']['main_path'].get('launches', {})
 
@@ -909,7 +1065,7 @@ def main() -> int:
             errs[name] = e
             require(ok, f'K={K_MAIN} vs K=1 {name}: {e}')
         return {'launches': launches, 'rollouts': checks, 'k32_vs_k1_live_envs': int(live.sum()),
-                'k32_vs_k1_max_abs_err': errs, 'tol': 'rtol 3e-5 atol 3e-6'}
+                'k32_vs_k1_max_abs_err': errs, 'tol': 'bit-equal (and rtol 3e-5 atol 3e-6)'}
 
     planning_launches = report['phases']['planning_main_path'].get('launches', {})
 
@@ -1154,10 +1310,6 @@ def main() -> int:
         return {'T': T_ROLL, 'M': M_MAIN, 'card': card, 'repeats': 5, 'rates': rates}
 
     # -- 12. kernel C-feat -------------------------------------------------------------
-    # feature rows against the plain version's: the planes' tolerance, atol
-    # doubled for the rows that are differences of two planes
-    feat_rtol, feat_atol = 3e-5, 6e-6
-
     @phase('kernel_C_feat_pushing_autoreset_features')
     def _():
         res = {}
@@ -1201,6 +1353,11 @@ def main() -> int:
                              injected_bound_ms=bound((21 + n_noise + 36 + 24) * 4 * B_MAIN, ops)[0])
                 kstats['pushing_autoreset_features'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                                             bound_by=bound_by)
+                st_l = large_state(cfg, prm)
+                act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+                entry['large'] = check_large_autoreset(kcj, st_l, act_l, emit=True)
+                entry.update(split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kcj, None, 7, True),
+                                          (st, act), (st_l, act_l), 'pushing_autoreset_kernelILb0ELb0ELb0ELb1E'))
             res['jerk' if jerk else 'acc'] = entry
         kstats['pushing_autoreset_features'].update(max_abs_err=max(
             e[m]['max_abs_err_features'] for e in res.values() for m in ('injected', 'philox')))
@@ -1679,6 +1836,11 @@ def main() -> int:
             require(restarts > 0 and walls > 0, f'{mode}: {restarts} restarts, {walls} wall hits')
             entry[mode] = {'max_abs_err': err, 'restarts': restarts, 'wall_hits': walls}
         ms, ms_groups = time_groups(lambda: kp.pushing_autoreset_cuda(st, act, kcb, None, 7, emit))
+        st_l = P.state_to_planes(box_state(B_LARGE, steps=True))
+        act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        entry['large'] = check_large_autoreset(kcb, st_l, act_l, emit)
+        split = split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kcb, None, 7, emit), (st, act),
+                             (st_l, act_l), 'pushing_autoreset_kernelILb0ELb1ELb0EL' + ('b1E' if emit else 'b0E'))
         injected_ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kcb, u, 0, emit), 20)
         plain_ms = time_ms(lambda: kp.pushing_autoreset_plain(st, act, kcb, u, emit), 3)
         ops = B_MAIN * (box_step_ops() + (sum(OPS['pushing_features']) if emit else 0))
@@ -1690,7 +1852,7 @@ def main() -> int:
         kstats[name].update(max_abs_err=entry.get('max_abs_err_features', err), ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
         kernel = 'ILb0ELb1ELb0ELb1E' if emit else 'ILb0ELb1ELb0ELb0E'  # acc, box, Philox, emit
-        return {'B': B_MAIN, 'collision': box_coll, **entry, 'ms': ms, 'ms_groups': ms_groups,
+        return {'B': B_MAIN, 'collision': box_coll, **entry, 'ms': ms, 'ms_groups': ms_groups, **split,
                 'ms_spread': spread(ms_groups), 'circle_ms': kstats[circle].get('ms'), 'bound_ms': bound_ms,
                 'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
                 'injected_bound_ms': bound((21 + n_noise + n_out) * 4 * B_MAIN, ops)[0],
@@ -1726,6 +1888,11 @@ def main() -> int:
                            'max_abs_err_agreeing_envs': float(d_state[:, env_ok].max())}
         u32 = torch.rand((K_MAIN * n_step, B_MAIN), generator=gen, device=dev)
         ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kcb, None, 7), 5)
+        st_l = P.state_to_planes(box_state(B_LARGE))
+        entry['large'] = check_large_rollout(kcb, st_l)
+        acts_l = ((torch.rand((K_MAIN, 2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
+        split = split_report(lambda s_, a_: kp.pushing_rollout_cuda(s_, a_, kcb, None, 7), (st, acts), (st_l, acts_l),
+                             'pushing_rollout_kernelILb0ELb1ELb0E', grouped=False)
         injected_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kcb, u32), 5)
         plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kcb, u32), 1)
         ops = K_MAIN * B_MAIN * box_step_ops()
@@ -1733,7 +1900,7 @@ def main() -> int:
         kstats['pushing_rollout_box'].update(
             max_abs_err=max(entry[m]['max_abs_err_agreeing_envs'] for m in ('injected', 'philox')), ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        return {'B': B_MAIN, 'K_timed': K_MAIN, 'collision': box_coll, **entry, 'ms': ms,
+        return {'B': B_MAIN, 'K_timed': K_MAIN, 'collision': box_coll, **entry, 'ms': ms, **split,
                 'circle_ms': kstats['pushing_rollout'].get('ms'), 'bound_ms': bound_ms, 'bound_by': bound_by,
                 'plain_ms': plain_ms, 'injected_ms': injected_ms,
                 'injected_bound_ms': bound((19 + K_MAIN * (2 + n_step + 3) + 19) * 4 * B_MAIN, ops)[0],

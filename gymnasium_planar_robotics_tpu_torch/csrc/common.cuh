@@ -3,9 +3,11 @@
 // f32 arithmetic without contraction, the L2-ball clamp and the clamp chain
 // of one mover's control cycle.
 //
-// Layout: one thread per env; every input and output is an f32 plane of
-// B envs stored structure-of-arrays as [planes, B], so neighbouring threads
-// read neighbouring addresses.  The tail block masks envs >= B.
+// Layout: one thread per env (pushing's autoreset kernels C and D: one
+// consumer lane per env, pushing.cuh); every input and output is an f32
+// plane of B envs stored structure-of-arrays as [planes, B], so
+// neighbouring threads read neighbouring addresses.  The tail block masks
+// envs >= B.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // --use_fast_math (sqrtf, division, logf, cosf and sinf stay IEEE / libm
@@ -139,6 +141,41 @@ __device__ __forceinline__ void normal_pair(Noise& noise, float& a, float& b) {
 template <class Noise>
 __device__ __forceinline__ float uniform_in(Noise& noise, float lo, float span) {
   return madd(lo, noise.uniform(), span);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers in shared memory (sm_90): the full/empty handshake of a ring of
+// stages between producer and consumer warps.  wait(parity) returns once
+// the phase of that parity has completed: a consumer waits for use u of a
+// slot with parity u & 1, its producer for the slot's release with
+// (u & 1) ^ 1, which a fresh barrier passes at once.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival (release: this thread's earlier shared-memory writes and reads
+// happen before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT_%=:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT_%=;\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -48,21 +48,56 @@ struct Phys {
 };
 
 // The per-cycle noisy wall check on the fully populated table
-// (pallas_step._make_wall_checker.check): the position noise pair, for the
-// box (kBox) also two pairs of quaternion noise around the identity, turned
-// into the 2D rotation by quat_to_R2.  True = no wall collision.  The circle
-// keeps the expression it had before the box existed (nvcc may contract
-// it); the box rounds each operation as the plain version does.
+// (pallas_step._make_wall_checker.check), in two halves: wall_pose draws
+// the noise (the position pair; for the box (kBox) also two pairs of
+// quaternion noise around the identity, turned into the 2D rotation R by
+// quat_to_R2), wall_valid tests the pose.  Neither half reads the state
+// but npx, npy, so kernels C and D compute wall_pose ahead on producer
+// warps.  The circle keeps the expression it had before the box existed
+// (nvcc may contract it); the box rounds each operation as the plain
+// version does.
 template <bool kBox, class Noise>
-__device__ __forceinline__ bool wall_ok(const Consts& c, Noise& noise, float npx, float npy) {
-  float nwx, nwy;
+__device__ __forceinline__ void wall_pose(const Consts& c, Noise& noise, float& nwx, float& nwy, Rot2& R) {
   normal_pair(noise, nwx, nwy);
+  if constexpr (kBox) {
+    float q1, q2, q3, q4;
+    normal_pair(noise, q1, q2);
+    normal_pair(noise, q3, q4);
+    R = quat_to_R2(madd(1.0f, q1, c.std_pos), mul(q2, c.std_pos), mul(q3, c.std_pos), mul(q4, c.std_pos));
+  }
+}
+
+// True = no wall collision.
+template <bool kBox>
+__device__ __forceinline__ bool wall_valid(const Consts& c, float npx, float npy, float nwx, float nwy, const Rot2& R) {
   if constexpr (!kBox) return circle_valid_full(c, npx + nwx * c.std_pos, npy + nwy * c.std_pos, c.wall_x);
-  float q1, q2, q3, q4;
-  normal_pair(noise, q1, q2);
-  normal_pair(noise, q3, q4);
-  const Rot2 R = quat_to_R2(madd(1.0f, q1, c.std_pos), mul(q2, c.std_pos), mul(q3, c.std_pos), mul(q4, c.std_pos));
   return box_valid_full(c, madd(npx, nwx, c.std_pos), madd(npy, nwy, c.std_pos), R, c.wall_x, c.wall_y);
+}
+
+// Values computed ahead of the physics, popped in draw order from a source
+// Src with pop(): the overloads of normal_pair and wall_pose below take
+// them in place of drawing, so run_cycles is the same code on both.
+template <class Src>
+struct Popped {
+  Src src;
+};
+
+template <class Src>
+__device__ __forceinline__ void normal_pair(Popped<Src>& r, float& a, float& b) {
+  a = r.src.pop();
+  b = r.src.pop();
+}
+
+template <bool kBox, class Src>
+__device__ __forceinline__ void wall_pose(const Consts&, Popped<Src>& r, float& nwx, float& nwy, Rot2& R) {
+  nwx = r.src.pop();
+  nwy = r.src.pop();
+  if constexpr (kBox) {
+    R.r00 = r.src.pop();
+    R.r01 = r.src.pop();
+    R.r10 = r.src.pop();
+    R.r11 = r.src.pop();
+  }
 }
 
 // pallas_step._make_pushing_cycles.run: clamp chain (acc or jerk), v2
@@ -170,7 +205,10 @@ __device__ float run_cycles(const Consts& c, Noise& noise, int num_cycles, Phys&
     ow_t = sign0(ow_t) * fmaxf(0.0f, fabsf(ow_t) - c.mu_spin_dt * load);
     const float noyaw = s.oyaw + c.dt * ow_t;
 
-    const float new_wall_f = wall_ok<kBox>(c, noise, npx, npy) ? 0.0f : 1.0f;
+    float nwx, nwy;
+    Rot2 R{};
+    wall_pose<kBox>(c, noise, nwx, nwy, R);
+    const float new_wall_f = wall_valid<kBox>(c, npx, npy, nwx, nwy, R) ? 0.0f : 1.0f;
 
     if (!done) {
       s.px = npx; s.py = npy; s.vx = nvx_t; s.vy = nvy_t;
@@ -202,89 +240,71 @@ struct StepAux {
   float wall, reached, trunc, stalled, trials;
 };
 
-// Cycles, termination, pre-reset observation (3 pairs), in-kernel restart
-// (mover 2, object 2 + 2*(cand_k-1) candidates, goal 2), post-reset
-// observation (3 pairs): (2 + 2p)*num_cycles + 16 + 2*cand_k uniforms (p = 1
-// circle, 3 box).  The restart draws no wall check.
-template <bool kJerk, bool kBox, class Noise>
-__device__ void autoreset_step(const Consts& c, Noise& noise, int num_cycles, int cand_k, StepState& st, float ux,
-                               float uy, StepAux& aux) {
+// The state-independent values of one step besides its cycles' draws, by
+// index: the pre-reset (n1..n6) and post-reset (m1..m6) observation
+// normals and the restart's result.
+enum StepValue : int {
+  kN1 = 0,   // n1..n6: 0..5
+  kM1 = 6,   // m1..m6: 6..11
+  kRmx = 12, kRmy, kRox, kRoy, kFound, kTrials, kRgx, kRgy,
+  kStepValues
+};
+
+// One autoreset step of action (ux, uy) on values computed ahead: the
+// cycles' draws popped from `cycles` (Popped), the step's other values from
+// sv(i) (StepValue) once sv.acquire() has returned, after the cycles.  The
+// arithmetic is the thread-per-env step's, expression by expression:
+// cycles, termination, pre-reset observation, restart, post-reset
+// observation.  A stalled restart keeps the post-cycle state and the
+// incremented step counter, so done fires again next step.
+template <bool kJerk, bool kBox, class Cycles, class Values>
+__device__ __forceinline__ void autoreset_step(const Consts& c, Cycles& cycles, Values& sv, int num_cycles, float ux,
+                                               float uy, StepState& st, StepAux& aux) {
   Phys& s = st.p;
   const float g_old_x = st.gx, g_old_y = st.gy;
-  const float wall_f = run_cycles<kJerk, kBox>(c, noise, num_cycles, s, ux, uy);
+  const float wall_f = run_cycles<kJerk, kBox>(c, cycles, num_cycles, s, ux, uy);
+  sv.acquire();
   aux.f_qax = s.ax;  // pre-reset qacc (jerk-mode final observation)
   aux.f_qay = s.ay;
 
-  float n1, n2, n3, n4, n5, n6;
-  normal_pair(noise, n1, n2);
-  normal_pair(noise, n3, n4);
-  normal_pair(noise, n5, n6);
-  aux.f_mpx = s.px + n1 * c.std_pos;
-  aux.f_mpy = s.py + n2 * c.std_pos;
-  aux.f_mvx = s.vx + n3 * c.std_vel;
-  aux.f_mvy = s.vy + n4 * c.std_vel;
-  aux.f_agx = s.ox + n5 * c.object_noise;
-  aux.f_agy = s.oy + n6 * c.object_noise;
+  aux.f_mpx = s.px + sv(kN1 + 0) * c.std_pos;
+  aux.f_mpy = s.py + sv(kN1 + 1) * c.std_pos;
+  aux.f_mvx = s.vx + sv(kN1 + 2) * c.std_vel;
+  aux.f_mvy = s.vy + sv(kN1 + 3) * c.std_vel;
+  aux.f_agx = s.ox + sv(kN1 + 4) * c.object_noise;
+  aux.f_agy = s.oy + sv(kN1 + 5) * c.object_noise;
 
   const bool term = wall_f > 0.0f;
   const float new_steps = st.steps + 1.0f;
   const bool trunc = new_steps >= c.max_episode_steps;
   const bool done = term | trunc;
 
-  // restart: mover uniform, object = first of cand_k candidates farther than
-  // min_mo from the new mover, goal uniform
-  const float rmx = uniform_in(noise, c.min_x, c.span_x);
-  const float rmy = uniform_in(noise, c.min_y, c.span_y);
-  float rox = uniform_in(noise, c.obj_min_x, c.obj_span_x);
-  float roy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
-  const float d0x = rox - rmx, d0y = roy - rmy;
-  float found = sqrtf(d0x * d0x + d0y * d0y) > c.min_mo ? 1.0f : 0.0f;
-  float trials = 1.0f;
-  for (int k = 1; k < cand_k; ++k) {
-    const float cx = uniform_in(noise, c.obj_min_x, c.obj_span_x);
-    const float cy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
-    const float ddx = cx - rmx, ddy = cy - rmy;
-    const bool ok = sqrtf(ddx * ddx + ddy * ddy) > c.min_mo;
-    const bool take = ok & (found == 0.0f);
-    trials = trials + (1.0f - found);
-    rox = take ? cx : rox;
-    roy = take ? cy : roy;
-    found = fmaxf(found, ok ? 1.0f : 0.0f);
-  }
-  const float rgx = uniform_in(noise, c.obj_min_x, c.obj_span_x);
-  const float rgy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
-
-  // a stalled restart keeps the post-cycle state and the incremented step
-  // counter, so done fires again next step and the restart is retried
+  const float found = sv(kFound);
   aux.stalled = (done & (found == 0.0f)) ? 1.0f : 0.0f;
   const bool do_reset = done & (found > 0.0f);
   if (do_reset) {
-    s.px = rmx; s.py = rmy; s.vx = 0.0f; s.vy = 0.0f;
+    s.px = sv(kRmx); s.py = sv(kRmy); s.vx = 0.0f; s.vy = 0.0f;
     s.ax = 0.0f; s.ay = 0.0f; s.kx = 0.0f; s.ky = 0.0f;
-    s.ox = rox; s.oy = roy; s.wvx = 0.0f; s.wvy = 0.0f;
+    s.ox = sv(kRox); s.oy = sv(kRoy); s.wvx = 0.0f; s.wvy = 0.0f;
     s.oyaw = 0.0f; s.ow = 0.0f; s.mz = c.z0; s.mvz = 0.0f;
-    st.gx = rgx; st.gy = rgy; st.steps = 0.0f;
+    st.gx = sv(kRgx); st.gy = sv(kRgy); st.steps = 0.0f;
   } else {
     st.steps = new_steps;
   }
 
-  float m1, m2, m3, m4, m5, m6;
-  normal_pair(noise, m1, m2);
-  normal_pair(noise, m3, m4);
-  normal_pair(noise, m5, m6);
-  aux.s_mpx = do_reset ? s.px + m1 * c.std_pos : aux.f_mpx;
-  aux.s_mpy = do_reset ? s.py + m2 * c.std_pos : aux.f_mpy;
-  aux.s_mvx = do_reset ? s.vx + m3 * c.std_vel : aux.f_mvx;
-  aux.s_mvy = do_reset ? s.vy + m4 * c.std_vel : aux.f_mvy;
-  aux.s_agx = do_reset ? s.ox + m5 * c.object_noise : aux.f_agx;
-  aux.s_agy = do_reset ? s.oy + m6 * c.object_noise : aux.f_agy;
+  aux.s_mpx = do_reset ? s.px + sv(kM1 + 0) * c.std_pos : aux.f_mpx;
+  aux.s_mpy = do_reset ? s.py + sv(kM1 + 1) * c.std_pos : aux.f_mpy;
+  aux.s_mvx = do_reset ? s.vx + sv(kM1 + 2) * c.std_vel : aux.f_mvx;
+  aux.s_mvy = do_reset ? s.vy + sv(kM1 + 3) * c.std_vel : aux.f_mvy;
+  aux.s_agx = do_reset ? s.ox + sv(kM1 + 4) * c.object_noise : aux.f_agx;
+  aux.s_agy = do_reset ? s.oy + sv(kM1 + 5) * c.object_noise : aux.f_agy;
 
   // reference scoring: noisy achieved position vs the OLD goal
   const float ddx_g = aux.f_agx - g_old_x, ddy_g = aux.f_agy - g_old_y;
   aux.reached = sqrtf(ddx_g * ddx_g + ddy_g * ddy_g) <= c.threshold ? 1.0f : 0.0f;
   aux.wall = wall_f;
   aux.trunc = trunc ? 1.0f : 0.0f;
-  aux.trials = done ? trials : 0.0f;
+  aux.trials = done ? sv(kTrials) : 0.0f;
 }
 
 // plane I/O of the 16 physics planes / 19 step-state planes
@@ -314,6 +334,381 @@ __device__ __forceinline__ void store_state(float* out, int64_t B, int64_t e, co
   out[16 * B + e] = st.gx;
   out[17 * B + e] = st.gy;
   out[18 * B + e] = st.steps;
+}
+
+// ---------------------------------------------------------------------------
+// kernels C and D on Hopper: warp-specialised producer/consumer blocks
+//
+// A block serves one tile of 32 envs.  Warp 0 is the consumer: lane l owns
+// env 32 * tile + l and runs the dependent physics (autoreset_step) from
+// registers, reading each step's action itself, one step ahead.  Warp 1 is
+// the producer: it computes, ahead of it, every value of a step that does
+// not depend on the state -- per cycle the velocity pair and the wall pose
+// (the box: R), per step the twelve observation normals and the restart's
+// result -- and hands them over in stages through a ring in shared memory
+// guarded by full/empty mbarriers.
+//
+// Each step is a sequence of cyc_stages + 1 stages: its cycle stages
+// (stage_cycles<kBox>() cycles each), then its step stage (StepValue), which
+// the consumer needs only after the cycles, so a launch starts once its
+// first cycle stage is ready.  A tile's stages are numbered k = 0, 1, ...
+// over its K steps; stage k lives in slot k % kRingSlots.  Draws are taken
+// by absolute index: draw d of step t of env e is draw t * n_step + d of
+// e's stream (word d % 4 of the Philox block at counter ((t * n_step + d) /
+// 4, e), or injected plane t * n_step + d).  Lanes of envs >= B take part in
+// every barrier and skip only their loads and stores.  Without the producer
+// (the wide batch) there is no ring: a block of kInlineWarps warps serves
+// as many tiles, each warp drawing its own values (InlineStep).
+// ---------------------------------------------------------------------------
+
+constexpr int kRingSlots = 4;     // slots of the ring
+constexpr int kStageValues = 24;  // values per env of one stage
+constexpr int kSplitWarps = 2;    // a block with the producer: consumer and producer
+constexpr int kInlineWarps = 4;   // a block without the producer
+constexpr int kSplitMaxThreads = 32 * (kInlineWarps > kSplitWarps ? kInlineWarps : kSplitWarps);
+static_assert(kStepValues <= kStageValues, "a step stage holds the step's values");
+
+// values per cycle: velocity pair, wall pair, the box's R
+template <bool kBox>
+__host__ __device__ constexpr int cycle_values() { return kBox ? 8 : 4; }
+template <bool kBox>
+__host__ __device__ constexpr int stage_cycles() { return kStageValues / cycle_values<kBox>(); }
+
+struct SplitShared {
+  float stage[kRingSlots][kStageValues][32];
+  uint64_t full[kRingSlots], empty[kRingSlots];
+};
+
+// Stage k's slot and the parity of its use of that slot.
+struct RingPos {
+  int slot;
+  uint32_t parity;
+};
+
+__device__ __forceinline__ RingPos ring_pos(uint32_t k) {
+  return {static_cast<int>(k % kRingSlots), (k / kRingSlots) & 1u};
+}
+
+// A step's draw offsets and stage counts (p = 1 wall pair circle, 3 box).
+struct StepPlan {
+  int cycle_draws, n_step, d_obs, cyc_stages, stages;
+  __device__ StepPlan(int num_cycles, int cand_k, bool box, int per_stage)
+      : cycle_draws(box ? 8 : 4), n_step((box ? 8 : 4) * num_cycles + 16 + 2 * cand_k),
+        d_obs((box ? 8 : 4) * num_cycles), cyc_stages((num_cycles + per_stage - 1) / per_stage),
+        stages(1 + (num_cycles + per_stage - 1) / per_stage) {}
+};
+
+// draw streams positioned at an absolute draw index
+struct InjectedSource {
+  const float* p;
+  int64_t B;
+  __device__ InjectedNoise at(int64_t env, uint32_t d) const {
+    InjectedNoise n(p, B, env);
+    n.skip(static_cast<int>(d));
+    return n;
+  }
+};
+
+struct PhiloxSource {
+  uint64_t seed;
+  __device__ PhiloxNoise at(int64_t env, uint32_t d) const {
+    PhiloxNoise n(seed, env);
+    n.skip(static_cast<int>(d));
+    return n;
+  }
+};
+
+// The consumer's view of the ring.  Cycles: pop() returns the values in
+// draw order and takes the next stage when the current one is spent.  The
+// step's values: acquire() takes the step stage, then sv(i).  Taking a stage
+// releases the one held before.
+template <bool kBox>
+struct RingReader {
+  SplitShared* sh;
+  int lane;
+  uint32_t k = 0;  // stages taken so far
+  int slot = -1, pos = 0, end = 0, left = 0;
+  __device__ void take() {
+    if (slot >= 0) mbar_arrive(&sh->empty[slot]);
+    const RingPos r = ring_pos(k++);
+    mbar_wait(&sh->full[r.slot], r.parity);
+    slot = r.slot;
+  }
+  __device__ void begin_step(int num_cycles) {
+    left = num_cycles;
+    pos = end = 0;
+  }
+  __device__ __forceinline__ float pop() {
+    if (pos == end) {
+      take();
+      const int n = left < stage_cycles<kBox>() ? left : stage_cycles<kBox>();
+      left -= n;
+      end = n * cycle_values<kBox>();
+      pos = 0;
+    }
+    return sh->stage[slot][pos++][lane];
+  }
+  __device__ __forceinline__ void acquire() { take(); }
+  __device__ __forceinline__ float operator()(int i) const { return sh->stage[slot][i][lane]; }
+};
+
+// Producer: cycles i0 .. i0 + n - 1 of one step (their draws start at d0).
+template <bool kBox, class Src>
+__device__ void produce_cycles(float (*v)[32], const Consts& c, const Src& src, int64_t env, uint32_t d0, int n,
+                               int lane) {
+  auto noise = src.at(env, d0);
+  for (int i = 0; i < n; ++i) {
+    float a, b, nwx, nwy;
+    Rot2 R{};
+    normal_pair(noise, a, b);
+    wall_pose<kBox>(c, noise, nwx, nwy, R);
+    float(*o)[32] = v + i * cycle_values<kBox>();
+    o[0][lane] = a;
+    o[1][lane] = b;
+    o[2][lane] = nwx;
+    o[3][lane] = nwy;
+    if constexpr (kBox) {
+      o[4][lane] = R.r00;
+      o[5][lane] = R.r01;
+      o[6][lane] = R.r10;
+      o[7][lane] = R.r11;
+    }
+  }
+}
+
+// Producer: one step slot for the 32 envs of a tile (d_obs: the step's first
+// draw after its cycles).  Lane l draws env l's observation normals, mover,
+// first candidate and goal; an env
+// whose first candidate lies within min_mo of the mover is then searched
+// across lanes: lane j tests candidate base + j, and the first accepted one
+// is __ffs of the ballot.  trials = 1 + j for the first accepted candidate
+// j, else cand_k (the serial loop's count).
+template <class Src>
+__device__ void produce_step(float (*v)[32], const Consts& c, const Src& src, int64_t B, int64_t tile,
+                             uint32_t d_obs, int cand_k, int lane) {
+  const int64_t e = tile * 32 + lane;
+  const bool valid = e < B;
+  const int64_t er = valid ? e : B - 1;  // tail lanes read a real env's draws
+  auto noise = src.at(er, d_obs);
+  float z[6];
+  normal_pair(noise, z[0], z[1]);
+  normal_pair(noise, z[2], z[3]);
+  normal_pair(noise, z[4], z[5]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[kN1 + i][lane] = z[i];
+  const float rmx = uniform_in(noise, c.min_x, c.span_x);
+  const float rmy = uniform_in(noise, c.min_y, c.span_y);
+  float rox = uniform_in(noise, c.obj_min_x, c.obj_span_x);
+  float roy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
+  const float d0x = rox - rmx, d0y = roy - rmy;
+  const bool ok0 = sqrtf(d0x * d0x + d0y * d0y) > c.min_mo;
+  noise.skip(2 * (cand_k - 1));
+  const float rgx = uniform_in(noise, c.obj_min_x, c.obj_span_x);
+  const float rgy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
+  normal_pair(noise, z[0], z[1]);
+  normal_pair(noise, z[2], z[3]);
+  normal_pair(noise, z[4], z[5]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[kM1 + i][lane] = z[i];
+
+  float found = ok0 ? 1.0f : 0.0f, trials = 1.0f;
+  const uint32_t d_cand = d_obs + 6u + 4u;  // candidate 1's first draw
+  for (uint32_t todo = __ballot_sync(0xFFFFFFFFu, valid && !ok0); todo != 0u; todo &= todo - 1u) {
+    const int el = __ffs(todo) - 1;
+    const float mx = __shfl_sync(0xFFFFFFFFu, rmx, el), my = __shfl_sync(0xFFFFFFFFu, rmy, el);
+    int first = -1;
+    float fx = 0.0f, fy = 0.0f;
+    for (int base = 1; base < cand_k && first < 0; base += 32) {
+      const int j = base + lane;
+      float cx = 0.0f, cy = 0.0f;
+      bool ok = false;
+      if (j < cand_k) {
+        auto cn = src.at(tile * 32 + el, d_cand + 2u * static_cast<uint32_t>(j - 1));
+        cx = uniform_in(cn, c.obj_min_x, c.obj_span_x);
+        cy = uniform_in(cn, c.obj_min_y, c.obj_span_y);
+        const float ddx = cx - mx, ddy = cy - my;
+        ok = sqrtf(ddx * ddx + ddy * ddy) > c.min_mo;
+      }
+      const uint32_t hit = __ballot_sync(0xFFFFFFFFu, ok);
+      if (hit != 0u) {
+        const int l = __ffs(hit) - 1;
+        first = base + l;
+        fx = __shfl_sync(0xFFFFFFFFu, cx, l);
+        fy = __shfl_sync(0xFFFFFFFFu, cy, l);
+      }
+    }
+    if (lane == el) {
+      if (first >= 0) {
+        rox = fx;
+        roy = fy;
+        found = 1.0f;
+        trials = static_cast<float>(1 + first);
+      } else {
+        trials = static_cast<float>(cand_k);
+      }
+    }
+  }
+  v[kRmx][lane] = rmx;
+  v[kRmy][lane] = rmy;
+  v[kRox][lane] = rox;
+  v[kRoy][lane] = roy;
+  v[kFound][lane] = found;
+  v[kTrials][lane] = trials;
+  v[kRgx][lane] = rgx;
+  v[kRgy][lane] = rgy;
+}
+
+// Without the producer: every warp of the block draws its own values, as
+// the thread-per-env kernel did: the cycles from the env's stream as they
+// run, then, at acquire(), the step's values in draw order from where the
+// cycles left the stream, the restart's candidates in a serial loop.  For
+// the wide batch, where the card's issue rate binds and a handover costs
+// more than it hides.
+template <class Noise>
+struct InlineStep {
+  const Consts& c;
+  Noise& noise;
+  int cand_k;
+  float v[kStepValues];
+  __device__ __forceinline__ void acquire() {
+#pragma unroll
+    for (int i = 0; i < 6; i += 2) normal_pair(noise, v[kN1 + i], v[kN1 + i + 1]);
+    const float rmx = uniform_in(noise, c.min_x, c.span_x);
+    const float rmy = uniform_in(noise, c.min_y, c.span_y);
+    float rox = uniform_in(noise, c.obj_min_x, c.obj_span_x);
+    float roy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
+    const float d0x = rox - rmx, d0y = roy - rmy;
+    float found = sqrtf(d0x * d0x + d0y * d0y) > c.min_mo ? 1.0f : 0.0f;
+    float trials = 1.0f;
+    for (int k = 1; k < cand_k; ++k) {
+      const float cx = uniform_in(noise, c.obj_min_x, c.obj_span_x);
+      const float cy = uniform_in(noise, c.obj_min_y, c.obj_span_y);
+      const float ddx = cx - rmx, ddy = cy - rmy;
+      const bool ok = sqrtf(ddx * ddx + ddy * ddy) > c.min_mo;
+      const bool take = ok & (found == 0.0f);
+      trials = trials + (1.0f - found);
+      rox = take ? cx : rox;
+      roy = take ? cy : roy;
+      found = fmaxf(found, ok ? 1.0f : 0.0f);
+    }
+    v[kRmx] = rmx;
+    v[kRmy] = rmy;
+    v[kRox] = rox;
+    v[kRoy] = roy;
+    v[kFound] = found;
+    v[kTrials] = trials;
+    v[kRgx] = uniform_in(noise, c.obj_min_x, c.obj_span_x);
+    v[kRgy] = uniform_in(noise, c.obj_min_y, c.obj_span_y);
+#pragma unroll
+    for (int i = 0; i < 6; i += 2) normal_pair(noise, v[kM1 + i], v[kM1 + i + 1]);
+  }
+  __device__ __forceinline__ float operator()(int i) const { return v[i]; }
+};
+
+// One tile's K steps on one warp: step(t, ux, uy, st, aux) runs step t;
+// each step's action is read one step ahead.
+template <class Out, class Step>
+__device__ __forceinline__ void consume_tile(const float* __restrict__ st_in, const float* __restrict__ actions,
+                                             int64_t B, int K, int64_t tile, int lane, Out& out, Step&& step) {
+  const int64_t e = tile * 32 + lane;
+  const bool valid = e < B;
+  StepState st{};
+  float ux = 0.0f, uy = 0.0f;
+  if (valid) {
+    load_state(st_in, B, e, st);
+    ux = actions[e];
+    uy = actions[B + e];
+  }
+  for (int t = 0; t < K; ++t) {
+    float next_ux = 0.0f, next_uy = 0.0f;
+    if (valid && t + 1 < K) {
+      next_ux = actions[(2 * static_cast<int64_t>(t + 1)) * B + e];
+      next_uy = actions[(2 * static_cast<int64_t>(t + 1) + 1) * B + e];
+    }
+    const float g_old_x = st.gx, g_old_y = st.gy;
+    StepAux aux;
+    step(t, ux, uy, st, aux);
+    if (valid) out.step(e, t, st, aux, g_old_x, g_old_y);
+    ux = next_ux;
+    uy = next_uy;
+  }
+  if (valid) out.finish(e, st);
+}
+
+// The body of kernels C and D: K steps of this block's tiles.  With the
+// producer (block kSplitWarps warps, one tile) the roles split as above;
+// without it (block kInlineWarps warps, the ring unused) warp w serves tile
+// kInlineWarps * blockIdx.x + w.  Out receives each step's result
+// (step(e, t, st, aux, g_old_x, g_old_y)) and the final state (finish(e,
+// st)) of the envs < B.
+template <bool kJerk, bool kBox, class Src, class Out>
+__device__ __forceinline__ void split_body(const Consts& c, const Src& src, const float* __restrict__ st_in,
+                                           const float* __restrict__ actions, int64_t B, int K, int num_cycles,
+                                           int cand_k, bool producer, Out& out) {
+  const int warp = static_cast<int>(threadIdx.x >> 5), lane = static_cast<int>(threadIdx.x & 31);
+  if (!producer) {
+    const int64_t tile = static_cast<int64_t>(blockIdx.x) * kInlineWarps + warp;
+    if (tile * 32 >= B) return;  // a whole warp past the last env (no barrier here)
+    const int64_t er = tile * 32 + lane < B ? tile * 32 + lane : B - 1;
+    // one stream per env, on across the K steps
+    auto noise = src.at(er, 0);
+    consume_tile(st_in, actions, B, K, tile, lane, out, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
+      InlineStep<decltype(noise)> sv{c, noise, cand_k};
+      autoreset_step<kJerk, kBox>(c, noise, sv, num_cycles, ux, uy, st, aux);
+    });
+    return;
+  }
+  const int64_t tile = blockIdx.x;
+  // the ring: dynamic shared memory, so blocks without the producer hold none
+  extern __shared__ __align__(16) unsigned char split_shared[];
+  SplitShared& sh = *reinterpret_cast<SplitShared*>(split_shared);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingSlots; ++i) {
+      mbar_init(&sh.full[i], 32);
+      mbar_init(&sh.empty[i], 32);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // consumer
+    Popped<RingReader<kBox>> cycles{RingReader<kBox>{&sh, lane}};
+    consume_tile(st_in, actions, B, K, tile, lane, out, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
+      cycles.src.begin_step(num_cycles);
+      autoreset_step<kJerk, kBox>(c, cycles, cycles.src, num_cycles, ux, uy, st, aux);
+    });
+  } else {
+    // producer: stages k = 0 .. K * stages - 1
+    const StepPlan plan(num_cycles, cand_k, kBox, stage_cycles<kBox>());
+    const int64_t e = tile * 32 + lane;
+    const int64_t er = e < B ? e : B - 1;  // tail lanes draw a real env's values
+    const uint32_t n_stages = static_cast<uint32_t>(K) * static_cast<uint32_t>(plan.stages);
+    for (uint32_t k = 0; k < n_stages; ++k) {
+      const uint32_t j = k % plan.stages;
+      const uint32_t d_step = k / plan.stages * static_cast<uint32_t>(plan.n_step);
+      const RingPos r = ring_pos(k);
+      mbar_wait(&sh.empty[r.slot], r.parity ^ 1u);
+      if (j == static_cast<uint32_t>(plan.cyc_stages)) {
+        produce_step(sh.stage[r.slot], c, src, B, tile, d_step + plan.d_obs, cand_k, lane);
+      } else {
+        const int i0 = static_cast<int>(j) * stage_cycles<kBox>();
+        const int n = num_cycles - i0 < stage_cycles<kBox>() ? num_cycles - i0 : stage_cycles<kBox>();
+        produce_cycles<kBox>(sh.stage[r.slot], c, src, er, d_step + static_cast<uint32_t>(i0 * plan.cycle_draws), n,
+                             lane);
+      }
+      mbar_arrive(&sh.full[r.slot]);
+    }
+  }
+}
+
+// Block, grid and dynamic shared memory of a launch over B envs, with or
+// without the producer.
+inline int split_threads(bool producer) { return 32 * (producer ? kSplitWarps : kInlineWarps); }
+
+inline size_t split_shared_bytes(bool producer) { return producer ? sizeof(SplitShared) : 0; }
+
+inline unsigned int split_blocks(bool producer, int64_t B) {
+  const int64_t tiles = (B + 31) / 32, per_block = producer ? 1 : kInlineWarps;
+  return static_cast<unsigned int>((tiles + per_block - 1) / per_block);
 }
 
 }  // namespace gprt

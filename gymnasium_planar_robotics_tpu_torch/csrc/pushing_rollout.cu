@@ -7,58 +7,64 @@
 // Bound on an H100: the same per-env arithmetic as kernel C, K times; the
 // state stays in registers across the K steps, so per step only the two
 // action planes are read and three signal planes written (20 B per env).
-// Design: kernel C's step function in a loop over K inside the thread; one
-// Philox stream per env runs on across the K steps (the launch seed keys
-// it).  The injected mode reads K consecutive blocks of kernel C's noise
-// planes, so the kernel can be held against K plain steps.
+// Design: kernel C's producer/consumer blocks (pushing.cuh, split_body)
+// over K steps: the consumer keeps each env's state in registers for the
+// whole launch while the producer runs ahead through the K steps' draws.
+// One Philox stream per env runs on across the K steps (the launch seed
+// keys it; step t's draws start at t * n_step).  The injected mode reads K
+// consecutive blocks of kernel C's noise planes, so the kernel can be held
+// against K plain steps.
 
 #include "pushing.cuh"
 
 namespace gprt {
 
-template <bool kJerk, bool kBox, class Noise>
-__device__ void rollout_body(const Consts& c, Noise& noise, int num_cycles, int cand_k, StepState& st,
-                             const float* __restrict__ actions, float* __restrict__ step_out, int64_t B, int64_t e,
-                             int K) {
-  for (int t = 0; t < K; ++t) {
-    const float ux = actions[(2 * static_cast<int64_t>(t)) * B + e];
-    const float uy = actions[(2 * static_cast<int64_t>(t) + 1) * B + e];
-    StepAux aux;
-    autoreset_step<kJerk, kBox>(c, noise, num_cycles, cand_k, st, ux, uy, aux);
+// the K steps' signals and the final state
+struct RolloutOut {
+  float* st_out;
+  float* step_out;
+  int64_t B;
+  int K;
+  __device__ void step(int64_t e, int t, const StepState&, const StepAux& aux, float, float) {
     step_out[(0 * static_cast<int64_t>(K) + t) * B + e] = aux.wall;
     step_out[(1 * static_cast<int64_t>(K) + t) * B + e] = aux.reached;
     step_out[(2 * static_cast<int64_t>(K) + t) * B + e] = aux.trunc;
   }
+  __device__ void finish(int64_t e, const StepState& st) { store_state(st_out, B, e, st); }
+};
+
+template <bool kJerk, bool kBox, bool kInject>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+    pushing_rollout_kernel(const float* __restrict__ st_in, const float* __restrict__ actions,
+                           const float* __restrict__ noise, float* __restrict__ st_out, float* __restrict__ step_out,
+                           int64_t B, int K, const Consts c, int num_cycles, int cand_k, Seed seed, bool producer) {
+  RolloutOut o{st_out, step_out, B, K};
+  if constexpr (kInject) {
+    split_body<kJerk, kBox>(c, InjectedSource{noise, B}, st_in, actions, B, K, num_cycles, cand_k, producer, o);
+  } else {
+    split_body<kJerk, kBox>(c, PhiloxSource{seed.get()}, st_in, actions, B, K, num_cycles, cand_k, producer, o);
+  }
 }
 
 template <bool kJerk, bool kBox, bool kInject>
-__global__ void __launch_bounds__(kThreads)
-    pushing_rollout_kernel(const float* __restrict__ st_in, const float* __restrict__ actions,
-                           const float* __restrict__ noise, float* __restrict__ st_out, float* __restrict__ step_out,
-                           int64_t B, int K, const Consts c, int num_cycles, int cand_k, Seed seed) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  StepState st;
-  load_state(st_in, B, e, st);
-  if constexpr (kInject) {
-    InjectedNoise n(noise, B, e);
-    rollout_body<kJerk, kBox>(c, n, num_cycles, cand_k, st, actions, step_out, B, e, K);
-  } else {
-    PhiloxNoise n(seed, e);
-    rollout_body<kJerk, kBox>(c, n, num_cycles, cand_k, st, actions, step_out, B, e, K);
-  }
-  store_state(st_out, B, e, st);
+void launch_split(const float* st, const float* actions, const float* noise, float* st_out, float* step_out,
+                  int64_t B, int K, const Consts& c, int num_cycles, int cand_k, Seed seed, bool producer,
+                  cudaStream_t s) {
+  constexpr auto kernel = pushing_rollout_kernel<kJerk, kBox, kInject>;
+  kernel<<<split_blocks(producer, B), split_threads(producer), split_shared_bytes(producer), s>>>(
+      st, actions, noise, st_out, step_out, B, K, c, num_cycles, cand_k, seed, producer);
 }
 
 template <bool kJerk, bool kBox>
 void launch_rollout(const float* st, const float* actions, const float* noise, float* st_out, float* step_out,
-                    int64_t B, int K, const Consts& c, int num_cycles, int cand_k, Seed seed, cudaStream_t s) {
+                    int64_t B, int K, const Consts& c, int num_cycles, int cand_k, Seed seed, bool producer,
+                    cudaStream_t s) {
   if (noise != nullptr) {
-    pushing_rollout_kernel<kJerk, kBox, true>
-        <<<num_blocks(B), kThreads, 0, s>>>(st, actions, noise, st_out, step_out, B, K, c, num_cycles, cand_k, seed);
+    launch_split<kJerk, kBox, true>(st, actions, noise, st_out, step_out, B, K, c, num_cycles, cand_k, seed,
+                                    producer, s);
   } else {
-    pushing_rollout_kernel<kJerk, kBox, false>
-        <<<num_blocks(B), kThreads, 0, s>>>(st, actions, noise, st_out, step_out, B, K, c, num_cycles, cand_k, seed);
+    launch_split<kJerk, kBox, false>(st, actions, noise, st_out, step_out, B, K, c, num_cycles, cand_k, seed,
+                                     producer, s);
   }
 }
 
@@ -66,24 +72,26 @@ void launch_rollout(const float* st, const float* actions, const float* noise, f
 
 // st: [19, B]; actions: [K, 2, B]; noise: [K * ((2 + 2p)*num_cycles + 16 +
 // 2*cand_k), B] uniforms (p = 1 circle, 3 box) or null for Philox; st_out:
-// [19, B]; step_out: [3, K, B] (wall, reached, trunc per step).  The Philox
-// seed is *seed_dev when seed_dev (device memory) is not null, else
-// seed_value.
+// [19, B]; step_out: [3, K, B] (wall, reached, trunc per step);
+// producer: 1 for blocks with the producer warp, 0 for blocks whose every
+// warp draws its own values.  The Philox seed is *seed_dev when seed_dev
+// (device memory) is not null, else seed_value.
 extern "C" int gprt_pushing_rollout(const float* st, const float* actions, const float* noise, float* st_out,
                                     float* step_out, int64_t B, int K, const void* consts, int num_cycles, int cand_k,
                                     int learn_jerk, int box, uint64_t seed_value, const int64_t* seed_dev,
-                                    void* stream) {
+                                    int producer, void* stream) {
   using namespace gprt;
   const Seed seed{seed_value, seed_dev};
   if (B <= 0 || K <= 0) return 0;
   const Consts c = *static_cast<const Consts*>(consts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (producer != 0 && producer != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (learn_jerk) {
     (box ? launch_rollout<true, true> : launch_rollout<true, false>)(st, actions, noise, st_out, step_out, B, K, c,
-                                                                     num_cycles, cand_k, seed, s);
+                                                                     num_cycles, cand_k, seed, producer, s);
   } else {
     (box ? launch_rollout<false, true> : launch_rollout<false, false>)(st, actions, noise, st_out, step_out, B, K, c,
-                                                                       num_cycles, cand_k, seed, s);
+                                                                       num_cycles, cand_k, seed, producer, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -126,11 +126,11 @@ def lib() -> ctypes.CDLL:
         handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, p]
         handle.gprt_pushing_cycles.restype = i32
         handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, p]
-        # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, box, seed, seed_dev, stream)
+        # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, box, seed, seed_dev, producer, stream)
         handle.gprt_pushing_autoreset.restype = i32
-        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, i32, u64, p, p]
+        handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, i32, u64, p, i32, p]
         handle.gprt_pushing_rollout.restype = i32
-        handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, i32, u64, p, p]
+        handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, i32, u64, p, i32, p]
         # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, seed_dev, stream)
         handle.gprt_planning_cycles.restype = i32
         handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p, p]
@@ -153,6 +153,8 @@ def lib() -> ctypes.CDLL:
         handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]
         handle.gprt_peak_chains.restype = i32
         handle.gprt_peak_chains.argtypes = [i32]
+        handle.gprt_split_layout.restype = ctypes.c_char_p
+        handle.gprt_split_layout.argtypes = []
         handle.gprt_multi_const_names.restype = ctypes.c_char_p
         handle.gprt_multi_const_names.argtypes = []
         # field names of gprt::Consts and gprt::PlanningConsts, in order; (name, length) of gprt::MultiConsts

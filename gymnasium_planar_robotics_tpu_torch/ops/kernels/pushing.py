@@ -210,31 +210,48 @@ def launch_name(name: str, kc: KernelConsts) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _wall_ok_plain(f: dict, noise: UniformStream, box: bool, npx, npy):
-    """The per-cycle noisy wall check (``_make_wall_checker.check``) on the
-    fully populated table: position noise, for the box also quaternion
-    noise around the identity.  True = no wall collision."""
+def _wall_pose_plain(f: dict, noise: UniformStream, box: bool):
+    """The per-cycle wall check's noise (``_make_wall_checker.check``): the
+    position normal pair, for the box also the rotation ``R`` of the
+    quaternion noise around the identity (None for the circle)."""
     sp = f['std_pos']
     nwx, nwy = noise.normal_pair()
     if not box:
-        return circle_valid_full(f, npx + nwx * sp, npy + nwy * sp, f['wall_x'])
+        return nwx, nwy, None
     q1, q2 = noise.normal_pair()
     q3, q4 = noise.normal_pair()
-    R = quat_to_R2(1.0 + q1 * sp, q2 * sp, q3 * sp, q4 * sp)
+    return nwx, nwy, quat_to_R2(1.0 + q1 * sp, q2 * sp, q3 * sp, q4 * sp)
+
+
+def _wall_ok_plain(f: dict, pose, box: bool, npx, npy):
+    """The noisy wall check on the fully populated table at the noise
+    ``pose`` of ``_wall_pose_plain``.  True = no wall collision."""
+    nwx, nwy, R = pose
+    sp = f['std_pos']
+    if not box:
+        return circle_valid_full(f, npx + nwx * sp, npy + nwy * sp, f['wall_x'])
     return box_valid_full(f, npx + nwx * sp, npy + nwy * sp, R, f['wall_x'], f['wall_y'])
 
 
-def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk: bool, box: bool, phys, ux, uy):
-    """``_make_pushing_cycles.run``: 16 physics planes in, 16 out + wall."""
+def cycle_draws_plain(f: dict, noise: UniformStream, num_cycles: int, box: bool):
+    """The state-independent values of ``num_cycles`` control cycles, in
+    draw order: per cycle the velocity normal pair, then the wall pose
+    (``_wall_pose_plain``).  A list draws them all now; the cycles consume
+    them in the same order either way."""
+    return [(noise.normal_pair(), _wall_pose_plain(f, noise, box)) for _ in range(num_cycles)]
+
+
+def _run_cycles_plain(f: dict, cycle_draws, learn_jerk: bool, box: bool, phys, ux, uy):
+    """``_make_pushing_cycles.run``: 16 physics planes in, 16 out + wall,
+    one cycle per entry of ``cycle_draws`` (``cycle_draws_plain``)."""
     px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz = phys
     dt = f['dt']
     dt_t = scalar(dt, px)
     done_f = torch.zeros_like(px)
     wall_f = torch.zeros_like(px)
     caxis = torch.full_like(px, -1.0)  # hysteretic normal axis, per step only
-    for _ in range(num_cycles):
+    for (nvx, nvy), wall_pose in cycle_draws:
         done = done_f > 0.0
-        nvx, nvy = noise.normal_pair()
         vmx = vx + nvx * f['std_vel']
         vmy = vy + nvy * f['std_vel']
         if learn_jerk:
@@ -328,7 +345,7 @@ def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk
         ow_t = torch.sign(ow_t) * torch.clamp(torch.abs(ow_t) - f['mu_spin_dt'] * load, min=0.0)
         noyaw = oyaw + dt * ow_t
 
-        new_wall_f = torch.where(_wall_ok_plain(f, noise, box, npx, npy), 0.0, 1.0)
+        new_wall_f = torch.where(_wall_ok_plain(f, wall_pose, box, npx, npy), 0.0, 1.0)
 
         px = torch.where(done, px, npx)
         py = torch.where(done, py, npy)
@@ -353,20 +370,75 @@ def _run_cycles_plain(f: dict, noise: UniformStream, num_cycles: int, learn_jerk
     return [px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz], wall_f
 
 
-def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
-    """``_pushing_autoreset_step``: 19 state planes in; returns the 19 new
-    state planes and the 19 aux planes (s_obs 6, f_obs 8, wall, reached,
-    trunc, stalled, trials)."""
+@dataclasses.dataclass
+class StepDraws:
+    """The state-independent values of one autoreset step, all drawn from
+    the uniform planes in the Pallas order: the cycles' draws
+    (``cycle_draws_plain``), the pre-reset observation normals ``n`` (3
+    pairs), the restart's result (``restart_plain``) and the post-reset
+    observation normals ``m`` (3 pairs).  The kernels' producer warps compute
+    the same values ahead of the physics."""
+
+    cycles: list
+    n: tuple
+    restart: tuple
+    m: tuple
+
+
+def restart_plain(f: dict, noise: UniformStream, cand_k: int):
+    """The in-kernel restart's draws: mover uniform, object the first of
+    ``cand_k`` candidates farther than ``min_mo`` from the mover (else the
+    first candidate), goal uniform.  Returns ``(rmx, rmy, rox, roy, found,
+    trials, rgx, rgy)``; ``trials`` is 1 + j for the first accepted
+    candidate j, else ``cand_k``.  It reads no state."""
+    rmx = noise.uniform_in(f['min_x'], f['span_x'])
+    rmy = noise.uniform_in(f['min_y'], f['span_y'])
+    rox = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
+    roy = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
+    d0x, d0y = rox - rmx, roy - rmy
+    found = torch.where(torch.sqrt(d0x * d0x + d0y * d0y) > f['min_mo'], 1.0, 0.0)
+    trials = torch.ones_like(rmx)
+    for _ in range(cand_k - 1):
+        cx_ = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
+        cy_ = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
+        ddx, ddy = cx_ - rmx, cy_ - rmy
+        ok = torch.sqrt(ddx * ddx + ddy * ddy) > f['min_mo']
+        take = ok & (found == 0.0)
+        trials = trials + (1.0 - found)
+        rox = torch.where(take, cx_, rox)
+        roy = torch.where(take, cy_, roy)
+        found = torch.maximum(found, torch.where(ok, 1.0, 0.0))
+    rgx = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
+    rgy = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
+    return rmx, rmy, rox, roy, found, trials, rgx, rgy
+
+
+def _normals_plain(noise: UniformStream, pairs: int) -> tuple:
+    return tuple(z for _ in range(pairs) for z in noise.normal_pair())
+
+
+def step_draws_plain(kc: KernelConsts, noise: UniformStream) -> StepDraws:
+    """One autoreset step's ``StepDraws``, consuming its
+    ``autoreset_noise_planes`` uniforms in order."""
+    f = kc.f
+    cycles = cycle_draws_plain(f, noise, kc.num_cycles, kc.box)
+    n = _normals_plain(noise, 3)
+    restart = restart_plain(f, noise, kc.cand_k)
+    return StepDraws(cycles=cycles, n=n, restart=restart, m=_normals_plain(noise, 3))
+
+
+def autoreset_physics_plain(kc: KernelConsts, draws: StepDraws, st, ux, uy):
+    """``_pushing_autoreset_step`` on the step's ``draws``: 19 state planes
+    in; returns the 19 new state planes and the 19 aux planes (s_obs 6,
+    f_obs 8, wall, reached, trunc, stalled, trials)."""
     f = kc.f
     phys, (gx, gy, steps) = st[:16], st[16:19]
     g_old_x, g_old_y = gx, gy
-    phys, wall_f = _run_cycles_plain(f, noise, kc.num_cycles, kc.learn_jerk, kc.box, phys, ux, uy)
+    phys, wall_f = _run_cycles_plain(f, draws.cycles, kc.learn_jerk, kc.box, phys, ux, uy)
     px, py, vx, vy, ax, ay, kx, ky, ox, oy, wvx, wvy, oyaw, ow, mz, mvz = phys
     f_qax, f_qay = ax, ay
 
-    n1, n2 = noise.normal_pair()
-    n3, n4 = noise.normal_pair()
-    n5, n6 = noise.normal_pair()
+    n1, n2, n3, n4, n5, n6 = draws.n
     f_mpx = px + n1 * f['std_pos']
     f_mpy = py + n2 * f['std_pos']
     f_mvx = vx + n3 * f['std_vel']
@@ -379,26 +451,7 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     trunc = new_steps >= f['max_episode_steps']
     done = term | trunc
 
-    rmx = noise.uniform_in(f['min_x'], f['span_x'])
-    rmy = noise.uniform_in(f['min_y'], f['span_y'])
-    rox = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
-    roy = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
-    d0x, d0y = rox - rmx, roy - rmy
-    found = torch.where(torch.sqrt(d0x * d0x + d0y * d0y) > f['min_mo'], 1.0, 0.0)
-    trials = torch.ones_like(px)
-    for _ in range(kc.cand_k - 1):
-        cx_ = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
-        cy_ = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
-        ddx, ddy = cx_ - rmx, cy_ - rmy
-        ok = torch.sqrt(ddx * ddx + ddy * ddy) > f['min_mo']
-        take = ok & (found == 0.0)
-        trials = trials + (1.0 - found)
-        rox = torch.where(take, cx_, rox)
-        roy = torch.where(take, cy_, roy)
-        found = torch.maximum(found, torch.where(ok, 1.0, 0.0))
-    rgx = noise.uniform_in(f['obj_min_x'], f['obj_span_x'])
-    rgy = noise.uniform_in(f['obj_min_y'], f['obj_span_y'])
-
+    rmx, rmy, rox, roy, found, trials, rgx, rgy = draws.restart
     # a stalled restart keeps the post-cycle state and the incremented counter
     stalled_f = torch.where(done & (found == 0.0), 1.0, 0.0)
     do_reset = done & (found > 0.0)
@@ -415,9 +468,7 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     gx, gy = reset_to(rgx, gx), reset_to(rgy, gy)
     steps = reset_to(0.0, new_steps)
 
-    m1, m2 = noise.normal_pair()
-    m3, m4 = noise.normal_pair()
-    m5, m6 = noise.normal_pair()
+    m1, m2, m3, m4, m5, m6 = draws.m
     s_mpx = reset_to(px + m1 * f['std_pos'], f_mpx)
     s_mpy = reset_to(py + m2 * f['std_pos'], f_mpy)
     s_mvx = reset_to(vx + m3 * f['std_vel'], f_mvx)
@@ -438,12 +489,17 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     return new_st, aux
 
 
+def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
+    """``_pushing_autoreset_step``: the step's draws, then its physics."""
+    return autoreset_physics_plain(kc, step_draws_plain(kc, noise), st, ux, uy)
+
+
 def pushing_cycles_plain(planes: torch.Tensor, kc: KernelConsts, uniforms: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B: ``[18, B]`` (16 physics + action x/y) ->
     ``[17, B]`` (16 physics + wall) over ``[cycles_noise_planes, B]`` uniforms."""
     noise = UniformStream(uniforms)
-    phys, wall = _run_cycles_plain(kc.f, noise, kc.num_cycles, kc.learn_jerk, kc.box, list(planes[:16]),
-                                   planes[16], planes[17])
+    draws = cycle_draws_plain(kc.f, noise, kc.num_cycles, kc.box)
+    phys, wall = _run_cycles_plain(kc.f, draws, kc.learn_jerk, kc.box, list(planes[:16]), planes[16], planes[17])
     noise.finalize()
     return torch.stack(phys + [wall])
 
@@ -521,6 +577,27 @@ def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | tor
     return out
 
 
+#: the widest batch for which kernels C and D launch blocks with the
+#: producer warp: up to it the card is latency-bound and the producer takes
+#: the draws off each consumer's chain; above it, where the issue rate
+#: binds, blocks whose every warp draws its own values are faster (PERF.md
+#: section 6)
+WIDE_BATCH = 32768
+
+
+def producer_warps(b: int) -> int:
+    """Producer warps per block of a launch of kernel C or D over ``b``
+    envs: 1 up to ``WIDE_BATCH`` envs, else 0."""
+    return 1 if b <= WIDE_BATCH else 0
+
+
+def split_layout() -> dict:
+    """Kernels C and D's ring layout as the built library has it (ring
+    slots, values per stage, cycles per stage of each shape)."""
+    text = build.lib().gprt_split_layout().decode()
+    return {k: int(v) for k, v in (f.split('=') for f in text.split(','))}
+
+
 def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0,
                            emit_features: bool = False):
     """Kernel C on the card; with ``emit_features`` its C-feat variant,
@@ -537,7 +614,8 @@ def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed:
         err = build.lib().gprt_pushing_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), feat.data_ptr() if emit_features else None,
             b, _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
-            *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
+            *kernels.seed_args(seed, state.device), producer_warps(b),
+            kernels.stream_ptr(out),
         )
     name = launch_name('pushing_autoreset_features' if emit_features else 'pushing_autoreset', kc)
     build.check(err, name)
@@ -559,7 +637,8 @@ def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: 
         err = build.lib().gprt_pushing_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
             _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
-            *kernels.seed_args(seed, state.device), kernels.stream_ptr(st_out),
+            *kernels.seed_args(seed, state.device), producer_warps(b),
+            kernels.stream_ptr(st_out),
         )
     name = launch_name('pushing_rollout', kc)
     build.check(err, name)

@@ -161,3 +161,119 @@ def test_public_path_k32_matches_k1(cuda):
     assert live.sum() > b // 2
     for k in ('pos', 'vel', 'obj_pos', 'mover_z'):
         torch.testing.assert_close(getattr(r32[0], k)[live], getattr(r1[0], k)[live], rtol=3e-5, atol=3e-6)
+
+
+# -- the producer/consumer kernels C and D at ragged widths --------------------------
+# B = 1, 31, 33 are partial warps (33: a second tile of one env, with an odd
+# cand_k, so a step's draws do not start on a Philox block) and 4097 a
+# partial tail tile: every lane takes part in every barrier, so none hangs.
+# Each runs both block shapes: with the producer warp (the wrapper's choice
+# up to kpush.WIDE_BATCH envs) and without (above it), the threshold moved
+# to reach the other.
+SPLIT_WIDTHS = [(1, 32), (31, 32), (33, 7), (4097, 32)]
+
+
+def use_producer(monkeypatch, producer):
+    """Make kernels C and D launch blocks with (1) or without (0) the producer warp at every width."""
+    monkeypatch.setattr(kpush, 'WIDE_BATCH', 1 << 62 if producer else 0)
+
+
+def split_modes(n_noise, b, device, seed=7):
+    u = torch.rand((n_noise, b), device=device)
+    return (('injected', u, 0, u), ('philox', None, seed, noise.philox_uniforms(seed, n_noise, b).to(device)))
+
+
+SHAPE_KW = {}
+
+
+def split_env(device, learn_jerk):
+    return tpush.make_pushing_env(learn_jerk=learn_jerk, device=device, **SHAPE_KW)
+
+
+@pytest.mark.parametrize('producer', [0, 1])
+@pytest.mark.parametrize('learn_jerk', [False, True])
+@pytest.mark.parametrize('b, cand_k', SPLIT_WIDTHS)
+def test_split_kernel_c_matches_plain_at_ragged_widths(cuda, monkeypatch, b, cand_k, learn_jerk, producer):
+    use_producer(monkeypatch, producer)
+    cfg, prm = split_env(cuda, learn_jerk)
+    kc = kpush.make_kernel_consts(cfg, prm, cand_k)
+    st = tpush.state_to_planes(episode_state(cfg, prm, b, cuda, seed=b))
+    act = ((torch.rand((2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)).contiguous()
+    for mode, u, seed, u_plain in split_modes(kpush.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box), b, cuda):
+        got, feat = kpush.pushing_autoreset_cuda(st, act, kc, u, seed, True)
+        # C-feat's 36 planes equal kernel C's, its blocks its own planes
+        assert torch.equal(got, kpush.pushing_autoreset_cuda(st, act, kc, u, seed)), mode
+        assert torch.equal(feat, kpush.features_from_planes(st, got)), mode
+        assert_planes_close(got, kpush.pushing_autoreset_plain(st, act, kc, u_plain))
+
+
+@pytest.mark.parametrize('K', [1, 3, 32])
+@pytest.mark.parametrize('b, cand_k', SPLIT_WIDTHS)
+def test_split_kernel_d_matches_plain_at_ragged_widths(cuda, monkeypatch, b, cand_k, K):
+    learn_jerk = K == 3
+    cfg, prm = split_env(cuda, learn_jerk)
+    kc = kpush.make_kernel_consts(cfg, prm, cand_k)
+    st = tpush.state_to_planes(episode_state(cfg, prm, b, cuda, seed=K))
+    acts = ((torch.rand((K, 2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)).contiguous()
+    for mode, u, seed, u_plain in split_modes(K * kpush.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box), b,
+                                              cuda):
+        want_st, want_sig = kpush.pushing_rollout_plain(st, acts, kc, u_plain)
+        for producer in (0, 1):
+            use_producer(monkeypatch, producer)
+            got_st, got_sig = kpush.pushing_rollout_cuda(st, acts, kc, u, seed)
+            # the envs whose signals match exactly and whose state agrees at
+            # the plane tolerances x10 (a contact event can fall one cycle apart)
+            env_ok = (got_sig == want_sig).all(0).all(0)
+            for i in range(kpush.N_STATE):
+                tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
+                env_ok &= (got_st[i] - want_st[i]).abs() <= 10 * (tol['atol'] + tol['rtol'] * want_st[i].abs())
+            assert float(env_ok.double().mean()) >= 0.99, (mode, producer, float(env_ok.double().mean()))
+        got_st, got_sig = kpush.pushing_rollout_cuda(st, acts, kc, u, seed)
+        if K == 1:
+            # one step of D is kernel C's step, bit for bit
+            out = kpush.pushing_autoreset_cuda(st, acts[0], kc, u, seed)
+            assert torch.equal(got_st, out[:19]) and torch.equal(got_sig[0, 0], out[33]), mode
+
+
+def assert_planes_close_up_to_wall_latch(got, want, max_frac=1e-3):
+    """assert_planes_close on kernel C's 36 planes, with the wall, stalled
+    and trials flags equal for every env, except that an env which hit the
+    wall in this step (its flag set in both) may latch it one control cycle
+    apart -- the noisy wall check's last-ulp rounding, at a wall crossing,
+    decides the cycle -- on at most ``max_frac`` of the envs.  Over ~8,000
+    envs driven into the wall one such env shows now and then."""
+    assert torch.equal(got[33:36], want[33:36])
+    ok = torch.ones(got.shape[1], dtype=torch.bool, device=got.device)
+    for i in range(got.shape[0]):
+        tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
+        ok &= (got[i] - want[i]).abs() <= tol['atol'] + tol['rtol'] * want[i].abs()
+    assert bool((got[33][~ok] > 0).all()), 'an env that hit no wall disagrees'
+    assert int((~ok).sum()) <= max_frac * got.shape[1], int((~ok).sum())
+
+
+@pytest.mark.parametrize('learn_jerk', [False, True])
+def test_split_kernels_above_the_wide_batch(cuda, learn_jerk):
+    """The wrapper's own choice above kpush.WIDE_BATCH (blocks without the
+    producer), whose last block holds a full tile, a tile of one env and
+    two warps past the last env: C, C-feat and D (K=3) against their plain
+    versions."""
+    b, cand_k, K = kpush.WIDE_BATCH + 33, 32, 3
+    assert kpush.producer_warps(b) == 0
+    cfg, prm = split_env(cuda, learn_jerk)
+    kc = kpush.make_kernel_consts(cfg, prm, cand_k)
+    st = tpush.state_to_planes(episode_state(cfg, prm, b, cuda, seed=5))
+    acts = ((torch.rand((K, 2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)).contiguous()
+    n_step = kpush.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box)
+    for mode, u, seed, u_plain in split_modes(K * n_step, b, cuda):
+        u1 = None if u is None else u[:n_step].contiguous()
+        got, feat = kpush.pushing_autoreset_cuda(st, acts[0], kc, u1, seed, True)
+        assert torch.equal(got, kpush.pushing_autoreset_cuda(st, acts[0], kc, u1, seed)), mode
+        assert torch.equal(feat, kpush.features_from_planes(st, got)), mode
+        assert_planes_close_up_to_wall_latch(got, kpush.pushing_autoreset_plain(st, acts[0], kc, u_plain[:n_step]))
+        got_st, got_sig = kpush.pushing_rollout_cuda(st, acts, kc, u, seed)
+        want_st, want_sig = kpush.pushing_rollout_plain(st, acts, kc, u_plain)
+        env_ok = (got_sig == want_sig).all(0).all(0)
+        for i in range(kpush.N_STATE):
+            tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
+            env_ok &= (got_st[i] - want_st[i]).abs() <= 10 * (tol['atol'] + tol['rtol'] * want_st[i].abs())
+        assert float(env_ok.double().mean()) >= 0.99, (mode, float(env_ok.double().mean()))
