@@ -42,15 +42,26 @@ phase:
 8. env-steps/s of the planning ``make_fused_rollout`` at 4096 and 65,536
    envs, T=64, K=1 and K=32, five alternating repeats each (median), plus
    the plain versions once;
-9. kernel H (M-mover planning) against its plain version at 4096 envs, in
-   both noise modes, on four configurations: circle and box on the full 4x4
-   table with 4 movers, per-mover radii on a holed 4x4 layout with 3 movers
-   (jerk), box on the L-shape with 2 movers (jerk); from states with a
-   quarter of the envs driven into a wall and a quarter with head-on pairs;
+9. kernel H (M-mover planning, any M: G lanes an env, L mover slots a
+   lane) against its plain version at 4096 envs, in both noise modes, on
+   six configurations: circle and box on the full 4x4 table with 4 movers,
+   per-mover radii on a holed 4x4 layout with 3 movers (jerk), box on the
+   L-shape with 2 movers (jerk), 12 movers on the full 8x8 table with
+   ``cand_k=128`` (the share of done envs whose restart stalls reported),
+   and 33 movers on a 16x16 table (parity only: its restarts stall); from
+   states with a quarter of the envs driven into a wall and a quarter with
+   head-on pairs; then timed on states eight random steps into a rollout
+   (``tools/rollout_rates.multi_rollout_state``): the main configuration in
+   the wrapper's layout (the kernels line, its bound counting the cycles
+   each env runs up to its latch), and 2, 4, 8 and 12 movers at 4096 and
+   65,536 envs in every layout (G, L) the wrapper can pick, the table
+   ``LANE_TABLE`` is read from, with each instantiation's ``ptxas -v``;
 10. the public M-mover path: ``make_planning_env(np.ones((4, 4)), 4)`` ->
    ``init_batch(4096)`` -> ``make_fused_step_autoreset`` x5 ->
    ``multi_agent.make_batched_parallel_step`` x3 -> ``make_fused_rollout``
-   T=64, counters set to 0 before and read after (72 launches of H);
+   T=64, counters set to 0 before and read after (72 launches of H); then
+   the same at 12 movers on the full 8x8 table, counted on its own (no
+   eager fallback);
 11. env-steps/s of the M=4 ``make_fused_rollout`` at 4096 and 65,536 envs,
    T=64, five repeats (median, with the host's enqueue time), plus the
    plain version once at 4096 envs;
@@ -104,9 +115,9 @@ phase:
    ``make_fused_rollout`` at 4096 envs and K=1 (env-steps/s, beside the
    default mover), and planning's kernel F with a mesh mover and bumper
    against its plain version;
-23. every fused step (pushing, box pushing, 1- and 4-mover planning, the
-   multi-agent step) with a generator on the card makes no host
-   synchronisation (sync debug mode 'warn').
+23. every fused step (pushing, box pushing, 1-, 4- and 12-mover planning,
+   the multi-agent step at 4 and 12 movers) with a generator on the card
+   makes no host synchronisation (sync debug mode 'warn').
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread.  The line
@@ -182,6 +193,8 @@ TRAIN_KERNELS = ('pushing_autoreset_features',)
 PEAK_KERNELS = ('peak_fma', 'peak_transc')
 BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_box', 'pushing_autoreset_features_box')
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
+M_WIDE = 12  # movers of the wide M-mover configuration: full 8x8 table, cand_k=128
+H_LAYOUT_MOVERS = (2, 4, 8, 12)  # movers at which kernel H is timed in every lane layout
 B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
 TRAIN_STEPS = 20
 B_EAGER, T_EAGER = 2048, 64  # the eager step_autoreset's run
@@ -358,7 +371,9 @@ def main() -> int:
     from gymnasium_planar_robotics_tpu_torch.ops import kernels
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, noise
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kp
-    from gymnasium_planar_robotics_tpu_torch.utils.roofline import OPS, multi_env_terms, ops_total, planning_cycle_ops
+    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import forced_layout, kernel_h_layouts, multi_rollout_state
+    from gymnasium_planar_robotics_tpu_torch.utils.roofline import (OPS, multi_cycle_terms, multi_env_terms, ops_total,
+                                                                    planning_cycle_ops)
 
     dev = torch.device(DEVICE)
     report: dict = {'phases': {}}
@@ -1116,16 +1131,20 @@ def main() -> int:
 
     holed4 = np.array([[1, 1, 1, 1], [1, 1, 0, 1], [1, 1, 1, 1], [1, 1, 1, 1]])
     lshape = np.array([[1, 1, 0], [1, 1, 1], [0, 1, 1]])
-    # name -> (layout, movers, collision params, jerk); the main configuration first
+    # name -> (layout, movers, collision params, jerk, cand_k); the main
+    # configuration first; the last one is held for parity only (its
+    # restarts stall: random sets of 33 movers are almost never accepted)
     multi_configs = {
-        'circle_full_m4': (np.ones((4, 4)), M_MAIN, {}, False),
-        'box_full_m4': (np.ones((4, 4)), M_MAIN, box_coll, False),
-        'circle_holed_m3_jerk': (holed4, 3, {'size': np.array([0.11, 0.14, 0.12])}, True),
-        'box_lshape_m2_jerk': (lshape, 2, box_coll, True),
+        'circle_full_m4': (np.ones((4, 4)), M_MAIN, {}, False, 16),
+        'box_full_m4': (np.ones((4, 4)), M_MAIN, box_coll, False, 16),
+        'circle_holed_m3_jerk': (holed4, 3, {'size': np.array([0.11, 0.14, 0.12])}, True, 16),
+        'box_lshape_m2_jerk': (lshape, 2, box_coll, True, 16),
+        'circle_full_m12': (np.ones((8, 8)), M_WIDE, {}, False, 128),
+        'circle_full_m33': (np.ones((16, 16)), 33, {}, False, 16),
     }
 
     def multi_env(name, **kw):
-        layout, m, coll, jerk = multi_configs[name]
+        layout, m, coll, jerk, _ = multi_configs[name]
         return PL.make_planning_env(layout, m, collision_params=coll, learn_jerk=jerk, device=dev, **kw)
 
     def multi_planted(cfg, prm, b, seed):
@@ -1146,74 +1165,127 @@ def main() -> int:
         state.steps[::8] = cfg.max_episode_steps - 1
         return state
 
-    def multi_step_ops(cfg, mc, sets_tested: float) -> float:
-        """f32 operations of one kernel H step over the batch: every env
-        runs M movers' cycles, the pair tests and the observations;
-        ``sets_tested`` candidate sets are tested in all (this run's data:
-        done envs only, up to the first accepted set)."""
+    def multi_step_ops(cfg, mc, cycles_run: float, sets_tested: float, b: int = B_MAIN) -> float:
+        """f32 operations of one kernel H step over the batch, counted from
+        this run's data: ``cycles_run`` control cycles in all (each env's up
+        to its latch, ``planning_multi.cycles_run_plain``), every env's
+        observations, and ``sets_tested`` candidate sets (done envs only, up
+        to the first accepted set)."""
         kc, m = mc.base, cfg.num_movers
         n_pairs = m * (m - 1) // 2
-        per_env = ops_total(*multi_env_terms(m, kc.num_cycles, kc.box, kc.rule.full, kc.learn_jerk))
+        per_cycle = ops_total(*multi_cycle_terms(m, kc.box, kc.rule.full, kc.learn_jerk))
+        per_env = ops_total(*multi_env_terms(m, 0, kc.box, kc.rule.full, kc.learn_jerk))
         holed = [] if kc.rule.full else [(m, 'planning_holed_extra_box' if kc.box else 'planning_holed_extra_circle')]
         per_set = ops_total((m, 'multi_candidate_mover_box' if kc.box else 'multi_candidate_mover_circle'),
                             (n_pairs, 'multi_candidate_pair_box' if kc.box else 'multi_candidate_pair_circle'),
                             *holed)
-        return per_env * B_MAIN + per_set * sets_tested
+        return per_cycle * cycles_run + per_env * b + per_set * sets_tested
+
+    def multi_rollout_h(m, b, seed):
+        """(config, params, kernel constants, state planes, action planes) of
+        kernel H at M movers on a state eight random steps into a rollout
+        (``tools/rollout_rates.multi_rollout_state``): the envs kernel H
+        sees on the main path."""
+        cfg, prm, state = multi_rollout_state(m, b, seed, DEVICE)
+        act = ((torch.rand((2 * m, b), generator=gen, device=dev) * 2 - 1) * 10.0).contiguous()
+        return cfg, prm, kmu.make_multi_kernel_consts(cfg, prm), PL.state_to_planes(cfg, state), act
 
     @phase('kernel_H_planning_multi_autoreset')
     def _():
         res = {}
-        for name in multi_configs:
+        for name, (_, _, _, _, cand_k) in multi_configs.items():
             cfg, prm = multi_env(name)
             m = cfg.num_movers
-            mc = kmu.make_multi_kernel_consts(cfg, prm)
+            mc = kmu.make_multi_kernel_consts(cfg, prm, cand_k)
             st = PL.state_to_planes(cfg, multi_planted(cfg, prm, B_MAIN, 13))
             lim = 100.0 if cfg.learn_jerk else 10.0
             act = ((torch.rand((2 * m, B_MAIN), generator=gen, device=dev) * 2 - 1) * lim).contiguous()
             n_noise = kmu.multi_noise_planes(cfg.num_cycles, m, mc.base.cand_k, mc.base.box)
             u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
             exact = (8 * m, *range(18 * m + 1, 18 * m + 6))
-            entry = {'M': m, 'jerk': cfg.learn_jerk, 'max_abs_err': 0.0}
+            entry = {'M': m, 'jerk': cfg.learn_jerk, 'cand_k': cand_k, 'lanes': list(kmu.lane_layout(m, B_MAIN)),
+                     'max_abs_err': 0.0}
             for mode, got, ref in (
                     ('injected', kmu.planning_multi_autoreset_cuda(st, act, mc, u),
                      kmu.planning_multi_autoreset_plain(st, act, mc, u)),
                     ('philox', kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7),
                      kmu.planning_multi_autoreset_plain(st, act, mc, philox(7, n_noise, B_MAIN)))):
                 e, bad = planes_check(got, ref, exact=exact)
+                done = got[18 * m + 5] > 0
                 restarts = int(((got[8 * m] == 0) & (st[8 * m] > 0)).sum())
                 walls_, movers = int((got[18 * m + 1] > 0).sum()), int((got[18 * m + 2] > 0).sum())
+                stalled = int(got[18 * m + 4].sum())
                 require(not bad, f'{name} ({mode}): planes {bad} disagree')
-                require(restarts > 0 and walls_ > 0 and movers > 0,
-                        f'{name} ({mode}): {restarts} restarts, {walls_} wall hits, {movers} mover hits')
+                require((restarts > 0 or m == 33) and stalled + restarts > 0 and walls_ > 0 and movers > 0,
+                        f'{name} ({mode}): {restarts} restarts, {stalled} stalls, {walls_} wall hits, {movers} '
+                        f'mover hits')
                 entry['max_abs_err'] = max(entry['max_abs_err'], e)
-                entry[mode] = {'restarts': restarts, 'wall_hits': walls_, 'mover_hits': movers,
-                               'stalled': int(got[18 * m + 4].sum()), 'sets_tested': int(got[18 * m + 5].sum())}
-            if name == 'circle_full_m4':
-                injected_ms, injected_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, u))
-                ms, ms_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7))
-                plain_ms = time_ms(lambda: kmu.planning_multi_autoreset_plain(st, act, mc, u), 1)
-                bound_ms, bound_by = bound((10 * m + 1 + 18 * m + 6) * 4 * B_MAIN,
-                                           multi_step_ops(cfg, mc, entry['philox']['sets_tested']))
-                entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
-                             bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
-                             injected_groups=injected_groups,
-                             injected_bound_ms=bound((10 * m + 1 + n_noise + 18 * m + 6) * 4 * B_MAIN,
-                                                    multi_step_ops(cfg, mc, entry['injected']['sets_tested']))[0])
-                kstats['planning_multi_autoreset'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                                          bound_by=bound_by)
-            else:
-                entry['ms'], _ = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 10)
+                entry[mode] = {'restarts': restarts, 'wall_hits': walls_, 'mover_hits': movers, 'stalled': stalled,
+                               'done': int(done.sum()), 'stalled_share_of_done': stalled / max(int(done.sum()), 1),
+                               'sets_tested': int(got[18 * m + 5].sum())}
+            entry['ms'], _ = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 10)
             res[name] = entry
-        kstats['planning_multi_autoreset'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
+
+        # the main configuration on the states the main path gives kernel H,
+        # in the wrapper's layout: the kernels line's time and bound
+        cfg, prm, mc, st, act = multi_rollout_h(M_MAIN, B_MAIN, 21)
+        m = M_MAIN
+        n_noise = kmu.multi_noise_planes(cfg.num_cycles, m, mc.base.cand_k, mc.base.box)
+        u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+        u7 = philox(7, n_noise, B_MAIN)
+        got = kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7)
+        e, bad = planes_check(got, kmu.planning_multi_autoreset_plain(st, act, mc, u7), exact=(8 * m, *range(
+            18 * m + 1, 18 * m + 6)))
+        require(not bad, f'rollout state (philox): planes {bad} disagree')
+        cycles = float(kmu.cycles_run_plain(st, act, mc, u7).sum())
+        cycles_inj = float(kmu.cycles_run_plain(st, act, mc, u).sum())
+        sets_inj = float(kmu.planning_multi_autoreset_cuda(st, act, mc, u)[18 * m + 5].sum())
+        injected_ms, injected_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, u))
+        ms, ms_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7))
+        plain_ms = time_ms(lambda: kmu.planning_multi_autoreset_plain(st, act, mc, u), 1)
+        bound_ms, bound_by = bound((10 * m + 1 + 18 * m + 6) * 4 * B_MAIN,
+                                   multi_step_ops(cfg, mc, cycles, float(got[18 * m + 5].sum())))
+        main = {'M': m, 'B': B_MAIN, 'lanes': list(kmu.lane_layout(m, B_MAIN)), 'max_abs_err': e, 'ms': ms,
+                'ms_groups': ms_groups, 'ms_spread': spread(ms_groups), 'bound_ms': bound_ms, 'bound_by': bound_by,
+                'cycles_run_share': cycles / (cfg.num_cycles * B_MAIN), 'plain_ms': plain_ms,
+                'injected_ms': injected_ms, 'injected_groups': injected_groups,
+                'injected_bound_ms': bound((10 * m + 1 + n_noise + 18 * m + 6) * 4 * B_MAIN,
+                                           multi_step_ops(cfg, mc, cycles_inj, sets_inj))[0]}
+        kstats['planning_multi_autoreset'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                                  max_abs_err=max([e] + [r['max_abs_err'] for r in res.values()]))
+
+        # every layout (G, L) the wrapper can pick: held against the plain
+        # version at 4096 envs, then timed on rollout states at both widths
+        for m in H_LAYOUT_MOVERS:
+            cfg, prm, mc, st, act = multi_rollout_h(m, B_MAIN, 30 + m)
+            ref = kmu.planning_multi_autoreset_plain(st, act, mc, philox(7, kmu.multi_noise_planes(
+                cfg.num_cycles, m, mc.base.cand_k, mc.base.box), B_MAIN))
+            for lay in kmu.layouts(m):
+                with forced_layout(m, lay):
+                    _, bad = planes_check(kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), ref,
+                                          exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
+                require(not bad, f'M={m} (G, L)={lay}: planes {bad} disagree')
+        layout_ms = kernel_h_layouts(H_LAYOUT_MOVERS, (B_MAIN, B_LARGE), DEVICE)
+        # ptxas -v of each instantiation (L, box)
+        ptxas = {}
+        for fn, line in report['phases']['card_build'].get('ptxas', {}).items():
+            mt = re.search(r'planning_multi_kernelILi(\d+)ELb(\d)E', fn)
+            if mt:
+                ptxas['L={},box={}'.format(*mt.groups())] = line
         return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
-                'configs': res}
+                'configs': res, 'main': main, 'layout_ms': layout_ms, 'lane_table': {
+                    str(k): v for k, v in kmu.LANE_TABLE.items()}, 'wide_batch': kmu.WIDE_BATCH, 'ptxas': ptxas}
 
     # -- 10. the public M-mover path ------------------------------------------------
-    @phase('multi_planning_main_path')
-    def _():
-        cfg, prm = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
-        m, g = cfg.num_movers, torch.Generator(device=dev).manual_seed(5)
+    def drive_multi_path(m, side, seed):
+        """The public M-mover path at 4096 envs: init_batch ->
+        make_fused_step_autoreset x5 -> multi_agent.make_batched_parallel_step
+        x3 -> make_fused_rollout T=64, counters set to 0 before and read
+        after, with the mover collisions kernel H reports on the way."""
+        cfg, prm = PL.make_planning_env(np.ones((side, side)), m, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        require(multi_agent.fused_covers(cfg, prm), f'{m} movers: the multi-agent step would step eagerly')
         # count the mover collisions the kernel reports on the path (its
         # mover plane), beside the launch counters
         launch, mover_hits = kmu.planning_multi_autoreset_cuda, []
@@ -1249,11 +1321,14 @@ def main() -> int:
         roll_mover_hits = int(sum(int(h) for h in mover_hits[n_before:]))
 
         require(launches['planning_multi_autoreset'] == 5 + 3 + T_ROLL,
-                f'kernel H launched {launches["planning_multi_autoreset"]} times, expected {5 + 3 + T_ROLL}')
-        require(bool(~info['reset_stalled'].any()), 'init_batch stalled')
-        require(not bool(common.wall_collision_any(prm.grid, state.pos, None, prm.c_size + prm.c_offset_wall
+                f'{m} movers: kernel H launched {launches["planning_multi_autoreset"]} times, expected {5 + 3 + T_ROLL}')
+        # init_batch's own rule: a stalled env keeps its last draw (at 12
+        # movers about one env in six stalls within its 104 sets)
+        placed = ~info['reset_stalled']
+        require(m > M_MAIN or bool(placed.all()), 'init_batch stalled')
+        require(not bool(common.wall_collision_any(prm.grid, state.pos[placed], None, prm.c_size + prm.c_offset_wall
                                                    + prm.c_offset, 'circle').any()), 'init_batch: a mover wall-invalid')
-        require(not bool(collision.check_mover_collision(state.pos, prm.c_size + prm.c_offset).any()),
+        require(not bool(collision.check_mover_collision(state.pos[placed], prm.c_size + prm.c_offset).any()),
                 'init_batch: a start pair collides')
         allowed = {50.0, -50.0} | {-float(k) for k in range(1, m + 1)}
         require(set(torch.unique(rew).tolist()) <= allowed, f'rollout rewards {torch.unique(rew).tolist()}')
@@ -1263,15 +1338,29 @@ def main() -> int:
             require(bool(torch.isfinite(getattr(fs, name)).all()), f'{name} not finite')
         speed = torch.linalg.vector_norm(fs.vel, dim=-1)
         require(float(speed.max()) <= float(prm.v_max) * 1.01, f'|v| {float(speed.max())}')
-        require(bool(((fs.pos >= 0.0) & (fs.pos <= 0.96)).all()), 'a mover off the table')
-        require(bool(((fs.steps >= 0) & (fs.steps <= cfg.max_episode_steps)).all()), 'steps')
+        require(bool(((fs.pos >= 0.0) & (fs.pos <= 0.24 * side)).all()), 'a mover off the table')
+        # a stalled restart leaves its env's counter counting (done fires
+        # again next step): at most the 5 + 3 + T_ROLL steps driven above
+        over = int((fs.steps > cfg.max_episode_steps).sum())
+        require(bool(((fs.steps >= 0) & (fs.steps <= cfg.max_episode_steps + 5 + 3 + T_ROLL)).all())
+                and (over == 0 or m > M_MAIN), f'steps: {over} envs past the episode limit')
         ends = int((term | trunc).sum())
         require(ends > 0 and roll_mover_hits > 0, f'rollout: {ends} episode ends, {roll_mover_hits} mover collisions')
-        return {'launches': launches, 'init_trials_mean': float(info['reset_trials'].double().mean()),
+        return {'launches': launches, 'lanes': list(kmu.lane_layout(m, B_MAIN)),
+                'init_trials_mean': float(info['reset_trials'].double().mean()),
+                'init_stalled': int(info['reset_stalled'].sum()), 'steps_past_limit': over,
                 'step_mover_collisions': int(sum(int(i['mover_collision'].sum()) for i in infos)),
+                'step_stalled': int(sum(int(i['reset_stalled'].sum()) for i in infos)),
                 'rollout': {'terminations': int(term.sum()), 'truncations': int(trunc.sum()),
                             'mover_collisions': roll_mover_hits, 'successes': int((rew == 50.0).sum()),
                             'collisions': int((rew == -50.0).sum()), 'reward_mean': float(rew.mean())}}
+
+    @phase('multi_planning_main_path')
+    def _():
+        res = drive_multi_path(M_MAIN, 4, 5)
+        # the same path at 12 movers on the 8x8 table, counted on its own
+        res[f'M={M_WIDE}'] = drive_multi_path(M_WIDE, 8, 15)
+        return res
 
     multi_launches = report['phases']['multi_planning_main_path'].get('launches', {})
 
@@ -2035,12 +2124,15 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(35)
         cfg1, prm1 = PL.make_planning_env(np.ones((3, 3)), 1, device=dev)
         cfg4, prm4 = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
+        cfg12, prm12 = PL.make_planning_env(np.ones((8, 8)), M_WIDE, device=dev)
         s_push = P.init_batch(config, params, B_MAIN, g)[0]
         s_box = P.init_batch(cfg_box, prm_box, B_MAIN, g)[0]
         s1 = PL.init_batch(cfg1, prm1, B_MAIN, g)[0]
         s4 = PL.init_batch(cfg4, prm4, B_MAIN, g)[0]
+        s12 = PL.init_batch(cfg12, prm12, B_MAIN, g)[0]
         a2 = torch.ones((B_MAIN, 2), device=dev)
         a4 = torch.ones((B_MAIN, M_MAIN, 2), device=dev)
+        a12 = torch.ones((B_MAIN, M_WIDE, 2), device=dev)
         steps = {
             'pushing make_fused_step': (P.make_fused_step(config, params), s_push, a2),
             'pushing make_fused_step_autoreset': (P.make_fused_step_autoreset(config, params), s_push, a2),
@@ -2049,6 +2141,9 @@ def main() -> int:
             'planning make_fused_step_autoreset': (PL.make_fused_step_autoreset(cfg1, prm1), s1, a2),
             'planning 4-mover make_fused_step_autoreset': (PL.make_fused_step_autoreset(cfg4, prm4), s4, a4),
             'multi_agent make_batched_parallel_step': (multi_agent.make_batched_parallel_step(cfg4, prm4), s4, a4),
+            'planning 12-mover make_fused_step_autoreset': (PL.make_fused_step_autoreset(cfg12, prm12), s12, a12),
+            'multi_agent 12-mover make_batched_parallel_step': (multi_agent.make_batched_parallel_step(cfg12, prm12),
+                                                                s12, a12),
         }
         res = {}
         for name, (fn, s, a) in steps.items():

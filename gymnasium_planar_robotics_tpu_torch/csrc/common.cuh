@@ -125,16 +125,21 @@ struct PhiloxNoise {
   }
 };
 
-// Box-Muller (pallas_step._NoiseBase.normal_pair): u1 = 1 - u keeps the log
-// finite; draws u1's uniform first, then u2's.
-template <class Noise>
-__device__ __forceinline__ void normal_pair(Noise& noise, float& a, float& b) {
-  const float u1 = 1.0f - noise.uniform();
-  const float u2 = noise.uniform();
+// Box-Muller (pallas_step._NoiseBase.normal_pair) of the uniforms u and u2:
+// u1 = 1 - u keeps the log finite
+__device__ __forceinline__ void box_muller(float u, float u2, float& a, float& b) {
+  const float u1 = 1.0f - u;
   const float r = sqrtf(-2.0f * logf(u1));
   const float th = kTwoPi * u2;
   a = r * cosf(th);
   b = r * sinf(th);
+}
+
+// the next normal pair of a stream: u1's uniform first, then u2's
+template <class Noise>
+__device__ __forceinline__ void normal_pair(Noise& noise, float& a, float& b) {
+  const float u = noise.uniform();
+  box_muller(u, noise.uniform(), a, b);
 }
 
 // lo + u * span (_NoiseBase.uniform_in; span = hi - lo formed on the host)

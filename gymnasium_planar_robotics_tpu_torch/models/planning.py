@@ -5,7 +5,7 @@ Counterpart of ``gymnasium_planar_robotics_tpu/models/planning.py``:
 (``step``, ``step_with_cycles``, ``step_autoreset`` for any number of
 movers; 40 control cycles of torch ops with the dense wall rule, the XLA
 path of the JAX package), the per-step fused APIs ``make_fused_step`` (kernel E, 1 mover) and
-``make_fused_step_autoreset`` (kernel F for 1 mover, kernel H for 2-8), and
+``make_fused_step_autoreset`` (kernel F for 1 mover, kernel H for 2 to 64), and
 the plane-form rollout ``make_fused_rollout`` (1 mover: kernel F per step or
 kernel G over chunks of K steps; M movers: kernel H per step), and the
 policy-in-the-loop ``make_reactive_rollout`` (1 mover, kernel F per step;
@@ -26,9 +26,10 @@ Differences from the JAX package, by design:
 - ``make_planning_env`` and the numpy converters put their tensors on the
   card unless the caller passes ``device='cpu'`` (no fallback without a GPU).
 
-Not ported yet (``NotImplementedError``, see ``ROADMAP.md``): more than 8
-movers on the fused paths (kernel H's instantiations).  The fused paths run
-in f32 (the eager step takes f64), as in the JAX package.
+The fused paths run in f32 (the eager step takes f64), as in the JAX
+package, and take up to ``planning_multi.MAX_MOVERS`` (64) movers, the most
+kernel H lays over a group of lanes (more raise ``NotImplementedError``; the
+eager step takes any number).
 ``make_fused_step`` and ``make_reactive_rollout`` cover 1 mover, as in the
 JAX package (``pallas_step.supports``).
 
@@ -557,7 +558,7 @@ def make_fused_step(config: PlanningConfig, params: PlanningParams):
 
 def make_fused_step_autoreset(config: PlanningConfig, params: PlanningParams, cand_k: int = 16):
     """Fused planning step + episode restart in one launch of kernel F (1
-    mover) or kernel H (2-8 movers): cycles, termination, start/goal
+    mover) or kernel H (2 to 64 movers): cycles, termination, start/goal
     resampling with ``cand_k`` candidates (sets of M positions) each, both
     observations; sparse or dense reward from the pre-reset observation.  A
     stalled restart leaves the env un-reset and reports

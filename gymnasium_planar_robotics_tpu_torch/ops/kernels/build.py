@@ -143,11 +143,11 @@ def lib() -> ctypes.CDLL:
         handle.gprt_planning_rollout.restype = i32
         handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p,
                                                  p]
-        # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, box, full, jerk, num_cycles, cand_k,
-        #  seed, seed_dev, stream)
+        # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, lanes, slots, box, full, jerk,
+        #  num_cycles, cand_k, seed, seed_dev, stream); multi_consts in device memory
         handle.gprt_planning_multi_autoreset.restype = i32
         handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, i32, i32, i32, i32, i32, i32, i32,
-                                                         u64, p, p]
+                                                         i32, i32, u64, p, p]
         # (x, out, n, k, transc, stream); chains per thread of each probe
         handle.gprt_peak.restype = i32
         handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]
@@ -157,11 +157,12 @@ def lib() -> ctypes.CDLL:
         handle.gprt_split_layout.argtypes = []
         handle.gprt_multi_const_names.restype = ctypes.c_char_p
         handle.gprt_multi_const_names.argtypes = []
-        # field names of gprt::Consts and gprt::PlanningConsts, in order; (name, length) of gprt::MultiConsts
+        # field names of gprt::Consts and gprt::PlanningConsts, in order; (name, length rule) of kernel H's
+        # constants vector
         handle.const_names = tuple(handle.gprt_const_names().decode().rstrip(',').split(','))
         handle.planning_const_names = tuple(handle.gprt_planning_const_names().decode().rstrip(',').split(','))
-        handle.multi_const_fields = tuple((name, int(n)) for name, n in (
-            f.split(':') for f in handle.gprt_multi_const_names().decode().rstrip(',').split(',')))
+        handle.multi_const_fields = tuple(tuple(f.split(':')) for f in
+                                          handle.gprt_multi_const_names().decode().rstrip(',').split(','))
         _lib = handle
     return _lib
 

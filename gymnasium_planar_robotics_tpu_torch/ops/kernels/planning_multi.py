@@ -15,6 +15,8 @@ x/y), then the step counter; actions as ``[2M, B]``.  The kernel writes
 goal, activation), wall, mover, unreached goals, stalled, trials.  The plain
 version does the kernel's arithmetic with the same operand order, one
 rounding per operation, in the same draw order over a given uniform tensor.
+Any M from 2 to ``MAX_MOVERS`` runs; on the card the wrapper lays each env
+over a group of G lanes with L mover slots each (``lane_layout``).
 """
 
 from __future__ import annotations
@@ -29,16 +31,71 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, planning, to_
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain, scalar, sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
 
-MAX_MOVERS = 8  # kMaxMovers in csrc/planning_multi.cuh: kernel H is instantiated for M = 2 ... 8
-MAX_PAIRS = MAX_MOVERS * (MAX_MOVERS - 1) // 2
+MAX_MOVERS = 64  # kMaxMovers in csrc/planning_multi.cuh (a block's shared memory)
 
-#: (name, length) of the fields of ``gprt::MultiConsts`` in ``csrc/planning_multi.cuh``
+#: (name, length rule) of the constants vector in ``csrc/planning_multi.cuh``
+#: (``GPRT_MULTI_FIELDS``): ``m`` one value per mover, ``pairs`` one per pair
+#: (i, j), i < j, in row order, ``1`` a scalar
 MULTI_FIELDS = (
-    ('c_wall_x', MAX_MOVERS), ('c_wall_y', MAX_MOVERS), ('c_sample_x', MAX_MOVERS), ('c_sample_y', MAX_MOVERS),
-    ('c_sample_pair_x', MAX_MOVERS), ('c_sample_pair_y', MAX_MOVERS), ('c_pair_x', MAX_MOVERS),
-    ('c_pair_y', MAX_MOVERS), ('accel_scale', MAX_MOVERS), ('pair_sum', MAX_PAIRS), ('sample_pair_sum_x', MAX_PAIRS),
-    ('sample_pair_sum_y', MAX_PAIRS), ('min_goal_dist', 1),
+    ('c_wall_x', 'm'), ('c_wall_y', 'm'), ('c_sample_x', 'm'), ('c_sample_y', 'm'), ('c_sample_pair_x', 'm'),
+    ('c_sample_pair_y', 'm'), ('c_pair_x', 'm'), ('c_pair_y', 'm'), ('accel_scale', 'm'), ('pair_sum', 'pairs'),
+    ('sample_pair_sum_x', 'pairs'), ('sample_pair_sum_y', 'pairs'), ('min_goal_dist', '1'),
 )
+
+LANES = (1, 2, 4, 8, 16, 32)  # the G a lane group may have
+SLOTS = (1, 2)  # the L the kernel is instantiated for: 32 lanes x 2 slots hold MAX_MOVERS
+
+#: Kernel H's lane layout, (G lanes an env, L mover slots a lane), by the
+#: movers' row (the smallest key >= M, ``table_row``) and the width: row ->
+#: ((G, L) up to ``WIDE_BATCH`` envs, (G, L) above).  The fastest layouts of
+#: ``chip_smoke.py``'s kernel H phase (``tools/rollout_rates.
+#: kernel_h_layouts``) at 2, 4, 8 and 12 movers and 4096 and 65,536 envs: at
+#: 4096 envs more lanes than movers win (the lanes without a mover draw), at
+#: 65,536 few lanes up to 8 movers and all 32 at 12.  ``WIDE_BATCH``: at
+#: 8192 envs the narrow layout was the faster of the two at 2, 4 and 8
+#: movers, at 16,384 the wide one (at 4 movers 1.4% slower: a tie) (PERF.md
+#: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed; above 32
+#: movers (32, 2) is the only layout.
+WIDE_BATCH = 8192
+LANE_TABLE = {
+    2: ((8, 1), (1, 2)),
+    4: ((8, 1), (2, 2)),
+    8: ((16, 1), (4, 2)),
+    32: ((32, 1), (32, 1)),
+    64: ((32, 2), (32, 2)),
+}
+
+
+def table_row(m: int) -> int:
+    """The key of ``LANE_TABLE`` whose row holds M movers: the smallest key
+    >= M."""
+    return min(k for k in LANE_TABLE if k >= m)
+
+
+def check_movers(m: int) -> None:
+    if not 2 <= m <= MAX_MOVERS:
+        raise NotImplementedError(f'kernel H takes 2 to {MAX_MOVERS} movers (the shared memory of a block), got {m} '
+                                  f'(ROADMAP.md)')
+
+
+def layouts(m: int) -> tuple:
+    """Every (G, L) kernel H can run M movers on: for each G in ``LANES``
+    the fewest slots ``L`` in ``SLOTS`` with G * L >= M (where one exists);
+    with G > M the lanes beyond M own no mover but draw."""
+    check_movers(m)
+    return tuple((g, min(n for n in SLOTS if g * n >= m)) for g in LANES if g * SLOTS[-1] >= m)
+
+
+def lane_layout(m: int, b: int) -> tuple:
+    """The (G, L) the wrapper launches for M movers at B envs
+    (``LANE_TABLE``)."""
+    check_movers(m)
+    narrow, wide = LANE_TABLE[table_row(m)]
+    return wide if b > WIDE_BATCH else narrow
+
+
+def field_length(rule: str, m: int) -> int:
+    return {'m': m, 'pairs': m * (m - 1) // 2, '1': 1}[rule]
 
 
 def n_multi_state(m: int) -> int:
@@ -76,13 +133,21 @@ class MultiConsts:
     """Everything a kernel H launch needs besides its tensors: ``base`` the
     fields shared with kernels E-G (grid rule, dynamics, noise, sampling
     bounds), ``f`` each ``MULTI_FIELDS`` name's f32 values (Python floats,
-    the first ``M`` or the first ``M(M-1)/2``), ``vector`` the bytes of
-    ``gprt::MultiConsts``."""
+    ``M``, ``M(M-1)/2`` or one), ``vector`` the same in field order, the
+    constants vector kernel H reads from device memory."""
 
     base: planning.KernelConsts
     m: int
     f: dict
     vector: np.ndarray
+    _vectors: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def vector_on(self, device: torch.device) -> torch.Tensor:
+        """``vector`` on ``device``, made once (``make_multi_kernel_consts``
+        makes it on the params' card, so no step copies it)."""
+        if device not in self._vectors:
+            self._vectors[device] = torch.from_numpy(self.vector).to(device)
+        return self._vectors[device]
 
 
 def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
@@ -91,8 +156,7 @@ def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
     c_sample = c + offset + offset_wall, c_sample_pair = c + offset, c_pair =
     c and the per-pair sums, formed in float64 and rounded once to f32."""
     m = config.num_movers
-    if not 2 <= m <= MAX_MOVERS:
-        raise NotImplementedError(f'kernel H is instantiated for 2 to {MAX_MOVERS} movers, got {m} (ROADMAP.md)')
+    check_movers(m)
     if config.collision_shape not in ('circle', 'box') or to_numpy(params.v_max).dtype != np.float32:
         raise NotImplementedError('the fused planning kernels run in f32; f64 params step through the eager step')
     box = config.collision_shape == 'box'
@@ -123,14 +187,15 @@ def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
     v['sample_pair_sum_x'] = [c_sample_pair[i][0] + c_sample_pair[j][0] for i, j in pairs(m)]
     v['sample_pair_sum_y'] = [c_sample_pair[i][1] + c_sample_pair[j][1] for i, j in pairs(m)]
     v['min_goal_dist'] = [float(to_numpy(params.min_goal_dist))]
-    rows = []
-    for name, length in MULTI_FIELDS:
-        vals = np.zeros(length, np.float32)
-        vals[: len(v[name])] = v[name]
-        rows.append(vals)
-    f = {name: [float(x) for x in np.asarray(v[name], np.float32)] for name, _ in MULTI_FIELDS}
-    return MultiConsts(base=planning.shared_consts(config, params, cand_k), m=m, f=f,
-                       vector=np.concatenate(rows).astype(np.float32))
+    rows = [np.asarray(v[name], np.float32) for name, _ in MULTI_FIELDS]
+    assert [len(r) for r in rows] == [field_length(rule, m) for _, rule in MULTI_FIELDS]
+    f = {name: [float(x) for x in row] for (name, _), row in zip(MULTI_FIELDS, rows)}
+    mc = MultiConsts(base=planning.shared_consts(config, params, cand_k), m=m, f=f, vector=np.concatenate(rows))
+    device = params.v_max.device
+    if device.type == 'cuda':  # the step's constants and wall table on its card, made now
+        mc.vector_on(device)
+        mc.base.table_on(device)
+    return mc
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +245,9 @@ def rects_intersect_ident(tx, ty, ha, hb, sums):
 
 
 def _cycles_plain(mc: MultiConsts, noise: UniformStream, P, V, A, U):
-    """The cycle loop: returns the new P, V, A plane lists and the wall and
-    mover flags."""
+    """The cycle loop: returns the new P, V, A plane lists, the wall and
+    mover flags and the cycles each env ran up to its latch (the kernel
+    leaves the loop there)."""
     kc, mf, m = mc.base, mc.f, mc.m
     f = kc.f
     dt, std_pos, std_vel = f['dt'], f['std_pos'], f['std_vel']
@@ -189,8 +255,10 @@ def _cycles_plain(mc: MultiConsts, noise: UniformStream, P, V, A, U):
     done_f = torch.zeros_like(P[0])
     wall_f = torch.zeros_like(P[0])
     mover_f = torch.zeros_like(P[0])
+    ran = torch.zeros_like(P[0])
     for _ in range(kc.num_cycles):
         done = done_f > 0.0
+        ran = ran + torch.where(done, 0.0, 1.0)
         nP, nV, nA = [None] * (2 * m), [None] * (2 * m), [None] * (2 * m)
         for i in range(m):
             x, y, s = 2 * i, 2 * i + 1, mf['accel_scale'][i]
@@ -229,7 +297,7 @@ def _cycles_plain(mc: MultiConsts, noise: UniformStream, P, V, A, U):
         wall_f = torch.where(done, wall_f, torch.where(new_wall, 1.0, 0.0))
         mover_f = torch.where(done, mover_f, torch.where(new_mover, 1.0, 0.0))
         done_f = torch.maximum(done_f, torch.maximum(wall_f, mover_f))
-    return P, V, A, wall_f, mover_f
+    return P, V, A, wall_f, mover_f, ran
 
 
 def _sample_set_plain(mc: MultiConsts, noise: UniformStream, goal: bool):
@@ -276,7 +344,7 @@ def _autoreset_step_plain(mc: MultiConsts, noise: UniformStream, st, U):
     std_pos, std_vel = f['std_pos'], f['std_vel']
     P, V, A, G = (list(st[k * 2 * m:(k + 1) * 2 * m]) for k in range(4))
     steps = st[8 * m]
-    P, V, A, wall_f, mover_f = _cycles_plain(mc, noise, P, V, A, U)
+    P, V, A, wall_f, mover_f, _ = _cycles_plain(mc, noise, P, V, A, U)
     f_A = list(A)
 
     f_ag, f_v = [], []
@@ -327,6 +395,15 @@ def planning_multi_autoreset_plain(state: torch.Tensor, action: torch.Tensor, mc
     return torch.stack(out)
 
 
+def cycles_run_plain(state: torch.Tensor, action: torch.Tensor, mc: MultiConsts,
+                     uniforms: torch.Tensor) -> torch.Tensor:
+    """``[B]``: the control cycles each env of a kernel H step runs, up to
+    and including the one that latches it (the work its data needs)."""
+    m = mc.m
+    P, V, A = (list(state[k * 2 * m:(k + 1) * 2 * m]) for k in range(3))
+    return _cycles_plain(mc, UniformStream(uniforms), P, V, A, list(action))[5]
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch and dispatch
 # ---------------------------------------------------------------------------
@@ -338,22 +415,23 @@ def _noise_planes(mc: MultiConsts) -> int:
 
 def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None,
                                   seed: int | torch.Tensor = 0) -> torch.Tensor:
-    """Kernel H on the card."""
+    """Kernel H on the card, in the lane layout ``lane_layout(M, B)``."""
     b, m = state.shape[1], mc.m
     kernels.check_plane(state, 'state', (n_multi_state(m), b))
     kernels.check_plane(action, 'action', (2 * m, b))
     noise_ptr = kernels.noise_ptr(uniforms, _noise_planes(mc), b, state.device)
     fields = build.lib().multi_const_fields
     if fields != MULTI_FIELDS:
-        raise RuntimeError(f'gprt::MultiConsts fields differ from MULTI_FIELDS: {fields}')
+        raise RuntimeError(f'the constants fields of planning_multi.cuh differ from MULTI_FIELDS: {fields}')
+    lanes, slots = lane_layout(m, b)
     kc = mc.base
     args = planning.launch_args(kc, state.device)
     out = torch.empty((n_multi_out(m), b), dtype=torch.float32, device=state.device)
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_multi_autoreset(
-            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, args[0], mc.vector.ctypes.data,
-            args[1], args[2], m, *args[3:], kc.cand_k, *kernels.seed_args(seed, state.device),
-            kernels.stream_ptr(out),
+            state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, args[0],
+            mc.vector_on(state.device).data_ptr(), args[1], args[2], m, lanes, slots, *args[3:], kc.cand_k,
+            *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
         )
     build.check(err, 'planning_multi_autoreset')
     kernels.LAUNCHES['planning_multi_autoreset'] += 1

@@ -1,15 +1,28 @@
-"""Pushing's fused rollout rates on the card, in env-steps/s.
+"""Fused rollout rates on the card, in env-steps/s, and kernel H's launch time.
 
-Times ``pushing.make_fused_rollout`` over 64 steps at K = 1 (kernel C once
-a step) and K = 32 (kernel D), at 4096 and 65,536 envs, as
-``chip_smoke.py``'s ``rollout_rate`` phase does, ``--repeats`` times each,
-and prints one JSON line: every repeat's rate, their median and their spread
-((max - min) / median) and the host's time to enqueue each rollout, with the
-card's name and power limit.  With ``--profile`` each cell also runs one
-rollout under ``torch.profiler`` and reports the card's busy time in it and
-each kernel's device ms per launch.  Each width also reports kernel C alone
-(``launch_cost``): the host's time to enqueue a launch and the card's time
-per launch back to back.
+Pushing (``--family pushing``): times ``pushing.make_fused_rollout`` over 64
+steps at K = 1 (kernel C once a step) and K = 32 (kernel D), at 4096 and
+65,536 envs, as ``chip_smoke.py``'s ``rollout_rate`` phase does.  With
+``--profile`` each cell also runs one rollout under ``torch.profiler`` and
+reports the card's busy time in it and each kernel's device ms per launch.
+Each width also reports kernel C alone (``launch_cost``): the host's time to
+enqueue a launch and the card's time per launch back to back.
+
+M-mover planning (``--family multi``): ``planning.make_fused_rollout`` of
+the M-mover main configuration (4x4 table, 4 movers, circle; bench.py:401)
+over 64 steps at K = 1 (kernel H once a step), at 4096 and 65,536 envs; and
+kernel H's device ms per launch at 2, 4, 8 and 12 movers (3x3, 4x4, 6x6
+and 8x8 tables) at both widths, on a state eight random steps
+into a rollout, in the layout the tree's wrapper picks (a tree that does
+not take M movers reports the error), and at 4 movers also without the
+control cycles.  ``--family layouts``: the same launches in every lane
+layout (G, L) kernel H takes, the table the wrapper's ``LANE_TABLE`` is
+read from (``--movers`` and ``--widths`` narrow it, e.g. to the widths
+around ``WIDE_BATCH``).
+
+Every cell runs ``--repeats`` times and reports every repeat, their median
+and their spread ((max - min) / median), and the host's time to enqueue each
+rollout, with the card's name and power limit in the JSON line printed.
 
 It imports the package from wherever Python finds it, so two trees can be
 compared on one card by running this file with each tree on ``PYTHONPATH``
@@ -116,11 +129,132 @@ def rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> dict:
     return out
 
 
+MULTI_M = 4  # the M-mover main configuration (bench.py:401): 4x4 table, circle r=0.11, cand_k=16
+MULTI_TABLES = {2: 3, 4: 4, 8: 6, 12: 8}  # movers -> side of the full square table kernel H is timed on
+
+
+def multi_rollout_state(m: int, b: int, seed: int, device: str = 'cuda:0', steps: int = 8):
+    """(config, params, state) of M movers on their ``MULTI_TABLES`` table:
+    ``init_batch``, then ``steps`` fused autoreset steps of uniform random
+    actions in [-10, 10], so the envs are mid-episode as kernel H finds them
+    on the rollout path (some moving fast, some about to collide)."""
+    import numpy as np
+
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+
+    side = MULTI_TABLES[m]
+    cfg, prm = planning.make_planning_env(np.ones((side, side)), m, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, _, _ = planning.init_batch(cfg, prm, b, g)
+    step = planning.make_fused_step_autoreset(cfg, prm)
+    for _ in range(steps):
+        state = step(state, (torch.rand((b, m, 2), generator=g, device=device) * 2 - 1) * 10.0, generator=g)[0]
+    return cfg, prm, state
+
+
+def kernel_h_ms(m: int, b: int, device: str = 'cuda:0', launches: int = 100, num_cycles: int | None = None) -> dict:
+    """Kernel H's device ms per launch (Philox, seed 7) at M movers and B
+    envs on ``multi_rollout_state``, back to back, in the wrapper's layout;
+    ``num_cycles`` overrides the env's control cycles (0: the observations
+    and the restart alone)."""
+    import dataclasses
+
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
+
+    try:
+        cfg, prm, state = multi_rollout_state(m, b, 3, device)
+        mc = kmulti.make_multi_kernel_consts(cfg, prm)
+    except NotImplementedError as exc:
+        return {'error': str(exc)}
+    if num_cycles is not None:
+        mc = dataclasses.replace(mc, base=dataclasses.replace(mc.base, num_cycles=num_cycles))
+    st = planning.state_to_planes(cfg, state)
+    act = ((torch.rand((2 * m, b), generator=torch.Generator(device=device).manual_seed(4), device=device) * 2 - 1)
+           * 10.0)
+    ms, _ = time_ms(lambda: kmulti.planning_multi_autoreset_cuda(st, act, mc, None, 7), launches)
+    layout = getattr(kmulti, 'lane_layout', None)
+    return {'device_ms_per_launch': ms, 'lanes': None if layout is None else list(layout(m, b))}
+
+
+class forced_layout:
+    """Within the block, kernel H launches M movers in ``layout`` (G, L)
+    whatever the width (``planning_multi.LANE_TABLE`` patched)."""
+
+    def __init__(self, m: int, layout: tuple):
+        from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
+
+        self.table, self.row, self.layout = kmulti.LANE_TABLE, kmulti.table_row(m), tuple(layout)
+
+    def __enter__(self):
+        self.saved = self.table[self.row]
+        self.table[self.row] = (self.layout, self.layout)
+
+    def __exit__(self, *exc):
+        self.table[self.row] = self.saved
+
+
+def kernel_h_layouts(movers=tuple(MULTI_TABLES), widths=WIDTHS, device: str = 'cuda:0', launches: int = 100) -> dict:
+    """Kernel H's device ms per launch at each M and width in every lane
+    layout (G, L) it takes for M (``planning_multi.layouts``), on
+    ``multi_rollout_state``: the table ``LANE_TABLE`` is read from."""
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
+
+    out = {}
+    for m in movers:
+        for b in widths:
+            cfg, prm, state = multi_rollout_state(m, b, 30 + m, device)
+            mc = kmulti.make_multi_kernel_consts(cfg, prm)
+            st = planning.state_to_planes(cfg, state)
+            act = ((torch.rand((2 * m, b), generator=torch.Generator(device=device).manual_seed(4), device=device)
+                    * 2 - 1) * 10.0)
+            times = {}
+            for layout in kmulti.layouts(m):
+                with forced_layout(m, layout):
+                    times['G={},L={}'.format(*layout)] = time_ms(
+                        lambda: kmulti.planning_multi_autoreset_cuda(st, act, mc, None, 7), launches)[0]
+            picked = 'G={},L={}'.format(*kmulti.lane_layout(m, b))
+            out[f'M={m},B={b}'] = {'ms': times, 'fastest': min(times, key=times.get), 'wrapper': picked,
+                                   'wrapper_over_fastest': times[picked] / min(times.values())}
+    return out
+
+
+def multi_rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> dict:
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+
+    out = {}
+    for b in WIDTHS:
+        cfg, prm, state = multi_rollout_state(MULTI_M, b, 2, device, steps=0)
+        g = torch.Generator(device=device).manual_seed(5)
+        acts = (torch.rand((T_ROLL, b, MULTI_M, 2), generator=g, device=device) * 2 - 1) * 10.0
+        roll = planning.make_fused_rollout(cfg, prm)
+        timings = [time_ms(lambda: roll(state, acts, 3), 3) for _ in range(repeats)]
+        runs = [b * T_ROLL / (ms / 1e3) for ms, _ in timings]
+        med = statistics.median(runs)
+        cell = {'env_steps_per_s': runs, 'median': med, 'spread': (max(runs) - min(runs)) / med,
+                'host_ms_per_rollout': [host for _, host in timings]}
+        if profile:
+            cell['profile'] = device_profile(lambda: roll(state, acts, 3))
+        out[f'B={b},M={MULTI_M},K=1'] = cell
+        for m in MULTI_TABLES:
+            out[f'B={b},kernel_H,M={m}'] = kernel_h_ms(m, b, device)
+        # the main configuration without its control cycles: what the
+        # observations and the restarts take of a launch
+        out[f'B={b},kernel_H_no_cycles,M={MULTI_M}'] = kernel_h_ms(MULTI_M, b, device, num_cycles=0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--label', default='')
     ap.add_argument('--repeats', type=int, default=5)
     ap.add_argument('--profile', action='store_true', help='also trace one rollout per cell')
+    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'all'), default='all',
+                    help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them)")
+    ap.add_argument('--movers', default=','.join(map(str, MULTI_TABLES)),
+                    help="'layouts': comma-separated mover counts (keys of MULTI_TABLES)")
+    ap.add_argument('--widths', default=','.join(map(str, WIDTHS)), help="'layouts': comma-separated env counts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device')
@@ -129,8 +263,15 @@ def main() -> int:
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                           capture_output=True, text=True).stdout.strip()
-    print(json.dumps({'label': args.label, 'package': pkg.__file__, 'card': card, 'T': T_ROLL,
-                      'rates': rates(args.repeats, args.profile)}))
+    out = {'label': args.label, 'package': pkg.__file__, 'card': card, 'T': T_ROLL}
+    if args.family in ('pushing', 'all'):
+        out['rates'] = rates(args.repeats, args.profile)
+    if args.family in ('multi', 'all'):
+        out['multi'] = multi_rates(args.repeats, args.profile)
+    if args.family in ('layouts', 'all'):
+        out['layouts'] = kernel_h_layouts(tuple(int(m) for m in args.movers.split(',')),
+                                          tuple(int(b) for b in args.widths.split(',')))
+    print(json.dumps(out))
     return 0
 
 

@@ -97,15 +97,21 @@ def planning_cycle_ops(box: bool, full: bool, jerk: bool) -> list:
     return terms
 
 
-def multi_env_terms(m: int, num_cycles: int, box: bool, full: bool, jerk: bool) -> list:
-    """(count, name) terms of one kernel H step of one env, restarts aside:
-    M movers' cycles, the pair tests, the observations."""
+def multi_cycle_terms(m: int, box: bool, full: bool, jerk: bool) -> list:
+    """(count, name) terms of one kernel H control cycle of one env: M
+    movers' cycles with their pair-test poses, and the M(M-1)/2 pair tests
+    (the same work whatever lane layout runs it)."""
     mover = planning_cycle_ops(box, full, jerk) + [(1, 'multi_pair_pose')]
     if box:
         mover.append((1, 'multi_pair_pose_box_extra'))
-    pairs = (m * (m - 1) // 2, 'multi_pair_box' if box else 'multi_pair_circle')
-    per_cycle = [(m * n, nm) for n, nm in mover] + [pairs]
-    return [(num_cycles * n, nm) for n, nm in per_cycle] + [(m, 'multi_step_mover'), (1, 'multi_step_env')]
+    return [(m * n, nm) for n, nm in mover] + [(m * (m - 1) // 2, 'multi_pair_box' if box else 'multi_pair_circle')]
+
+
+def multi_env_terms(m: int, num_cycles: int, box: bool, full: bool, jerk: bool) -> list:
+    """(count, name) terms of one kernel H step of one env that runs
+    ``num_cycles`` cycles, restarts aside: the cycles, the observations."""
+    return ([(num_cycles * n, nm) for n, nm in multi_cycle_terms(m, box, full, jerk)]
+            + [(m, 'multi_step_mover'), (1, 'multi_step_env')])
 
 
 def rollout_costs(num_cycles: int = 40, k: int = 32, movers: int = 4, cand_k: int = 32) -> dict:

@@ -5,7 +5,8 @@ The plain version of kernel H is held against the JAX package's Pallas
 ``_planning_multi_autoreset_kernel`` (interpret mode, injected uniforms,
 ``cand_k=2``, 4 cycles, 200 envs) over all ``18M + 6`` output planes, for
 circle and box collision shapes on full and holed layouts, acc and jerk
-actuation, per-mover sizes, M = 2 and 3, and per-mover ``accel_scale``.
+actuation, per-mover sizes, M = 2 and 3, and per-mover ``accel_scale``; and
+at M = 9 (circle and box on the full 6x6 table, 3 cycles, 64 envs).
 Planted states make wall hits, head-on mover collisions and truncation
 restarts fire in every case.  The CUDA kernel is held against the plain
 version on the card in ``test_torch_planning_multi_kernels_gpu.py``.
@@ -27,7 +28,7 @@ from gymnasium_planar_robotics_tpu_torch.models import planning as tplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
 from test_torch_planning_params import _find_partial_kw
-from torch_planning_multi_cases import CASES, actions, make_env, planted_state
+from torch_planning_multi_cases import CASES, actions, make_env, plant_accepted_sets, planted_state
 
 PKG = Path(__file__).resolve().parents[1] / 'gymnasium_planar_robotics_tpu_torch'
 # ulp-level, as for kernel F; planes downstream of the clamp chain's
@@ -66,18 +67,22 @@ def jax_planes(out) -> np.ndarray:
     return np.stack(planes)
 
 
-@pytest.mark.parametrize('name', [n for n in CASES if CASES[n][1] <= 3])
-def test_plain_kernel_h_matches_pallas_plane_by_plane(name):
-    jcfg, jprm = jax_env(name)
-    tcfg, tprm = make_env(name, **KW)
-    m, b = tcfg.num_movers, 200
+def check_plain_against_pallas(name, b, cand_k, plant=False, **kw):
+    """The plain kernel H against the Pallas kernel (interpret mode, the
+    same injected uniforms) over all 18M + 6 planes; with ``plant`` every
+    other env accepts its second start and goal sets."""
+    jcfg, jprm = jax_env(name, **kw)
+    tcfg, tprm = make_env(name, **dict(KW, **kw))
+    m = tcfg.num_movers
     state = planted_state(name, tcfg, tprm, b, seed=1)
     act = actions(tcfg, b, seed=2)
-    mc = kmulti.make_multi_kernel_consts(tcfg, tprm, CAND_K)
-    n = kmulti.multi_noise_planes(tcfg.num_cycles, m, CAND_K, mc.base.box)
+    mc = kmulti.make_multi_kernel_consts(tcfg, tprm, cand_k)
+    n = kmulti.multi_noise_planes(tcfg.num_cycles, m, cand_k, mc.base.box)
     u = np.random.default_rng(3).random((n, b), dtype=np.float32)
+    if plant:
+        plant_accepted_sets(u, name, tcfg, tprm, cand_k, np.arange(0, b, 2))
 
-    fused = pallas_step.make_fused_planning_multi_autoreset_cycles(jcfg, jprm, interpret=True, cand_k=CAND_K,
+    fused = pallas_step.make_fused_planning_multi_autoreset_cycles(jcfg, jprm, interpret=True, cand_k=cand_k,
                                                                   inject_noise=True)
     assert fused.noise_planes == n
     d = tplan.state_to_numpy(state)
@@ -99,6 +104,24 @@ def test_plain_kernel_h_matches_pallas_plane_by_plane(name):
     restarted = (got[8 * m] == 0) & (d['steps'] > 0)
     assert got[18 * m + 1].sum() > 0 and got[18 * m + 2].sum() > 0 and restarted.sum() > 0
     assert (got[8 * m] > 0).any()
+    return got
+
+
+@pytest.mark.parametrize('name', [n for n in CASES if CASES[n][1] <= 3])
+def test_plain_kernel_h_matches_pallas_plane_by_plane(name):
+    check_plain_against_pallas(name, 200, CAND_K)
+
+
+@pytest.mark.parametrize('name, cycles', [('circle_full_acc_m9', 3), ('box_full_jerk_m9', 2)])
+def test_plain_kernel_h_matches_pallas_at_nine_movers(name, cycles):
+    """More movers than one thread per env was instantiated for: 9 on the
+    full 6x6 table (per-mover radii; per-mover box sizes with per-mover
+    accel_scale, jerk), 64 envs; restarts accept a planted second set, and a
+    stalled restart (all sets rejected) reports 2 cand_k trials."""
+    got = check_plain_against_pallas(name, 64, CAND_K, plant=True, num_cycles=cycles)
+    m = 9
+    stalled = got[18 * m + 4] > 0
+    assert stalled.any() and (got[18 * m + 5][stalled] == 2 * CAND_K).all()
 
 
 @pytest.mark.parametrize('name', ['circle_full_acc_m3', 'box_full_jerk_m2', 'circle_full_scaled_m2'])
@@ -115,15 +138,15 @@ def test_multi_constants_match_pallas(name):
     f32 = walls.f32
     for size in ('c_wall', 'c_sample', 'c_sample_pair', 'c_pair'):
         want = [s if isinstance(s, tuple) else (s, s) for s in rc[size]]
-        assert mc.f[size + '_x'][:m] == [f32(s[0]) for s in want], size
-        assert mc.f[size + '_y'][:m] == [f32(s[1]) for s in want], size
+        assert mc.f[size + '_x'] == [f32(s[0]) for s in want], size
+        assert mc.f[size + '_y'] == [f32(s[1]) for s in want], size
     sizes = [s if isinstance(s, tuple) else (s, s) for s in rc['c_sample_pair']]
     pairs = kmulti.pairs(m)
-    assert mc.f['sample_pair_sum_x'][:len(pairs)] == [f32(sizes[i][0] + sizes[j][0]) for i, j in pairs]
-    assert mc.f['sample_pair_sum_y'][:len(pairs)] == [f32(sizes[i][1] + sizes[j][1]) for i, j in pairs]
+    assert mc.f['sample_pair_sum_x'] == [f32(sizes[i][0] + sizes[j][0]) for i, j in pairs]
+    assert mc.f['sample_pair_sum_y'] == [f32(sizes[i][1] + sizes[j][1]) for i, j in pairs]
     if not kw['box']:
-        assert mc.f['pair_sum'][:len(pairs)] == [f32(rc['c_pair'][i] + rc['c_pair'][j]) for i, j in pairs]
-    assert mc.f['accel_scale'][:m] == kw['accel_scale']
+        assert mc.f['pair_sum'] == [f32(rc['c_pair'][i] + rc['c_pair'][j]) for i, j in pairs]
+    assert mc.f['accel_scale'] == kw['accel_scale']
     assert mc.f['min_goal_dist'] == [f32(rc['min_goal_dist'])]
     base = mc.base.f
     for k in ('threshold', 'max_episode_steps', 'min_x', 'min_y'):
@@ -133,17 +156,42 @@ def test_multi_constants_match_pallas(name):
         assert base[k] == f32(kw[k]), k
     assert (mc.base.num_cycles, mc.base.cand_k, mc.base.learn_jerk, mc.base.box) == (
         kw['num_cycles'], rc['cand_k'], kw['learn_jerk'], kw['box'])
-    assert mc.vector.dtype == np.float32 and mc.vector.shape == (sum(n for _, n in kmulti.MULTI_FIELDS),)
+    assert mc.vector.dtype == np.float32 and mc.vector.shape == (
+        sum(kmulti.field_length(rule, m) for _, rule in kmulti.MULTI_FIELDS),)
     for cand_k in (2, 16):
         assert kmulti.multi_noise_planes(jcfg.num_cycles, m, cand_k, kw['box']) == \
             pallas_step._planning_multi_autoreset_noise_planes(jcfg.num_cycles, m, cand_k, kw['box'])
 
 
+@pytest.mark.parametrize('b', [1, 4096, kmulti.WIDE_BATCH, kmulti.WIDE_BATCH + 1, 65536])
+def test_lane_layout_covers_the_movers(b):
+    """The wrapper's (G, L) for every M it takes and width B: G lanes (a
+    power of two up to 32) with L slots each (an instantiated L) hold all M
+    movers, and it is one of the layouts the kernel is held to on the card;
+    beyond ``MAX_MOVERS`` (and below 2) it raises, naming the bound."""
+    for m in range(2, kmulti.MAX_MOVERS + 1):
+        g, n = kmulti.lane_layout(m, b)
+        assert g * n >= m and g in kmulti.LANES and n in kmulti.SLOTS, (m, g, n)
+        assert (g, n) in kmulti.layouts(m)
+        assert all(lg * ln >= m and (ln == kmulti.SLOTS[0] or lg * kmulti.SLOTS[kmulti.SLOTS.index(ln) - 1] < m)
+                   for lg, ln in kmulti.layouts(m))
+    for m in (1, kmulti.MAX_MOVERS + 1, 4 * kmulti.MAX_MOVERS):
+        with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers'):
+            kmulti.lane_layout(m, b)
+
+
 def test_multi_fields_match_cuda_struct():
-    """The constants vector's (name, length) order is the X-macro order of
-    gprt::MultiConsts in csrc/planning_multi.cuh, and its lengths are
-    kMaxMovers and its pair count."""
+    """The constants vector's (name, length rule) order is the X-macro order
+    of GPRT_MULTI_FIELDS in csrc/planning_multi.cuh, each rule gives the
+    C side's length (the GPRT_MULTI_LEN_* macros) for any M, and the two
+    sides name the same most movers."""
     src = (PKG / 'csrc' / 'planning_multi.cuh').read_text()
     block = src.split('#define GPRT_MULTI_FIELDS(X)')[1].split('#define')[0]
-    assert tuple((n, int(k)) for n, k in re.findall(r'X\((\w+), (\d+)\)', block)) == kmulti.MULTI_FIELDS
+    assert tuple(re.findall(r'X\((\w+), (\w+)\)', block)) == kmulti.MULTI_FIELDS
+    lens = dict(re.findall(r'#define GPRT_MULTI_LEN_(\w+)\(m, pairs\) \(?(\w+)\)?', src))
+    assert lens == {'m': 'm', 'pairs': 'pairs', '1': '1'}
+    for m in (2, 9, 33, kmulti.MAX_MOVERS):
+        names = {'m': m, 'pairs': m * (m - 1) // 2, '1': 1}
+        assert [kmulti.field_length(rule, m) for _, rule in kmulti.MULTI_FIELDS] == [
+            names[lens[rule]] for _, rule in kmulti.MULTI_FIELDS]
     assert f'kMaxMovers = {kmulti.MAX_MOVERS};' in src

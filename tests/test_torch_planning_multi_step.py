@@ -4,7 +4,8 @@
   CPU tensors) against the JAX package's (Pallas in interpret mode, the same
   injected uniforms) over three steps from the same planted states, sparse
   (per-mover radii, holed layout, one restart stalled by construction) and
-  dense (per-mover box sizes), 200 envs (not a multiple of 128).
+  dense (per-mover box sizes), 200 envs (not a multiple of 128); and at 9
+  movers (the full 6x6 table, 64 envs, planted accepted restarts).
 - ``reset`` acceptance against the JAX package's: candidate sets with pairs
   at the summed sizes +-1e-6 and goals at ``min_goal_dist`` +-1e-6 go
   through both packages' overrides at ``std_noise=0`` (circle, and box
@@ -25,7 +26,7 @@ import torch
 from gymnasium_planar_robotics_tpu.models import planning as jplan
 from gymnasium_planar_robotics_tpu_torch.models import planning as tplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
-from torch_planning_multi_cases import CASES, actions, make_env, planted_state
+from torch_planning_multi_cases import CASES, actions, make_env, plant_accepted_sets, planted_state
 
 TOL = dict(rtol=2e-6, atol=2e-6)
 TOL_ACC = dict(rtol=1e-4, atol=1e-5)
@@ -111,6 +112,48 @@ def test_public_multi_step_matches_jax_over_three_steps(reward_mode):
         assert stalls >= 1
     else:
         assert (tr.numpy() < 0).any() and (tr.numpy() > -50).any()
+
+
+def test_public_multi_step_matches_jax_at_nine_movers():
+    """``make_fused_step_autoreset`` at 9 movers (per-mover radii on the
+    full 6x6 table, sparse reward, 3 cycles, 64 envs) against the JAX step
+    over three steps from planted states; every other env accepts its second
+    start and goal sets when done."""
+    name = 'circle_full_acc_m9'
+    layout, m, coll, jerk, _, _ = CASES[name]
+    kw = dict(KW, num_cycles=3)
+    jcfg, jprm = jplan.make_planning_env(layout, m, dtype=jnp.float32, collision_params=coll, learn_jerk=jerk, **kw)
+    tcfg, tprm = make_env(name, **kw)
+    b = 64
+    state = planted_state(name, tcfg, tprm, b, seed=6)
+    jstep = jax.jit(jplan.make_fused_step_autoreset(jcfg, jprm, interpret=True, inject_noise=True, cand_k=CAND_K))
+    tstep = tplan.make_fused_step_autoreset(tcfg, tprm, cand_k=CAND_K)
+    rng = np.random.default_rng(7)
+    restarts = collisions = 0
+    for t in range(3):
+        act = actions(tcfg, b, seed=20 + t)
+        u = rng.random((tstep.noise_planes, b), dtype=np.float32)
+        plant_accepted_sets(u, name, tcfg, tprm, CAND_K, np.arange(0, b, 2))
+        js, jobs, jr, jt, jtr, ji = jstep(to_jax_state(state, t), jnp.asarray(act), noise=jnp.asarray(u))
+        ts, tobs, tr, tt, ttr, ti = tstep(state, torch.from_numpy(act), noise=torch.from_numpy(u))
+        for k in ('pos', 'vel', 'goals'):
+            np.testing.assert_allclose(getattr(ts, k).numpy(), np.asarray(getattr(js, k)), **TOL, err_msg=k)
+        for k in ('acc', 'act'):
+            np.testing.assert_allclose(getattr(ts, k).numpy(), np.asarray(getattr(js, k)), **TOL_ACC, err_msg=k)
+        np.testing.assert_array_equal(ts.steps.numpy(), np.asarray(js.steps))
+        for nm, got, want in (('obs', tobs, jobs), ('final_observation', ti['final_observation'],
+                                                    ji['final_observation'])):
+            for k in ('observation', 'achieved_goal', 'desired_goal'):
+                np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL, err_msg=f'{nm}.{k}')
+        for k, got, want in (('reward', tr, jr), ('terminated', tt, jt), ('truncated', ttr, jtr)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=k)
+        for k in ('is_success', 'wall_collision', 'mover_collision', 'reset_stalled', 'reset_trials'):
+            np.testing.assert_array_equal(ti[k].numpy(), np.asarray(ji[k]), err_msg=k)
+        assert ts.pos.shape == (b, m, 2) and tobs['observation'].shape == (b, 2 * m)
+        restarts += int(((tt | ttr).numpy() & ~ti['reset_stalled'].numpy()).sum())
+        collisions += int(ti['mover_collision'].sum())
+        state = ts
+    assert restarts > 0 and collisions > 0
 
 
 def ring_offsets(rng, b, dist):

@@ -246,17 +246,17 @@ def test_default_device_is_the_card():
 
 def test_not_ported_paths_raise():
     """What still raises: ``make_fused_step`` with M > 1 (the JAX package has
-    no such path either), more movers than kernel H is instantiated for and
-    f64 on the fused paths (the eager step takes both), mesh movers; dense
-    rewards on the fused rollout; and what the reactive rollout does not
-    cover in the JAX package either (M > 1, jerk, f64)."""
+    no such path either), more movers than kernel H takes (64) and f64 on the
+    fused paths (the eager step takes both), mesh movers; dense rewards on
+    the fused rollout; and what the reactive rollout does not cover in the
+    JAX package either (M > 1, jerk, f64)."""
     cfg2, prm2 = tplan.make_planning_env(FULL, 2, device='cpu')
     with pytest.raises(NotImplementedError, match='no M-mover make_fused_step'):
         tplan.make_fused_step(cfg2, prm2)
-    cfg9, prm9 = tplan.make_planning_env(np.ones((6, 6)), 9, device='cpu')
+    cfg65, prm65 = tplan.make_planning_env(np.ones((20, 20)), 65, device='cpu')
     for make in (tplan.make_fused_step_autoreset, tplan.make_fused_rollout):
-        with pytest.raises(NotImplementedError, match='2 to 8 movers'):
-            make(cfg9, prm9)
+        with pytest.raises(NotImplementedError, match='2 to 64 movers'):
+            make(cfg65, prm65)
     for m in (1, 2):
         cfg64, prm64 = tplan.make_planning_env(FULL, m, dtype=torch.float64, device='cpu')
         makers = (tplan.make_fused_step_autoreset, tplan.make_fused_rollout) + ((tplan.make_fused_step,) if m == 1
