@@ -33,7 +33,14 @@ phase:
 6. kernels E, F and G (single-mover planning) against their plain versions
    at 4096 envs, in both noise modes as in 3., on four configurations:
    circle and box collision shapes on the full 3x3 table and on a holed
-   layout, a quarter of the envs driven into a wall;
+   layout, a quarter of the envs driven into a wall; F and G in both block
+   shapes (with producer warps, the wrapper's choice up to its
+   configuration's ``planning.WIDE_BATCH`` envs, and thread-per-env), also
+   at 65,536 envs (F on every configuration; G over 3 steps on the full
+   layouts), timed in both
+   shapes at both widths, with the SASS instructions per control cycle of
+   the consumer's, the producer's and the thread-per-env loop and
+   ``ptxas -v``;
 7. the public planning path: ``make_planning_env(np.ones((3, 3)), 1)`` ->
    ``init_batch(4096)`` -> ``make_fused_step`` x3 ->
    ``make_fused_step_autoreset`` x5 -> ``make_fused_rollout`` T=64 at K=1
@@ -114,13 +121,15 @@ phase:
 22. mesh movers: the mesh+bumper configuration of bench.py:643-644 through
    ``make_fused_rollout`` at 4096 envs and K=1 (env-steps/s, beside the
    default mover), and planning's kernel F with a mesh mover and bumper
-   against its plain version;
+   against its plain version in both block shapes;
 23. every fused step (pushing, box pushing, 1-, 4- and 12-mover planning,
    the multi-agent step at 4 and 12 movers) with a generator on the card
    makes no host synchronisation (sync debug mode 'warn').
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
-median of five groups of 20 launches, with the groups' spread.  The line
+median of five groups of 20 launches, with the groups' spread (where the
+host enqueues F slower than the card runs it, that is the host's rate:
+F's phase also gives the profiler's device time a launch).  The line
 before the last is a JSON object with one entry per kernel (A-H, C-feat,
 I's two probes and the box variants of B, C, C-feat and D): its
 launches on its path, its largest error against the plain version (both
@@ -325,16 +334,30 @@ def sass_loop_counts(lib_path: str, kernel: str) -> dict:
             'loop_instructions': len(loop)}
 
 
-def sass_cycle_counts(lib_path: str, kernel: str) -> dict:
+def friction_marker(op: str, args: str) -> bool:
+    """The pushing cycle's marker: the ``FMNMX`` with 1e-12 of the floor
+    friction's ``fmaxf(speed, 1e-12f)``, one per cycle."""
+    return op.startswith('FMNMX') and re.search(r'e-1[23]', args) is not None
+
+
+def box_muller_marker(op: str, args: str) -> bool:
+    """Box-Muller's ``2 pi * u2``: one per normal pair drawn."""
+    return op.startswith('FMUL') and '6.28318' in args
+
+
+def shared_load_marker(op: str, args: str) -> bool:
+    """A shared-memory load: one per value a consumer pops from the ring."""
+    return op.startswith('LDS')
+
+
+def sass_cycle_counts(lib_path: str, kernel: str, marker=friction_marker, per_cycle: int = 1) -> dict:
     """Instructions and MUFU (special-function) instructions per control
     cycle in the cycle loop of ``kernel`` (``sass_loops``): the innermost
-    loop holding the cycle's marker (the ``FMNMX`` with 1e-12 of the floor
-    friction's ``fmaxf(speed, 1e-12f)``: one per cycle, so the loop's
-    unrolling cancels out).  Static counts: a stage hand-over inside the
-    loop counts once a cycle though it runs once a stage."""
-    marked = [(loop, sum(o.startswith('FMNMX') and re.search(r'e-1[23]', a) is not None for o, a in loop))
-              for loop in sass_loops(lib_path, kernel)]
-    marked = [(loop, n) for loop, n in marked if n]
+    loop holding ``marker`` instructions, ``per_cycle`` of them a cycle, so
+    the loop's unrolling cancels out.  Static counts: a stage hand-over
+    inside the loop counts once a cycle though it runs once a stage."""
+    marked = [(loop, sum(marker(o, a) for o, a in loop)) for loop in sass_loops(lib_path, kernel)]
+    marked = [(loop, n / per_cycle) for loop, n in marked if n]
     if not marked:
         return {'error': f'no cycle loop found in {kernel}'}
     loop, cycles = min(marked, key=lambda m: len(m[0]))
@@ -371,7 +394,8 @@ def main() -> int:
     from gymnasium_planar_robotics_tpu_torch.ops import kernels
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, noise
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kp
-    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import forced_layout, kernel_h_layouts, multi_rollout_state
+    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import (forced_layout, kernel_h_layouts, launch_device_ms,
+                                                                         multi_rollout_state)
     from gymnasium_planar_robotics_tpu_torch.utils.roofline import (OPS, multi_cycle_terms, multi_env_terms, ops_total,
                                                                     planning_cycle_ops)
 
@@ -506,15 +530,16 @@ def main() -> int:
     # doubled for the rows that are differences of two planes
     feat_rtol, feat_atol = 3e-5, 6e-6
 
-    def with_producer(producer: int, fn):
-        """``fn()`` with kernels C and D launching blocks with (1) or without
-        (0) the producer warp at every width."""
-        saved = kp.WIDE_BATCH
-        kp.WIDE_BATCH = (1 << 62) if producer else 0
+    def with_producer(producer: int, fn, module=kp):
+        """``fn()`` with the kernels of ``module`` (C and D; planning's F and
+        G, whose ``WIDE_BATCH`` is a table by configuration) launching blocks
+        with (1) or without (0) the producer at every width."""
+        saved, wide = module.WIDE_BATCH, (1 << 62) if producer else 0
+        module.WIDE_BATCH = dict.fromkeys(saved, (wide, wide)) if isinstance(saved, dict) else wide
         try:
             return fn()
         finally:
-            kp.WIDE_BATCH = saved
+            module.WIDE_BATCH = saved
 
     def split_report(launch, main_args, large_args, kernel: str, grouped: bool = True) -> dict:
         """Kernels C and D's two block shapes: the time of ``launch(*args)``
@@ -919,6 +944,30 @@ def main() -> int:
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
                 'configs': res}
 
+    # kernels F and G launch blocks with the producer up to their
+    # configuration's kpl.WIDE_BATCH envs and thread-per-env blocks above:
+    # both shapes are held against the plain versions at B_MAIN and B_LARGE
+    # (every configuration for F, the full layouts for G, whose plain
+    # rollout on a holed table is the costly part) and timed at both widths
+    plan_widths = {name: (B_MAIN, B_LARGE) if name.endswith('full') else (B_MAIN,) for name in plan_configs}
+
+    def plan_modes(n_noise, b):
+        u = torch.rand((n_noise, b), generator=gen, device=dev)
+        return u, (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, b)))
+
+    def plan_split_report(kernel: str, box: bool) -> dict:
+        """The SASS of kernel F's or G's circle or box, full-layout, Philox
+        instantiations: instructions per control cycle in the consumer's
+        loop (values popped from the ring), in the producer's and in the
+        thread-per-env loop (normal pairs drawn), and their ``ptxas -v``."""
+        path, q = build.build_info['path'], 8 if box else 4
+        inst = {p: f'{kernel}ILb{int(box)}ELb1ELb0ELb{p}E' for p in (0, 1)}
+        ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items()
+                 if any(i in k for i in inst.values())}
+        return {'consumer': sass_cycle_counts(path, inst[1], shared_load_marker, q),
+                'producer': sass_cycle_counts(path, inst[1], box_muller_marker, q // 2),
+                'thread_per_env': sass_cycle_counts(path, inst[0], box_muller_marker, q // 2), 'ptxas': ptxas}
+
     @phase('kernel_F_planning_autoreset')
     def _():
         res = {}
@@ -926,42 +975,58 @@ def main() -> int:
             jerk = name.endswith('holed')
             cfg, prm = plan_env(name, learn_jerk=jerk)
             kc = kpl.make_kernel_consts(cfg, prm)
-            state = wall_state(cfg, prm, B_MAIN, 11, spread_steps=True)
-            act = ((torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0))
-            act = act.contiguous()
-            st = PL.state_to_planes(cfg, state)
             n_noise = kpl.autoreset_noise_planes(cfg.num_cycles, kc.cand_k, kc.box)
-            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
-            entry = {'jerk': jerk, 'max_abs_err': 0.0}
-            for mode, got, ref in (
-                    ('injected', kpl.planning_autoreset_cuda(st, act, kc, u),
-                     kpl.planning_autoreset_plain(st, act, kc, u)),
-                    ('philox', kpl.planning_autoreset_cuda(st, act, kc, None, 7),
-                     kpl.planning_autoreset_plain(st, act, kc, philox(7, n_noise, B_MAIN)))):
-                e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
-                restarts = int(((got[8] == 0) & (st[8] > 0)).sum())
-                walls = int((got[19] > 0).sum())
-                require(not bad, f'{name} ({mode}): planes {bad} disagree')
-                require(restarts > 0 and walls > 0, f'{name} ({mode}): {restarts} restarts, {walls} wall hits')
-                entry['max_abs_err'] = max(entry['max_abs_err'], e)
-                entry[mode] = {'restarts': restarts, 'wall_hits': walls, 'stalled': int(got[21].sum()),
-                               'candidates_tested': int(got[22].sum())}
-            injected_ms, _ = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, u))
-            ms, ms_groups = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7))
-            plain_ms = time_ms(lambda: kpl.planning_autoreset_plain(st, act, kc, u), 1)
-            bound_ms, bound_by = bound((11 + 23) * 4 * B_MAIN,
-                                       plan_step_ops(kc, entry['philox']['candidates_tested']))
-            entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
-                         bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
-                         injected_bound_ms=bound((11 + n_noise + 23) * 4 * B_MAIN,
-                                                 plan_step_ops(kc, entry['injected']['candidates_tested']))[0])
+            entry = {'jerk': jerk, 'max_abs_err': 0.0, 'ms_by_producers': {}}
+            for b in (B_MAIN, B_LARGE):
+                state = wall_state(cfg, prm, b, 11, spread_steps=True)
+                act = ((torch.rand((2, b), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0))
+                act = act.contiguous()
+                st = PL.state_to_planes(cfg, state)
+                u, modes = plan_modes(n_noise, b)
+                for mode, uk, seed, uref in modes:
+                    ref = kpl.planning_autoreset_plain(st, act, kc, uref)
+                    for producer in (0, 1):
+                        got = with_producer(producer, lambda: kpl.planning_autoreset_cuda(st, act, kc, uk, seed), kpl)
+                        e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
+                        restarts = int(((got[8] == 0) & (st[8] > 0)).sum())
+                        walls = int((got[19] > 0).sum())
+                        tag = f'{name} B={b} ({mode}, producer {producer})'
+                        require(not bad, f'{tag}: planes {bad} disagree')
+                        require(restarts > 0 and walls > 0, f'{tag}: {restarts} restarts, {walls} wall hits')
+                        entry['max_abs_err'] = max(entry['max_abs_err'], e)
+                    entry[mode if b == B_MAIN else f'{mode}_B={b}'] = {
+                        'restarts': restarts, 'wall_hits': walls, 'stalled': int(got[21].sum()),
+                        'candidates_tested': int(got[22].sum())}
+                if name.endswith('full'):
+                    # the profiler's kernel records: a launch of F is shorter than the host's enqueue of it
+                    entry['ms_by_producers'][b] = {p: launch_device_ms(lambda p=p: with_producer(
+                        p, lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7), kpl), 100) for p in (0, 1)}
+                if b != B_MAIN:
+                    continue
+                injected_ms, _ = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, u))
+                ms, ms_groups = time_groups(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7))
+                entry['device_ms'] = launch_device_ms(lambda: kpl.planning_autoreset_cuda(st, act, kc, None, 7), 100)
+                plain_ms = time_ms(lambda: kpl.planning_autoreset_plain(st, act, kc, u), 1)
+                bound_ms, bound_by = bound((11 + 23) * 4 * B_MAIN,
+                                           plan_step_ops(kc, entry['philox']['candidates_tested']))
+                entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
+                             bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+                             injected_bound_ms=bound((11 + n_noise + 23) * 4 * B_MAIN,
+                                                     plan_step_ops(kc, entry['injected']['candidates_tested']))[0])
+            if name.endswith('full'):
+                entry['sass'] = plan_split_report('planning_autoreset_kernel', kc.box)
+            entry['producer'] = {b: kpl.uses_producer(b, kc) for b in (B_MAIN, B_LARGE)}
             res[name] = entry
         main = res['circle_full']
         kstats['planning_autoreset'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()), ms=main['ms'],
                                             plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
                                             bound_by=main['bound_by'])
-        return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
+        return {'B': B_MAIN, 'B_large': B_LARGE, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'wide_batch_F_G': {' '.join(k): v for k, v in kpl.WIDE_BATCH.items()},
+                'block_shapes': 'thread-per-env (0) and the consumer with its producer warps (1), both held '
+                                'against the plain versions; ms_by_producers and device_ms: Philox, the '
+                                'profiler\'s ms a launch',
                 'configs': res}
 
     @phase('kernel_G_planning_rollout')
@@ -973,47 +1038,67 @@ def main() -> int:
         for name in plan_configs:
             cfg, prm = plan_env(name)
             kc = kpl.make_kernel_consts(cfg, prm)
-            st = PL.state_to_planes(cfg, wall_state(cfg, prm, B_MAIN, 12))
-            acts = ((torch.rand((K_MAIN, 2, B_MAIN), generator=gen, device=dev) * 2 - 1) * 10.0).contiguous()
             n_noise = kpl.autoreset_noise_planes(cfg.num_cycles, kc.cand_k, kc.box)
-            u = torch.rand((K_MAIN * n_noise, B_MAIN), generator=gen, device=dev)
-            entry = {'max_abs_err': 0.0}
-            # the plain rollout is the phase's cost: K_G_CHECK steps, but the
-            # main configuration's Philox mode (the timed run) K_MAIN
-            k_philox = K_MAIN if name == 'circle_full' else K_G_CHECK
-            for mode, k, u_k, seed in (('injected', K_G_CHECK, u[:K_G_CHECK * n_noise], None),
-                                       ('philox', k_philox, philox(7, k_philox * n_noise, B_MAIN), 7)):
-                a = acts[:k]
-                got_st, got_sig = (kpl.planning_rollout_cuda(st, a, kc, None, seed) if seed
-                                   else kpl.planning_rollout_cuda(st, a, kc, u_k))
-                ref_st, ref_sig = kpl.planning_rollout_plain(st, a, kc, u_k)
-                d_state = (got_st - ref_st).abs()
-                env_ok = (d_state <= plan_atol + plan_rtol * ref_st.abs()).all(0) & (got_sig == ref_sig).all(0).all(0)
-                frac = float(env_ok.double().mean())
-                require(bool(torch.isfinite(got_st).all()), f'{name} ({mode}): kernel G state is not finite')
-                require(frac >= 0.99, f'{name} ({mode}): only {frac:.4f} of envs agree over {k} steps')
-                entry['max_abs_err'] = max(entry['max_abs_err'], float(d_state.max()))
-                entry[mode] = {'k': k, 'envs_agreeing': frac, 'episode_ends': episode_ends(got_sig)}
-            if name == 'circle_full':
-                entry['injected']['episode_ends_k_main'] = episode_ends(kpl.planning_rollout_cuda(st, acts, kc, u)[1])
-                injected_ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, u), 5)
-                ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), 5)
-                plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1)
+            entry = {'max_abs_err': 0.0, 'ms_by_producers': {}}
+            for b in plan_widths[name]:
+                st = PL.state_to_planes(cfg, wall_state(cfg, prm, b, 12))
+                acts = ((torch.rand((K_MAIN, 2, b), generator=gen, device=dev) * 2 - 1) * 10.0).contiguous()
+                # the plain rollout is the phase's cost: K_G_CHECK steps
+                # (K_LARGE_CHECK at B_LARGE), but the main configuration's
+                # Philox mode (the timed run) K_MAIN
+                k_check = K_G_CHECK if b == B_MAIN else K_LARGE_CHECK
+                k_philox = K_MAIN if name == 'circle_full' and b == B_MAIN else k_check
+                u = torch.rand(((K_MAIN if b == B_MAIN else k_check) * n_noise, b), generator=gen, device=dev)
+                for mode, k, u_k, seed in (('injected', k_check, u[:k_check * n_noise], 0),
+                                           ('philox', k_philox, philox(7, k_philox * n_noise, b), 7)):
+                    a = acts[:k]
+                    ref_st, ref_sig = kpl.planning_rollout_plain(st, a, kc, u_k)
+                    for producer in (0, 1):
+                        got_st, got_sig = with_producer(producer, lambda: kpl.planning_rollout_cuda(
+                            st, a, kc, None if seed else u_k, seed), kpl)
+                        d_state = (got_st - ref_st).abs()
+                        env_ok = ((d_state <= plan_atol + plan_rtol * ref_st.abs()).all(0)
+                                  & (got_sig == ref_sig).all(0).all(0))
+                        frac = float(env_ok.double().mean())
+                        tag = f'{name} B={b} ({mode}, producer {producer})'
+                        require(bool(torch.isfinite(got_st).all()), f'{tag}: kernel G state is not finite')
+                        require(frac >= 0.99, f'{tag}: only {frac:.4f} of envs agree over {k} steps')
+                        entry['max_abs_err'] = max(entry['max_abs_err'], float(d_state.max()))
+                    entry[mode if b == B_MAIN else f'{mode}_B={b}'] = {'k': k, 'envs_agreeing': frac,
+                                                                        'episode_ends': episode_ends(got_sig)}
+                if name.endswith('full'):
+                    entry['ms_by_producers'][b] = {p: statistics.median(time_ms(lambda p=p: with_producer(
+                        p, lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), kpl), 5) for _ in range(3))
+                        for p in (0, 1)}
+                if name == 'circle_full' and b == B_MAIN:
+                    entry['injected']['episode_ends_k_main'] = episode_ends(
+                        kpl.planning_rollout_cuda(st, acts, kc, u)[1])
+                    injected_ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, u), 5)
+                    ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), 5)
+                    plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1)
 
-                def ops(ends):
-                    # a floor: each episode end tests at least one start and one goal candidate
-                    return (K_MAIN - 1) * plan_step_ops(kc, 0.0) + plan_step_ops(kc, 2.0 * ends)
+                    def ops(ends):
+                        # a floor: each episode end tests at least one start and one goal candidate
+                        return (K_MAIN - 1) * plan_step_ops(kc, 0.0) + plan_step_ops(kc, 2.0 * ends)
 
-                bound_ms, bound_by = bound((9 + K_MAIN * (2 + 3) + 9) * 4 * B_MAIN,
-                                           ops(entry['philox']['episode_ends']))
-                entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
-                             injected_bound_ms=bound((9 + K_MAIN * (2 + n_noise + 3) + 9) * 4 * B_MAIN,
-                                                     ops(entry['injected']['episode_ends_k_main']))[0])
-                kstats['planning_rollout'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    bound_ms, bound_by = bound((9 + K_MAIN * (2 + 3) + 9) * 4 * B_MAIN,
+                                               ops(entry['philox']['episode_ends']))
+                    entry.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                                 injected_ms=injected_ms,
+                                 injected_bound_ms=bound((9 + K_MAIN * (2 + n_noise + 3) + 9) * 4 * B_MAIN,
+                                                         ops(entry['injected']['episode_ends_k_main']))[0])
+                    kstats['planning_rollout'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if name.endswith('full'):
+                entry['sass'] = plan_split_report('planning_rollout_kernel', kc.box)
+            entry['producer'] = {b: kpl.uses_producer(b, kc, rollout=True) for b in (B_MAIN, B_LARGE)}
             res[name] = entry
         kstats['planning_rollout'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
-        return {'B': B_MAIN, 'K': K_MAIN, 'tol': f'signals exact, state rtol {plan_rtol} atol {plan_atol}',
+        return {'B': B_MAIN, 'B_large': B_LARGE, 'K': K_MAIN,
+                'tol': f'signals exact, state rtol {plan_rtol} atol {plan_atol}',
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'wide_batch_F_G': {' '.join(k): v for k, v in kpl.WIDE_BATCH.items()},
+                'block_shapes': 'thread-per-env (0) and the consumer with its producer warps (1), both held '
+                                'against the plain versions; ms_by_producers: Philox, K=32, ms a launch',
                 'configs': res}
 
     # -- 7. the public planning path ----------------------------------------------
@@ -2102,13 +2187,13 @@ def main() -> int:
         n_noise = kpl.autoreset_noise_planes(pcfg.num_cycles, pkc.cand_k, pkc.box)
         u = torch.rand((n_noise, B_MAIN), generator=g, device=dev)
         plan = {}
-        for mode, got, ref in (
-                ('injected', kpl.planning_autoreset_cuda(st, act, pkc, u), kpl.planning_autoreset_plain(st, act, pkc, u)),
-                ('philox', kpl.planning_autoreset_cuda(st, act, pkc, None, 7),
-                 kpl.planning_autoreset_plain(st, act, pkc, philox(7, n_noise, B_MAIN)))):
-            e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
-            require(not bad, f'planning mesh ({mode}): planes {bad} disagree')
-            plan[mode] = {'max_abs_err': e, 'wall_hits': int((got[19] > 0).sum())}
+        for mode, uk, seed, uref in (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, B_MAIN))):
+            ref = kpl.planning_autoreset_plain(st, act, pkc, uref)
+            for producer in (0, 1):
+                got = with_producer(producer, lambda: kpl.planning_autoreset_cuda(st, act, pkc, uk, seed), kpl)
+                e, bad = planes_check(got, ref, exact=(8, 19, 20, 21, 22))
+                require(not bad, f'planning mesh ({mode}, producer {producer}): planes {bad} disagree')
+                plan[f'{mode}_producer_{producer}'] = {'max_abs_err': e, 'wall_hits': int((got[19] > 0).sum())}
         return {'B': B_MAIN, 'T': T_ROLL, 'K': 1, 'card': card, 'mover': mesh,
                 'accel_scale': float(prmm.accel_scale), 'mover_half': prmm.mover_half.tolist(),
                 'ms_runs': ev, 'env_steps_per_s': rates,

@@ -12,6 +12,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "split.cuh"
 #include "walls.cuh"
 
 namespace gprt {
@@ -74,20 +75,7 @@ __device__ __forceinline__ bool wall_valid(const Consts& c, float npx, float npy
   return box_valid_full(c, madd(npx, nwx, c.std_pos), madd(npy, nwy, c.std_pos), R, c.wall_x, c.wall_y);
 }
 
-// Values computed ahead of the physics, popped in draw order from a source
-// Src with pop(): the overloads of normal_pair and wall_pose below take
-// them in place of drawing, so run_cycles is the same code on both.
-template <class Src>
-struct Popped {
-  Src src;
-};
-
-template <class Src>
-__device__ __forceinline__ void normal_pair(Popped<Src>& r, float& a, float& b) {
-  a = r.src.pop();
-  b = r.src.pop();
-}
-
+// The wall pose popped from values computed ahead (split.cuh, Popped).
 template <bool kBox, class Src>
 __device__ __forceinline__ void wall_pose(const Consts&, Popped<Src>& r, float& nwx, float& nwy, Rot2& R) {
   nwx = r.src.pop();
@@ -338,56 +326,15 @@ __device__ __forceinline__ void store_state(float* out, int64_t B, int64_t e, co
 
 // ---------------------------------------------------------------------------
 // kernels C and D on Hopper: warp-specialised producer/consumer blocks
-//
-// A block serves one tile of 32 envs.  Warp 0 is the consumer: lane l owns
-// env 32 * tile + l and runs the dependent physics (autoreset_step) from
-// registers, reading each step's action itself, one step ahead.  Warp 1 is
-// the producer: it computes, ahead of it, every value of a step that does
-// not depend on the state -- per cycle the velocity pair and the wall pose
-// (the box: R), per step the twelve observation normals and the restart's
-// result -- and hands them over in stages through a ring in shared memory
-// guarded by full/empty mbarriers.
-//
-// Each step is a sequence of cyc_stages + 1 stages: its cycle stages
-// (stage_cycles<kBox>() cycles each), then its step stage (StepValue), which
-// the consumer needs only after the cycles, so a launch starts once its
-// first cycle stage is ready.  A tile's stages are numbered k = 0, 1, ...
-// over its K steps; stage k lives in slot k % kRingSlots.  Draws are taken
-// by absolute index: draw d of step t of env e is draw t * n_step + d of
-// e's stream (word d % 4 of the Philox block at counter ((t * n_step + d) /
-// 4, e), or injected plane t * n_step + d).  Lanes of envs >= B take part in
-// every barrier and skip only their loads and stores.  Without the producer
-// (the wide batch) there is no ring: a block of kInlineWarps warps serves
-// as many tiles, each warp drawing its own values (InlineStep).
+// (split.cuh).  Warp 0, the consumer, runs the dependent physics
+// (autoreset_step) from registers, reading each step's action itself, one
+// step ahead.  Warp 1, the producer, computes per cycle the velocity pair
+// and the wall pose (the box: R), per step the twelve observation normals
+// and the restart's result (StepValue).  Without the producer (the wide
+// batch) each warp draws its own values (InlineStep).
 // ---------------------------------------------------------------------------
 
-constexpr int kRingSlots = 4;     // slots of the ring
-constexpr int kStageValues = 24;  // values per env of one stage
-constexpr int kSplitWarps = 2;    // a block with the producer: consumer and producer
-constexpr int kInlineWarps = 4;   // a block without the producer
-constexpr int kSplitMaxThreads = 32 * (kInlineWarps > kSplitWarps ? kInlineWarps : kSplitWarps);
 static_assert(kStepValues <= kStageValues, "a step stage holds the step's values");
-
-// values per cycle: velocity pair, wall pair, the box's R
-template <bool kBox>
-__host__ __device__ constexpr int cycle_values() { return kBox ? 8 : 4; }
-template <bool kBox>
-__host__ __device__ constexpr int stage_cycles() { return kStageValues / cycle_values<kBox>(); }
-
-struct SplitShared {
-  float stage[kRingSlots][kStageValues][32];
-  uint64_t full[kRingSlots], empty[kRingSlots];
-};
-
-// Stage k's slot and the parity of its use of that slot.
-struct RingPos {
-  int slot;
-  uint32_t parity;
-};
-
-__device__ __forceinline__ RingPos ring_pos(uint32_t k) {
-  return {static_cast<int>(k % kRingSlots), (k / kRingSlots) & 1u};
-}
 
 // A step's draw offsets and stage counts (p = 1 wall pair circle, 3 box).
 struct StepPlan {
@@ -396,60 +343,6 @@ struct StepPlan {
       : cycle_draws(box ? 8 : 4), n_step((box ? 8 : 4) * num_cycles + 16 + 2 * cand_k),
         d_obs((box ? 8 : 4) * num_cycles), cyc_stages((num_cycles + per_stage - 1) / per_stage),
         stages(1 + (num_cycles + per_stage - 1) / per_stage) {}
-};
-
-// draw streams positioned at an absolute draw index
-struct InjectedSource {
-  const float* p;
-  int64_t B;
-  __device__ InjectedNoise at(int64_t env, uint32_t d) const {
-    InjectedNoise n(p, B, env);
-    n.skip(static_cast<int>(d));
-    return n;
-  }
-};
-
-struct PhiloxSource {
-  uint64_t seed;
-  __device__ PhiloxNoise at(int64_t env, uint32_t d) const {
-    PhiloxNoise n(seed, env);
-    n.skip(static_cast<int>(d));
-    return n;
-  }
-};
-
-// The consumer's view of the ring.  Cycles: pop() returns the values in
-// draw order and takes the next stage when the current one is spent.  The
-// step's values: acquire() takes the step stage, then sv(i).  Taking a stage
-// releases the one held before.
-template <bool kBox>
-struct RingReader {
-  SplitShared* sh;
-  int lane;
-  uint32_t k = 0;  // stages taken so far
-  int slot = -1, pos = 0, end = 0, left = 0;
-  __device__ void take() {
-    if (slot >= 0) mbar_arrive(&sh->empty[slot]);
-    const RingPos r = ring_pos(k++);
-    mbar_wait(&sh->full[r.slot], r.parity);
-    slot = r.slot;
-  }
-  __device__ void begin_step(int num_cycles) {
-    left = num_cycles;
-    pos = end = 0;
-  }
-  __device__ __forceinline__ float pop() {
-    if (pos == end) {
-      take();
-      const int n = left < stage_cycles<kBox>() ? left : stage_cycles<kBox>();
-      left -= n;
-      end = n * cycle_values<kBox>();
-      pos = 0;
-    }
-    return sh->stage[slot][pos++][lane];
-  }
-  __device__ __forceinline__ void acquire() { take(); }
-  __device__ __forceinline__ float operator()(int i) const { return sh->stage[slot][i][lane]; }
 };
 
 // Producer: cycles i0 .. i0 + n - 1 of one step (their draws start at d0).
@@ -698,17 +591,6 @@ __device__ __forceinline__ void split_body(const Consts& c, const Src& src, cons
       mbar_arrive(&sh.full[r.slot]);
     }
   }
-}
-
-// Block, grid and dynamic shared memory of a launch over B envs, with or
-// without the producer.
-inline int split_threads(bool producer) { return 32 * (producer ? kSplitWarps : kInlineWarps); }
-
-inline size_t split_shared_bytes(bool producer) { return producer ? sizeof(SplitShared) : 0; }
-
-inline unsigned int split_blocks(bool producer, int64_t B) {
-  const int64_t tiles = (B + 31) / 32, per_block = producer ? 1 : kInlineWarps;
-  return static_cast<unsigned int>((tiles + per_block - 1) / per_block);
 }
 
 }  // namespace gprt

@@ -135,14 +135,15 @@ def lib() -> ctypes.CDLL:
         handle.gprt_planning_cycles.restype = i32
         handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p, p]
         # (st, act, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, cand_k, seed, seed_dev,
-        #  stream)
+        #  producer, stream)
         handle.gprt_planning_autoreset.restype = i32
-        handle.gprt_planning_autoreset.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, u64, p, p]
+        handle.gprt_planning_autoreset.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, u64, p, i32,
+                                                   p]
         # (st, actions, noise, st_out, step_out, B, K, consts, table, n_cells, box, full, jerk, num_cycles,
-        #  cand_k, seed, seed_dev, stream)
+        #  cand_k, seed, seed_dev, producer, stream)
         handle.gprt_planning_rollout.restype = i32
         handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p,
-                                                 p]
+                                                 i32, p]
         # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, lanes, slots, box, full, jerk,
         #  num_cycles, cand_k, seed, seed_dev, stream); multi_consts in device memory
         handle.gprt_planning_multi_autoreset.restype = i32

@@ -148,17 +148,37 @@ def shared_consts(config, params, cand_k: int = 16) -> KernelConsts:
 # ---------------------------------------------------------------------------
 
 
-def _cycles_plain(kc: KernelConsts, noise: UniformStream, mover, ux, uy):
-    """The cycle loop of ``_step_kernel``: 6 mover planes in, 6 out + wall."""
+def _wall_pose_plain(kc: KernelConsts, noise: UniformStream):
+    """The per-cycle wall check's noise (``_make_wall_checker.check``): the
+    position normal pair, for the box also the rotation ``R`` of the
+    quaternion noise around the identity (the identity for the circle)."""
+    sp = kc.f['std_pos']
+    nwx, nwy = noise.normal_pair()
+    if not kc.box:
+        return nwx, nwy, walls.IDENTITY_R
+    q1, q2 = noise.normal_pair()
+    q3, q4 = noise.normal_pair()
+    return nwx, nwy, walls.quat_to_R2(1.0 + q1 * sp, q2 * sp, q3 * sp, q4 * sp)
+
+
+def cycle_draws_plain(kc: KernelConsts, noise: UniformStream) -> list:
+    """The state-independent values of ``num_cycles`` control cycles, in draw
+    order: per cycle the velocity normal pair, then the wall pose
+    (``_wall_pose_plain``)."""
+    return [(noise.normal_pair(), _wall_pose_plain(kc, noise)) for _ in range(kc.num_cycles)]
+
+
+def _cycles_plain(kc: KernelConsts, cycle_draws, mover, ux, uy):
+    """The cycle loop of ``_step_kernel``: 6 mover planes in, 6 out + wall,
+    one cycle per entry of ``cycle_draws`` (``cycle_draws_plain``)."""
     f = kc.f
     px, py, vx, vy, ax, ay = mover
-    dt, scale = f['dt'], f['accel_scale']
+    dt, scale, sp = f['dt'], f['accel_scale'], f['std_pos']
     dt_t = scalar(dt, px)
     done_f = torch.zeros_like(px)
     wall_f = torch.zeros_like(px)
-    for _ in range(kc.num_cycles):
+    for (nvx, nvy), (nwx, nwy, R) in cycle_draws:
         done = done_f > 0.0
-        nvx, nvy = noise.normal_pair()
         vmx = vx + nvx * f['std_vel']
         vmy = vy + nvy * f['std_vel']
         nax, nay = clamp_chain(kc.learn_jerk, f['v_max'], f['a_max'], dt, dt_t, vmx, vmy, ux, uy,
@@ -167,7 +187,7 @@ def _cycles_plain(kc: KernelConsts, noise: UniformStream, mover, ux, uy):
         nvy_t = vy + dt * (scale * nay)
         npx = px + dt * nvx_t
         npy = py + dt * nvy_t
-        ok = walls.wall_check(kc.rule, kc.box, noise, npx, npy, f['std_pos'], kc.wall_size)
+        ok = walls.shape_valid(kc.rule, kc.box, npx + nwx * sp, npy + nwy * sp, R, *kc.wall_size)
         px = torch.where(done, px, npx)
         py = torch.where(done, py, npy)
         vx = torch.where(done, vx, nvx_t)
@@ -203,17 +223,48 @@ def _sample_valid_plain(kc: KernelConsts, noise: UniformStream):
     return sx, sy, found, trials
 
 
-def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
-    """``_planning_autoreset_step``: 9 state planes in; returns the 9 new
-    state planes and the 15 aux planes (s_vx, s_vy, s_agx, s_agy, f_vx, f_vy,
-    f_agx, f_agy, f_ax, f_ay, wall, reached, trunc, stalled, trials)."""
+@dataclasses.dataclass
+class StepDraws:
+    """The state-independent values of one autoreset step, all drawn from
+    the uniform planes in the Pallas order: the cycles' draws
+    (``cycle_draws_plain``), the pre-reset observation normals ``n`` (2
+    pairs), the start and the goal sampler's result ``(x, y, found,
+    trials)`` (``_sample_valid_plain``) and the post-reset observation
+    normals ``m`` (2 pairs).  Kernels F and G's producer warps compute the
+    same values ahead of the physics, the restart for every env."""
+
+    cycles: list
+    n: tuple
+    start: tuple
+    goal: tuple
+    m: tuple
+
+
+def _normals_plain(noise: UniformStream, pairs: int) -> tuple:
+    return tuple(z for _ in range(pairs) for z in noise.normal_pair())
+
+
+def step_draws_plain(kc: KernelConsts, noise: UniformStream) -> StepDraws:
+    """One autoreset step's ``StepDraws``, consuming its
+    ``autoreset_noise_planes`` uniforms in order."""
+    cycles = cycle_draws_plain(kc, noise)
+    n = _normals_plain(noise, 2)
+    start = _sample_valid_plain(kc, noise)
+    goal = _sample_valid_plain(kc, noise)
+    return StepDraws(cycles=cycles, n=n, start=start, goal=goal, m=_normals_plain(noise, 2))
+
+
+def autoreset_physics_plain(kc: KernelConsts, draws: StepDraws, st, ux, uy):
+    """``_planning_autoreset_step`` on the step's ``draws``: 9 state planes
+    in; returns the 9 new state planes and the 15 aux planes (s_vx, s_vy,
+    s_agx, s_agy, f_vx, f_vy, f_agx, f_agy, f_ax, f_ay, wall, reached, trunc,
+    stalled, trials)."""
     f = kc.f
     gx, gy, steps = st[6:9]
-    (px, py, vx, vy, ax, ay), wall_f = _cycles_plain(kc, noise, st[:6], ux, uy)
+    (px, py, vx, vy, ax, ay), wall_f = _cycles_plain(kc, draws.cycles, st[:6], ux, uy)
     f_ax, f_ay = ax, ay
 
-    n1, n2 = noise.normal_pair()
-    n3, n4 = noise.normal_pair()
+    n1, n2, n3, n4 = draws.n
     f_agx = px + n1 * f['std_pos']
     f_agy = py + n2 * f['std_pos']
     f_vx = vx + n3 * f['std_vel']
@@ -225,8 +276,8 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     trunc = new_steps >= f['max_episode_steps']
     done = term | trunc
 
-    rsx, rsy, s_found, s_trials = _sample_valid_plain(kc, noise)
-    rgx, rgy, g_found, g_trials = _sample_valid_plain(kc, noise)
+    rsx, rsy, s_found, s_trials = draws.start
+    rgx, rgy, g_found, g_trials = draws.goal
     # a stalled draw does not restart the env: state and counter carry over
     found = (s_found > 0.0) & (g_found > 0.0)
     stalled_f = torch.where(done & ~found, 1.0, 0.0)
@@ -239,8 +290,7 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     gy = torch.where(do_reset, rgy, gy)
     steps = torch.where(do_reset, 0.0, new_steps)
 
-    m1, m2 = noise.normal_pair()
-    m3, m4 = noise.normal_pair()
+    m1, m2, m3, m4 = draws.m
     s_agx = torch.where(do_reset, px + m1 * f['std_pos'], f_agx)
     s_agy = torch.where(do_reset, py + m2 * f['std_pos'], f_agy)
     s_vx = torch.where(do_reset, vx + m3 * f['std_vel'], f_vx)
@@ -252,12 +302,17 @@ def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
     return [px, py, vx, vy, ax, ay, gx, gy, steps], aux
 
 
+def _autoreset_step_plain(kc: KernelConsts, noise: UniformStream, st, ux, uy):
+    """``_planning_autoreset_step``: the step's draws, then its physics."""
+    return autoreset_physics_plain(kc, step_draws_plain(kc, noise), st, ux, uy)
+
+
 def planning_cycles_plain(planes: torch.Tensor, kc: KernelConsts, uniforms: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel E: ``[8, B]`` (6 mover planes + action x/y)
     -> ``[7, B]`` (6 mover planes + wall) over ``[cycles_noise_planes, B]``
     uniforms."""
     noise = UniformStream(uniforms)
-    mover, wall = _cycles_plain(kc, noise, list(planes[:6]), planes[6], planes[7])
+    mover, wall = _cycles_plain(kc, cycle_draws_plain(kc, noise), list(planes[:6]), planes[6], planes[7])
     noise.finalize()
     return torch.stack(mover + [wall])
 
@@ -318,6 +373,31 @@ def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | to
     return out
 
 
+#: the widest batch for which kernels F and G launch blocks with producer
+#: warps, by configuration: (collision shape, layout rule) -> (F, G).  Up to
+#: it the card is latency-bound and the producers take the noise and the
+#: restart off each env's chain; above it, where the issue rate binds,
+#: thread-per-env blocks are faster.  G's blocks start the ring once for K
+#: steps; on holed layouts every wall check walks the table and the
+#: producers draw the restart of every env, so the card fills at fewer envs
+#: (measured on the card: PERF.md section 6)
+WIDE_BATCH = {
+    ('circle', 'full'): (32768, 131072),
+    ('box', 'full'): (32768, 98304),
+    ('circle', 'holed'): (32768, 32768),
+    ('box', 'holed'): (16384, 16384),
+}
+
+
+def uses_producer(b: int, kc: KernelConsts, rollout: bool = False) -> int:
+    """1 if a launch of kernel F (G with ``rollout``) over ``b`` envs in
+    ``kc``'s configuration runs blocks with the producer (the consumer warp
+    and ``kPlanningProducers`` = 2 producer warps, ``csrc/planning.cuh``), up
+    to its wide batch; else 0, thread-per-env blocks."""
+    wide = WIDE_BATCH['box' if kc.box else 'circle', 'full' if kc.rule.full else 'holed'][int(rollout)]
+    return int(b <= wide)
+
+
 def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None,
                             seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel F on the card."""
@@ -329,7 +409,7 @@ def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None,
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, state.device),
-            kc.cand_k, *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
+            kc.cand_k, *kernels.seed_args(seed, state.device), uses_producer(b, kc), kernels.stream_ptr(out),
         )
     build.check(err, 'planning_autoreset')
     kernels.LAUNCHES['planning_autoreset'] += 1
@@ -350,7 +430,7 @@ def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed:
         err = build.lib().gprt_planning_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
             *launch_args(kc, state.device), kc.cand_k, *kernels.seed_args(seed, state.device),
-            kernels.stream_ptr(st_out),
+            uses_producer(b, kc, rollout=True), kernels.stream_ptr(st_out),
         )
     build.check(err, 'planning_rollout')
     kernels.LAUNCHES['planning_rollout'] += 1

@@ -20,6 +20,21 @@ layout (G, L) kernel H takes, the table the wrapper's ``LANE_TABLE`` is
 read from (``--movers`` and ``--widths`` narrow it, e.g. to the widths
 around ``WIDE_BATCH``).
 
+Single-mover planning (``--family planning``): ``planning.make_fused_rollout``
+of the default configuration (3x3 table, circle r=0.11, acc, 40 cycles;
+bench.py:213) over 64 steps at K = 1 (kernel F once a step) and K = 32
+(kernel G), at 4096 and 65,536 envs, with the host's share of each
+rollout; and kernels F and G's device ms per launch (G at K = 32; the
+profiler's kernel records) at each of ``--widths`` (default 4096-65,536)
+for the circle and the box on the full and a holed table (``--configs``),
+on a state
+eight random steps into a rollout, in both block shapes where the tree's
+wrapper has ``planning.uses_producer`` (thread-per-env, and the consumer
+with its producer warps), else in the wrapper's: the table ``WIDE_BATCH``
+is read from.  The producer-warp count is compiled in
+(``kPlanningProducers``, ``csrc/planning.cuh``): to time another, change it
+there and run again.
+
 Every cell runs ``--repeats`` times and reports every repeat, their median
 and their spread ((max - min) / median), and the host's time to enqueue each
 rollout, with the card's name and power limit in the JSON line printed.
@@ -79,6 +94,20 @@ def device_profile(fn) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:4]
     return {'busy_ms': sum(us for _, us in kernels.values()) / 1e3,
             'kernels': {name[:60]: {'launches': n, 'ms_per_launch': us / n / 1e3} for name, (n, us) in top}}
+
+
+def launch_device_ms(fn, launches: int) -> float:
+    """The card's median ms per launch of ``fn()`` (one kernel a call) over
+    ``launches`` calls back to back, from the profiler's kernel records: the
+    device's time whatever the host's rate of enqueueing them."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    return statistics.median(evt.time_range.elapsed_us() / 1e3 for evt in prof.events()
+                             if evt.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def launch_cost(b: int, device: str = 'cuda:0', groups: int = 20, per_group: int = 16) -> dict:
@@ -245,16 +274,112 @@ def multi_rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> 
     return out
 
 
+PLAN_WIDTHS = (4096, 8192, 16384, 32768, 65536)
+_BOX = {'shape': 'box', 'size': [0.09, 0.08]}
+#: 1-mover planning configurations kernels F and G are timed on (chip_smoke.py's): name -> (layout, collision)
+PLAN_CONFIGS = {
+    'circle_full': (((1, 1, 1), (1, 1, 1), (1, 1, 1)), None),
+    'box_full': (((1, 1, 1), (1, 1, 1), (1, 1, 1)), _BOX),
+    'circle_holed': (((1, 1, 1), (1, 1, 0), (1, 1, 1)), None),
+    'box_holed': (((1, 1, 0), (1, 1, 1), (0, 1, 1)), _BOX),
+}
+
+
+def planning_rollout_state(b: int, seed: int, device: str = 'cuda:0', config: str = 'circle_full', steps: int = 8):
+    """(config, params, state) of a ``PLAN_CONFIGS`` configuration (the
+    default one: bench.py:213): ``init_batch``, then ``steps`` fused
+    autoreset steps of uniform random actions in [-10, 10]."""
+    import numpy as np
+
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+
+    layout, coll = PLAN_CONFIGS[config]
+    cfg, prm = planning.make_planning_env(np.array(layout), 1, collision_params=coll, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, _, _ = planning.init_batch(cfg, prm, b, g)
+    step = planning.make_fused_step_autoreset(cfg, prm)
+    for _ in range(steps):
+        state = step(state, (torch.rand((b, 2), generator=g, device=device) * 2 - 1) * 10.0, generator=g)[0]
+    return cfg, prm, state
+
+
+def planning_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: str = 'cuda:0',
+                       launches: int = 100) -> dict:
+    """Kernels F and G's device ms per launch (Philox, seed 7; G at K = 32;
+    ``launch_device_ms``) at each width and configuration, on
+    ``planning_rollout_state``, in both block shapes where the tree's
+    wrapper has ``uses_producer``, else in the wrapper's."""
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
+
+    # label -> every wide batch patched in for the launches
+    split = hasattr(kplan, 'uses_producer')
+    shapes = {'thread_per_env': 0, 'producer': 1 << 62} if split else {'wrapper': None}
+    out = {}
+    for name in configs:
+        for b in widths:
+            cfg, prm, state = planning_rollout_state(b, 40, device, name)
+            kc = kplan.make_kernel_consts(cfg, prm)
+            st = planning.state_to_planes(cfg, state)
+            g = torch.Generator(device=device).manual_seed(41)
+            acts = ((torch.rand((KS[-1], 2, b), generator=g, device=device) * 2 - 1) * 10.0).contiguous()
+            cell = {'F_ms': {}, 'G_ms': {}}
+            for label, wide in shapes.items():
+                saved = getattr(kplan, 'WIDE_BATCH', None)  # the parent tree has none
+                if wide is not None:
+                    kplan.WIDE_BATCH = dict.fromkeys(saved, (wide, wide))
+                try:
+                    # device time from the profiler: F's launch is shorter than the host's enqueue of it
+                    cell['F_ms'][label] = launch_device_ms(
+                        lambda: kplan.planning_autoreset_cuda(st, acts[0], kc, None, 7), launches)
+                    cell['G_ms'][label] = launch_device_ms(
+                        lambda: kplan.planning_rollout_cuda(st, acts, kc, None, 7), max(launches // 10, 3))
+                finally:
+                    if wide is not None:
+                        kplan.WIDE_BATCH = saved
+            if split:
+                cell['wrapper_producer'] = {'F': kplan.uses_producer(b, kc),
+                                            'G': kplan.uses_producer(b, kc, rollout=True)}
+            out[f'{name},B={b}'] = cell
+    return out
+
+
+def planning_rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> dict:
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+
+    out = {}
+    for b in WIDTHS:
+        cfg, prm, state = planning_rollout_state(b, 4, device, steps=0)
+        g = torch.Generator(device=device).manual_seed(5)
+        acts = (torch.rand((T_ROLL, b, 2), generator=g, device=device) * 2 - 1) * 10.0
+        for k in KS:
+            roll = planning.make_fused_rollout(cfg, prm, steps_per_launch=k)
+            timings = [time_ms(lambda: roll(state, acts, 3), 3) for _ in range(repeats)]
+            runs = [b * T_ROLL / (ms / 1e3) for ms, _ in timings]
+            med = statistics.median(runs)
+            cell = {'env_steps_per_s': runs, 'median': med, 'spread': (max(runs) - min(runs)) / med,
+                    'host_ms_per_rollout': [host for _, host in timings],
+                    'host_share': [min(host / ms, 1.0) for ms, host in timings]}
+            if profile:
+                cell['profile'] = device_profile(lambda: roll(state, acts, 3))
+            out[f'B={b},K={k}'] = cell
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--label', default='')
     ap.add_argument('--repeats', type=int, default=5)
     ap.add_argument('--profile', action='store_true', help='also trace one rollout per cell')
-    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'all'), default='all',
+    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'planning', 'all'), default='all',
                     help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them)")
     ap.add_argument('--movers', default=','.join(map(str, MULTI_TABLES)),
                     help="'layouts': comma-separated mover counts (keys of MULTI_TABLES)")
-    ap.add_argument('--widths', default=','.join(map(str, WIDTHS)), help="'layouts': comma-separated env counts")
+    ap.add_argument('--configs', default=','.join(PLAN_CONFIGS),
+                    help="'planning': comma-separated configurations of the kernel timings (keys of PLAN_CONFIGS)")
+    ap.add_argument('--widths', default=None,
+                    help="'layouts', 'planning': comma-separated env counts of the kernel timings (default "
+                         f"{','.join(map(str, WIDTHS))} and {','.join(map(str, PLAN_WIDTHS))})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device')
@@ -268,9 +393,12 @@ def main() -> int:
         out['rates'] = rates(args.repeats, args.profile)
     if args.family in ('multi', 'all'):
         out['multi'] = multi_rates(args.repeats, args.profile)
+    widths = tuple(int(b) for b in args.widths.split(',')) if args.widths else None
     if args.family in ('layouts', 'all'):
-        out['layouts'] = kernel_h_layouts(tuple(int(m) for m in args.movers.split(',')),
-                                          tuple(int(b) for b in args.widths.split(',')))
+        out['layouts'] = kernel_h_layouts(tuple(int(m) for m in args.movers.split(',')), widths or WIDTHS)
+    if args.family in ('planning', 'all'):
+        out['planning'] = planning_rates(args.repeats, args.profile)
+        out['planning_kernels'] = planning_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))
     print(json.dumps(out))
     return 0
 

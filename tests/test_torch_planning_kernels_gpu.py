@@ -12,6 +12,11 @@ corners, so the missing-corner rectangle tests run).  The kernels round
 every product and sum on their own and divide by IEEE division, as the
 plain versions' eager ops do, so flags and steps must match exactly and
 every other plane to rtol 1e-6 / atol 1e-7 (in practice bit for bit).
+
+Kernels F and G run in two block shapes: with the producer (the consumer
+warp and its producer warps, the wrapper's choice up to its configuration's
+``planning.WIDE_BATCH`` envs) and thread-per-env (above it); each test of
+them runs both, the threshold moved to reach the other (``use_producer``).
 """
 
 import dataclasses
@@ -70,6 +75,12 @@ def far_goals(state):
     return dataclasses.replace(state, goals=far.to(state.pos.dtype))
 
 
+def use_producer(monkeypatch, producer):
+    """Make kernels F and G launch blocks with the producer (1) or thread-per-env blocks (0) at every width."""
+    wide = 1 << 62 if producer else 0
+    monkeypatch.setattr(kplan, 'WIDE_BATCH', dict.fromkeys(kplan.WIDE_BATCH, (wide, wide)))
+
+
 def assert_planes(got, want, exact=()):
     for i in range(got.shape[0]):
         if i in exact:
@@ -94,8 +105,10 @@ def test_kernel_e_matches_plain(cuda, name):
     assert 0 < int((got[6] > 0).sum()) < B
 
 
+@pytest.mark.parametrize('producer', [0, 1])
 @pytest.mark.parametrize('name', sorted(CONFIGS))
-def test_kernel_f_matches_plain(cuda, name):
+def test_kernel_f_matches_plain(cuda, monkeypatch, name, producer):
+    use_producer(monkeypatch, producer)
     cfg, prm = make(name, cuda, learn_jerk=name.endswith('holed'))
     kc = kplan.make_kernel_consts(cfg, prm)
     state = wall_state(cfg, prm, B, cuda, seed=1)
@@ -109,8 +122,10 @@ def test_kernel_f_matches_plain(cuda, name):
     assert int((got[8] == 0).sum()) >= B // 8 and int((got[19] > 0).sum()) > 0  # restarts and wall hits
 
 
+@pytest.mark.parametrize('producer', [0, 1])
 @pytest.mark.parametrize('name', ['circle_full', 'box_holed'])
-def test_kernel_g_matches_plain(cuda, name):
+def test_kernel_g_matches_plain(cuda, monkeypatch, name, producer):
+    use_producer(monkeypatch, producer)
     cfg, prm = make(name, cuda)
     kc = kplan.make_kernel_consts(cfg, prm)
     K = 4
@@ -125,12 +140,14 @@ def test_kernel_g_matches_plain(cuda, name):
     assert_planes(got_st, want_st, exact=(8,))
 
 
-def test_philox_mode_matches_plain_on_its_stream(cuda):
+@pytest.mark.parametrize('producer', [0, 1])
+def test_philox_mode_matches_plain_on_its_stream(cuda, monkeypatch, producer):
     """The in-kernel Philox stream is the host copy's stream, also where
-    the autoreset kernel passes over the sampling draws of envs that are
-    not done."""
+    the thread-per-env kernel passes over the sampling draws of envs that
+    are not done and where the producer takes draws by absolute index."""
     from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import philox_uniforms
 
+    use_producer(monkeypatch, producer)
     cfg, prm = make('box_holed', cuda)
     kc = kplan.make_kernel_consts(cfg, prm)
     b = 1024
@@ -141,9 +158,11 @@ def test_philox_mode_matches_plain_on_its_stream(cuda):
     assert_planes(got, kplan.planning_autoreset_plain(st, act, kc, u), exact=(8, 19, 20, 21, 22))
 
 
-def test_public_path_k32_matches_k1(cuda):
+@pytest.mark.parametrize('producer', [0, 1])
+def test_public_path_k32_matches_k1(cuda, monkeypatch, producer):
     """std_noise = 0: the K=32 rollout (kernel G) and the per-step rollout
     (kernel F) agree on every env that never restarted."""
+    use_producer(monkeypatch, producer)
     cfg, prm = tplan.make_planning_env(np.ones((3, 3)), 1, std_noise=0.0, device=cuda)
     b, T = 4096, 40
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -158,3 +177,60 @@ def test_public_path_k32_matches_k1(cuda):
     assert live.sum() > b // 4
     for k in ('pos', 'vel', 'acc', 'goals'):
         assert torch.equal(getattr(r32[0], k)[live], getattr(r1[0], k)[live]), k
+
+
+# -- kernels F and G at ragged widths ----------------------------------------------
+# B = 1, 31, 33 are partial warps (33: a second tile of one env) and 4097 a
+# partial tail tile: with the producer every lane takes part in every
+# barrier, so none hangs; both noise modes, every configuration, both block
+# shapes.
+RAGGED = [1, 31, 33, 4097]
+
+
+def ragged_case(name, b, device, seed, cand_k):
+    cfg, prm = make(name, device, learn_jerk=name.endswith('holed'))
+    kc = kplan.make_kernel_consts(cfg, prm, cand_k)
+    st = tplan.state_to_planes(cfg, wall_state(cfg, prm, b, device, seed=seed))
+    return cfg, kc, st
+
+
+def ragged_modes(n_noise, b, device, seed=7):
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import philox_uniforms
+
+    u = torch.rand((n_noise, b), device=device)
+    return (('injected', u, 0, u), ('philox', None, seed, philox_uniforms(seed, n_noise, b).to(device)))
+
+
+@pytest.mark.parametrize('producer', [0, 1])
+@pytest.mark.parametrize('name', sorted(CONFIGS))
+@pytest.mark.parametrize('b', RAGGED)
+def test_kernel_f_matches_plain_at_ragged_widths(cuda, monkeypatch, b, name, producer):
+    use_producer(monkeypatch, producer)
+    cand_k = 7 if b == 33 else 16  # 33: the goal sampler's first candidate inside a Philox block
+    cfg, kc, st = ragged_case(name, b, cuda, b, cand_k)
+    act = ((torch.rand((2, b), device=cuda) * 2 - 1) * (100.0 if cfg.learn_jerk else 10.0)).contiguous()
+    for mode, u, seed, u_plain in ragged_modes(kplan.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box), b, cuda):
+        got = kplan.planning_autoreset_cuda(st, act, kc, u, seed)
+        assert_planes(got, kplan.planning_autoreset_plain(st, act, kc, u_plain), exact=(8, 19, 20, 21, 22))
+
+
+@pytest.mark.parametrize('producer', [0, 1])
+@pytest.mark.parametrize('name', sorted(CONFIGS))
+@pytest.mark.parametrize('b', RAGGED)
+def test_kernel_g_matches_plain_at_ragged_widths(cuda, monkeypatch, b, name, producer):
+    """G over 3 steps; at K=1 one step of G is kernel F's step, bit for bit."""
+    use_producer(monkeypatch, producer)
+    K, cand_k = 3, 7 if b == 33 else 16
+    cfg, kc, st = ragged_case(name, b, cuda, b + 1, cand_k)
+    acts = ((torch.rand((K, 2, b), device=cuda) * 2 - 1) * (100.0 if cfg.learn_jerk else 10.0)).contiguous()
+    n_step = kplan.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box)
+    for mode, u, seed, u_plain in ragged_modes(K * n_step, b, cuda):
+        got_st, got_sig = kplan.planning_rollout_cuda(st, acts, kc, u, seed)
+        want_st, want_sig = kplan.planning_rollout_plain(st, acts, kc, u_plain)
+        assert torch.equal(got_sig, want_sig), mode
+        assert_planes(got_st, want_st, exact=(8,))
+        u1 = None if u is None else u[:n_step].contiguous()
+        one_st, one_sig = kplan.planning_rollout_cuda(st, acts[:1].contiguous(), kc, u1, seed)
+        out = kplan.planning_autoreset_cuda(st, acts[0].contiguous(), kc, u1, seed)
+        assert torch.equal(one_st, out[:9]) and torch.equal(one_sig[0, 0], out[19]), mode
+
