@@ -11,12 +11,17 @@ phase:
    build time and the compiler's register report;
 2. kernel A (noise probe) against its plain PyTorch version on injected
    uniforms and on the host copy of its Philox stream, plus the moments of
-   262,144 Philox normals;
+   262,144 Philox normals, and the profiler's device time a launch at the
+   main path's shape;
 3. kernels B, C and D against their plain versions at 4096 envs, from
    states with the mover planted at the object, in both noise modes:
    injected uniforms, and the kernel's own Philox stream (seed 7, the mode
    the public path launches) against the plain version fed the host copy
-   of that stream (``noise.philox_uniforms``); C and D also at 65,536 envs,
+   of that stream (``noise.philox_uniforms``); B in both block shapes (with
+   the producer warp and without) at 4096 and 65,536 envs in both noise
+   modes, with the profiler's device time a launch in each shape and the
+   SASS instructions a control cycle of its consumer's, producer's and
+   thread-per-env loop; C and D also at 65,536 envs,
    where the wrapper launches blocks without the producer warp: held
    against their plain versions in both modes (D over 3 steps; an env that
    hits the wall may latch it a control cycle apart) and timed
@@ -33,11 +38,11 @@ phase:
 6. kernels E, F and G (single-mover planning) against their plain versions
    at 4096 envs, in both noise modes as in 3., on four configurations:
    circle and box collision shapes on the full 3x3 table and on a holed
-   layout, a quarter of the envs driven into a wall; F and G in both block
+   layout, a quarter of the envs driven into a wall; E, F and G in both block
    shapes (with producer warps, the wrapper's choice up to its
    configuration's ``planning.WIDE_BATCH`` envs, and thread-per-env), also
-   at 65,536 envs (F on every configuration; G over 3 steps on the full
-   layouts), timed in both
+   at 65,536 envs (F on every configuration; E, and G over 3 steps, on the
+   full layouts), timed in both
    shapes at both widths, with the SASS instructions per control cycle of
    the consumer's, the producer's and the thread-per-env loop and
    ``ptxas -v``;
@@ -111,7 +116,7 @@ phase:
    versions at 4096 envs (box half-extents 0.09, bench.py:653-655), a
    quarter of the envs driven into the -x wall, in both noise modes (D held
    over 8 steps and timed at K=32), each timed beside its circle twin and
-   its bound (``roofline.OPS['pushing_cycle_box']``), C, C-feat and D as
+   its bound (``roofline.OPS['pushing_cycle_box']``), B, C, C-feat and D as
    in 3.;
 21. the box main path: ``make_fused_step``, ``make_fused_step_autoreset``,
    ``make_fused_rollout`` at K=1 and K=32 and ``make_reactive_rollout`` with
@@ -128,8 +133,9 @@ phase:
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread (where the
-host enqueues F slower than the card runs it, that is the host's rate:
-F's phase also gives the profiler's device time a launch).  The line
+host enqueues A, E or F slower than the card runs it, that is the host's
+rate: their phases, and B's, also give the profiler's device time a
+launch).  The line
 before the last is a JSON object with one entry per kernel (A-H, C-feat,
 I's two probes and the box variants of B, C, C-feat and D): its
 launches on its path, its largest error against the plain version (both
@@ -350,13 +356,22 @@ def shared_load_marker(op: str, args: str) -> bool:
     return op.startswith('LDS')
 
 
-def sass_cycle_counts(lib_path: str, kernel: str, marker=friction_marker, per_cycle: int = 1) -> dict:
+def pops(n: int):
+    """Whether a loop pops ``n`` values from the ring: one control cycle of
+    a consumer's loop, ``n`` the values of a cycle (a loop with other counts
+    of shared loads reads a step stage)."""
+    return lambda loop: sum(shared_load_marker(o, a) for o, a in loop) == n
+
+
+def sass_cycle_counts(lib_path: str, kernel: str, marker=friction_marker, per_cycle: int = 1, where=None) -> dict:
     """Instructions and MUFU (special-function) instructions per control
     cycle in the cycle loop of ``kernel`` (``sass_loops``): the innermost
-    loop holding ``marker`` instructions, ``per_cycle`` of them a cycle, so
-    the loop's unrolling cancels out.  Static counts: a stage hand-over
-    inside the loop counts once a cycle though it runs once a stage."""
-    marked = [(loop, sum(marker(o, a) for o, a in loop)) for loop in sass_loops(lib_path, kernel)]
+    loop holding ``marker`` instructions (among the loops for which
+    ``where(loop)`` holds, when given), ``per_cycle`` of them a cycle, so the
+    loop's unrolling cancels out.  Static counts: a stage hand-over inside
+    the loop counts once a cycle though it runs once a stage."""
+    marked = [(loop, sum(marker(o, a) for o, a in loop)) for loop in sass_loops(lib_path, kernel)
+              if where is None or where(loop)]
     marked = [(loop, n / per_cycle) for loop, n in marked if n]
     if not marked:
         return {'error': f'no cycle loop found in {kernel}'}
@@ -394,8 +409,8 @@ def main() -> int:
     from gymnasium_planar_robotics_tpu_torch.ops import kernels
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, noise
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kp
-    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import (forced_layout, kernel_h_layouts, launch_device_ms,
-                                                                         multi_rollout_state)
+    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import (forced_layout, forced_shape, kernel_h_layouts,
+                                                                         launch_device_ms, multi_rollout_state)
     from gymnasium_planar_robotics_tpu_torch.utils.roofline import (OPS, multi_cycle_terms, multi_env_terms, ops_total,
                                                                     planning_cycle_ops)
 
@@ -483,6 +498,9 @@ def main() -> int:
         u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
         ms, ms_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7))
         injected_ms, injected_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
+        # the profiler's kernel records: a launch of A is shorter than the host's enqueue of it
+        device_ms = {'philox': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7), 100),
+                     'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 100)}
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
         ops = ops_total((3 * B_MAIN, 'normal_pair'))
         bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
@@ -495,7 +513,8 @@ def main() -> int:
                 'tol': 'atol 2e-6 + rtol 2e-6', 'philox_samples': 2 * n_env, 'mean': mean, 'std': std,
                 'p_abs_gt_2': tail, 'ms': ms, 'ms_groups': ms_groups, 'ms_spread': spread(ms_groups),
                 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
-                'injected_ms': injected_ms, 'injected_groups': injected_groups, 'injected_bound_ms': injected_bound_ms}
+                'injected_ms': injected_ms, 'injected_groups': injected_groups, 'injected_bound_ms': injected_bound_ms,
+                'device_ms': device_ms}
 
     # -- 3. kernels B, C, D ---------------------------------------------------
     config, params = P.make_pushing_env(device=dev)
@@ -531,22 +550,20 @@ def main() -> int:
     feat_rtol, feat_atol = 3e-5, 6e-6
 
     def with_producer(producer: int, fn, module=kp):
-        """``fn()`` with the kernels of ``module`` (C and D; planning's F and
-        G, whose ``WIDE_BATCH`` is a table by configuration) launching blocks
-        with (1) or without (0) the producer at every width."""
-        saved, wide = module.WIDE_BATCH, (1 << 62) if producer else 0
-        module.WIDE_BATCH = dict.fromkeys(saved, (wide, wide)) if isinstance(saved, dict) else wide
-        try:
+        """``fn()`` with the kernels of ``module`` (pushing's B, C and D;
+        planning's E, F and G) launching blocks with (1) or without (0) the
+        producer at every width."""
+        with forced_shape(module, producer):
             return fn()
-        finally:
-            module.WIDE_BATCH = saved
 
-    def split_report(launch, main_args, large_args, kernel: str, grouped: bool = True) -> dict:
+    def split_report(launch, main_args, large_args, kernel: str, kc_, which: str = 'autoreset',
+                     grouped: bool = True) -> dict:
         """Kernels C and D's two block shapes: the time of ``launch(*args)``
         (Philox) at B_MAIN and B_LARGE with and without the producer warp (the
-        wrapper takes one at each width, the other shows when the threshold
-        goes stale), the ring layout, and the consumer's cycle loop in SASS
-        (``kernel``: its acc Philox instantiation)."""
+        wrapper takes one at each width for ``kc_`` and ``which`` kernel, the
+        other shows when the threshold goes stale), the ring layout, and the
+        consumer's cycle loop in SASS (``kernel``: its acc Philox
+        instantiation)."""
         def ms_of(fn):
             return time_groups(fn)[0] if grouped else statistics.median(time_ms(fn, 5) for _ in range(3))
 
@@ -558,7 +575,7 @@ def main() -> int:
         name, flags = kernel.split('IL', 1)
         shape = re.compile(name + r'ILb[01]ELb' + re.findall(r'b([01])', flags)[1] + 'E')
         ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items() if shape.search(k)}
-        producers = {b: kp.producer_warps(b) for b in (B_MAIN, B_LARGE)}
+        producers = {b: kp.uses_producer(b, kc_, which) for b in (B_MAIN, B_LARGE)}
         return {'ms_large': by_p[B_LARGE][producers[B_LARGE]], 'B_large': B_LARGE, 'producers': producers,
                 'wide_batch': kp.WIDE_BATCH, 'ms_by_producers': by_p, 'layout': kp.split_layout(),
                 'consumer_sass': sass_cycle_counts(build.build_info['path'], kernel), 'ptxas_both_roles': ptxas}
@@ -584,7 +601,7 @@ def main() -> int:
         last-ulp rounding at a crossing decides the cycle) on at most 0.1% of
         the envs; the feature blocks its own planes and, on the envs that
         agree, within feat_rtol/feat_atol."""
-        res = {'B': B_LARGE, 'producers': kp.producer_warps(B_LARGE)}
+        res = {'B': B_LARGE, 'producers': kp.uses_producer(B_LARGE, kc_)}
         for mode, uk, seed, uref in large_modes(kp.autoreset_noise_planes(kc_.num_cycles, kc_.cand_k, kc_.box)):
             got = kp.pushing_autoreset_cuda(st, act, kc_, uk, seed, emit)
             ref = kp.pushing_autoreset_plain(st, act, kc_, uref, emit)
@@ -618,7 +635,7 @@ def main() -> int:
         rtol = torch.tensor([plane_tol(i)[0] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
         atol = torch.tensor([plane_tol(i)[1] for i in range(kp.N_STATE)], device=dev)[:, None] * 10
         n = K_LARGE_CHECK * kp.autoreset_noise_planes(kc_.num_cycles, kc_.cand_k, kc_.box)
-        res = {'B': B_LARGE, 'K': K_LARGE_CHECK, 'producers': kp.producer_warps(B_LARGE)}
+        res = {'B': B_LARGE, 'K': K_LARGE_CHECK, 'producers': kp.uses_producer(B_LARGE, kc_, 'rollout')}
         for mode, uk, seed, uref in large_modes(n):
             got_st, got_sig = kp.pushing_rollout_cuda(st, acts, kc_, uk, seed)
             ref_st, ref_sig = kp.pushing_rollout_plain(st, acts, kc_, uref)
@@ -629,6 +646,52 @@ def main() -> int:
             require(frac >= 0.99, f'B={B_LARGE} {mode}: only {frac:.4f} of envs agree over {K_LARGE_CHECK} steps')
             res[mode] = {'envs_agreeing': frac, 'max_abs_err_agreeing_envs': float(d_state[:, env_ok].max()),
                          'wall_hits': int((got_sig[0] > 0.5).sum())}
+        return res
+
+    def cycles_shapes(kc_, planes, planes_l) -> dict:
+        """Kernel B (``kc_``'s shape) in both block shapes (with the producer
+        warp, 1, and without, 0) and both noise modes against its plain
+        version, at B_MAIN-env ``planes`` and B_LARGE-env ``planes_l``: the
+        wall flags equal for every env and every plane at its class tolerance,
+        except at B_LARGE that an env which hit the wall may latch it one
+        control cycle apart on at most 0.1% of the envs (as kernel C there);
+        the profiler's device ms a launch (Philox) in both shapes at both
+        widths; and the SASS instructions a control cycle of the consumer's,
+        the producer's and the thread-per-env loop (the acc Philox
+        instantiation)."""
+        res = {'wide_batch': kp.WIDE_BATCH['box' if kc_.box else 'circle']['cycles'], 'device_ms': {},
+               'producer': {}}
+        for pl in (planes, planes_l):
+            b = pl.shape[1]
+            u = torch.rand((kp.cycles_noise_planes(kc_.num_cycles, kc_.box), b), generator=gen, device=dev)
+            n_noise = u.shape[0]
+            for mode, uk, seed, uref in (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, b))):
+                ref = kp.pushing_cycles_plain(pl, kc_, uref)
+                for producer in (0, 1):
+                    got = with_producer(producer, lambda: kp.pushing_cycles_cuda(pl, kc_, uk, seed))
+                    tag = f'B={b} {mode}, producer {producer}'
+                    require(torch.equal(got[16], ref[16]), f'{tag}: wall flags differ in '
+                                                           f'{int((got[16] != ref[16]).sum())} envs')
+                    env_ok = torch.ones(b, dtype=torch.bool, device=dev)
+                    for i in range(got.shape[0]):
+                        rtol, atol = plane_tol(i)
+                        env_ok &= (got[i] - ref[i]).abs() <= atol + rtol * ref[i].abs()
+                    latched = int((~env_ok).sum())
+                    require(bool(torch.isfinite(got).all()), f'{tag}: kernel B output is not finite')
+                    require(latched == 0 if b == B_MAIN else latched <= 1e-3 * b, f'{tag}: {latched} envs disagree')
+                    require(bool((got[16][~env_ok] > 0).all()), f'{tag}: an env that hit no wall disagrees')
+                    res[f'{mode}_B={b}_producer_{producer}'] = {
+                        'max_abs_err': float((got[:, env_ok] - ref[:, env_ok]).abs().max()),
+                        'wall_hits': int((got[16] > 0).sum()), 'wall_latch_envs': latched}
+            res['device_ms'][b] = {p: launch_device_ms(lambda p=p: with_producer(
+                p, lambda: kp.pushing_cycles_cuda(pl, kc_, None, 7)), 100) for p in (0, 1)}
+            res['producer'][b] = kp.uses_producer(b, kc_, 'cycles')
+        path, kernel = build.build_info['path'], f'pushing_cycles_kernelILb0ELb{int(kc_.box)}ELb0E'
+        res['sass'] = {
+            'consumer': sass_cycle_counts(path, kernel, where=pops(8 if kc_.box else 4)),
+            'producer': sass_cycle_counts(path, kernel, box_muller_marker, 4 if kc_.box else 2,
+                                          where=lambda loop: not any(friction_marker(o, a) for o, a in loop)),
+            'thread_per_env': sass_cycle_counts(path, kernel, where=pops(0))}
         return res
 
     @phase('kernel_B_pushing_cycles')
@@ -652,11 +715,16 @@ def main() -> int:
         ms = time_ms(lambda: kp.pushing_cycles_cuda(planes, kc, None, 7), 20)
         ops = ops_total((B_MAIN * kc.num_cycles, 'pushing_cycle'))
         bound_ms, bound_by = bound((18 + 17) * 4 * B_MAIN, ops)
-        kstats['pushing_cycles'].update(max_abs_err=max(err, err_p), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                        bound_by=bound_by)
+        state_l = planted_state(P, config, params, B_LARGE, gen)
+        act_l = (torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0
+        shapes = cycles_shapes(kc, planes, torch.cat([P.state_to_planes(state_l)[:16], act_l]).contiguous())
+        kstats['pushing_cycles'].update(max_abs_err=max(err, err_p, *(v['max_abs_err'] for k, v in shapes.items()
+                                                                      if k.startswith(('injected', 'philox')))),
+                                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         return {'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'object_moved': moved,
                 'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
-                'injected_ms': injected_ms, 'injected_bound_ms': bound((18 + n_noise + 17) * 4 * B_MAIN, ops)[0]}
+                'injected_ms': injected_ms, 'injected_bound_ms': bound((18 + n_noise + 17) * 4 * B_MAIN, ops)[0],
+                'bound_ms_large': bound((18 + 17) * 4 * B_LARGE, ops * B_LARGE / B_MAIN)[0], 'shapes': shapes}
 
     @phase('kernel_C_pushing_autoreset')
     def _():
@@ -688,7 +756,7 @@ def main() -> int:
         act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
         large = check_large_autoreset(kc, st_l, act_l)
         split = split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kc, None, 7), (st, act), (st_l, act_l),
-                             'pushing_autoreset_kernelILb0ELb0ELb0ELb0E')
+                             'pushing_autoreset_kernelILb0ELb0ELb0ELb0E', kc)
         return {'large': large, 'max_abs_err': err, 'max_abs_err_philox': err_p, 'per_plane': errs, 'restarts': restarts,
                 'ms': ms, 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
                 'injected_ms': injected_ms, 'injected_bound_ms': bound((21 + n_noise + 36) * 4 * B_MAIN, ops)[0],
@@ -721,7 +789,7 @@ def main() -> int:
         frac_p, err_ok_p, _ = agreement(*kp.pushing_rollout_cuda(st, acts, kc, None, 7),
                                         *kp.pushing_rollout_plain(st, acts, kc, philox(7, n, B_MAIN)))
         injected_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, u), 5)
-        plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kc, u), 1)
+        plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kc, u), 1, warmup=0)
         ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kc, None, 7), 5)
         ops = K_MAIN * B_MAIN * pushing_step_ops()
         bound_ms, bound_by = bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_MAIN, ops)
@@ -731,7 +799,7 @@ def main() -> int:
         large = check_large_rollout(kc, st_l)
         acts_l = ((torch.rand((K_MAIN, 2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
         split = split_report(lambda s_, a_: kp.pushing_rollout_cuda(s_, a_, kc, None, 7), (st, acts), (st_l, acts_l),
-                             'pushing_rollout_kernelILb0ELb0ELb0E', grouped=False)
+                             'pushing_rollout_kernelILb0ELb0ELb0E', kc, 'rollout', grouped=False)
         return {'K': K_MAIN, 'large': large, **split, 'envs_agreeing': frac, 'envs_agreeing_philox': frac_p,
                 'bound_ms_large': bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_LARGE,
                                         K_MAIN * B_LARGE * pushing_step_ops())[0],
@@ -835,7 +903,7 @@ def main() -> int:
                 kern = P.make_fused_rollout(cfg, prm, steps_per_launch=K)
                 plain = P._make_rollout(cfg, prm, K, plain_step, plain_chunk)
                 t_k = time_ms(lambda kern=kern: kern(state, acts, 3), 3)
-                t_p = time_ms(lambda plain=plain: plain(state, acts, 3), 1)
+                t_p = time_ms(lambda plain=plain: plain(state, acts, 3), 1, warmup=0)
                 rates[f'B={b},K={K}'] = {
                     'kernel_ms': t_k, 'plain_ms': t_p,
                     'kernel_env_steps_per_s': b * T_ROLL / (t_k / 1e3),
@@ -904,50 +972,10 @@ def main() -> int:
         cand = ops_total((1, 'planning_candidate_box' if kc.box else 'planning_candidate_circle'), *holed)
         return per_env * B_MAIN + cand * candidates
 
-    @phase('kernel_E_planning_cycles')
-    def _():
-        res = {}
-        for name in plan_configs:
-            jerk = name.startswith('box')
-            cfg, prm = plan_env(name, learn_jerk=jerk)
-            kc = kpl.make_kernel_consts(cfg, prm)
-            state = wall_state(cfg, prm, B_MAIN, 10)
-            act = (torch.rand((2, B_MAIN), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0)
-            planes = torch.cat([PL.state_to_planes(cfg, state)[:6], act]).contiguous()
-            n_noise = kpl.cycles_noise_planes(cfg.num_cycles, kc.box)
-            u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
-            err, walls, errs_p = 0.0, {}, {}
-            for mode, got, ref in (
-                    ('injected', kpl.planning_cycles_cuda(planes, kc, u), kpl.planning_cycles_plain(planes, kc, u)),
-                    ('philox', kpl.planning_cycles_cuda(planes, kc, None, 7),
-                     kpl.planning_cycles_plain(planes, kc, philox(7, n_noise, B_MAIN)))):
-                e, bad = planes_check(got, ref, exact=(6,))
-                walls[mode] = int((got[6] > 0).sum())
-                require(not bad, f'{name} ({mode}): planes {bad} disagree')
-                require(0 < walls[mode] < B_MAIN, f'{name} ({mode}): {walls[mode]} wall hits')
-                err = max(err, e)
-            injected_ms, _ = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, u))
-            ms, ms_groups = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, None, 7))
-            plain_ms = time_ms(lambda: kpl.planning_cycles_plain(planes, kc, u), 1)
-            ops = ops_total(*[(B_MAIN * cfg.num_cycles * n, nm) for n, nm in planning_cycle_ops(kc.box, kc.rule.full,
-                                                                                                 jerk)])
-            bound_ms, bound_by = bound((8 + 7) * 4 * B_MAIN, ops)
-            res[name] = {'jerk': jerk, 'max_abs_err': err, 'wall_hits': walls, 'ms': ms, 'ms_groups': ms_groups,
-                         'ms_spread': spread(ms_groups), 'bound_ms': bound_ms,
-                         'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
-                         'injected_bound_ms': bound((8 + n_noise + 7) * 4 * B_MAIN, ops)[0]}
-        main = res['circle_full']
-        kstats['planning_cycles'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()), ms=main['ms'],
-                                         plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
-                                         bound_by=main['bound_by'])
-        return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
-                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
-                'configs': res}
-
-    # kernels F and G launch blocks with the producer up to their
+    # kernels E, F and G launch blocks with the producer up to their
     # configuration's kpl.WIDE_BATCH envs and thread-per-env blocks above:
     # both shapes are held against the plain versions at B_MAIN and B_LARGE
-    # (every configuration for F, the full layouts for G, whose plain
+    # (every configuration for F, the full layouts for E and G; G's plain
     # rollout on a holed table is the costly part) and timed at both widths
     plan_widths = {name: (B_MAIN, B_LARGE) if name.endswith('full') else (B_MAIN,) for name in plan_configs}
 
@@ -956,17 +984,74 @@ def main() -> int:
         return u, (('injected', u, 0, u), ('philox', None, 7, philox(7, n_noise, b)))
 
     def plan_split_report(kernel: str, box: bool) -> dict:
-        """The SASS of kernel F's or G's circle or box, full-layout, Philox
+        """The SASS of kernel E's, F's or G's circle or box, full-layout, Philox
         instantiations: instructions per control cycle in the consumer's
-        loop (values popped from the ring), in the producer's and in the
-        thread-per-env loop (normal pairs drawn), and their ``ptxas -v``."""
+        loop (a cycle's values popped from the ring), in the producer's and
+        in the thread-per-env loop (normal pairs drawn), and their ``ptxas
+        -v``."""
         path, q = build.build_info['path'], 8 if box else 4
         inst = {p: f'{kernel}ILb{int(box)}ELb1ELb0ELb{p}E' for p in (0, 1)}
         ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items()
                  if any(i in k for i in inst.values())}
-        return {'consumer': sass_cycle_counts(path, inst[1], shared_load_marker, q),
+        return {'consumer': sass_cycle_counts(path, inst[1], shared_load_marker, q, where=pops(q)),
                 'producer': sass_cycle_counts(path, inst[1], box_muller_marker, q // 2),
                 'thread_per_env': sass_cycle_counts(path, inst[0], box_muller_marker, q // 2), 'ptxas': ptxas}
+
+    @phase('kernel_E_planning_cycles')
+    def _():
+        res = {}
+        for name in plan_configs:
+            jerk = name.startswith('box')
+            cfg, prm = plan_env(name, learn_jerk=jerk)
+            kc = kpl.make_kernel_consts(cfg, prm)
+            n_noise = kpl.cycles_noise_planes(cfg.num_cycles, kc.box)
+            entry = {'jerk': jerk, 'max_abs_err': 0.0, 'wall_hits': {}, 'device_ms': {}, 'producer': {}}
+            # both block shapes (with the producer warps, 1, and thread-per-env, 0) at B_MAIN, and on the full
+            # layouts at B_LARGE too
+            for b in (B_MAIN, B_LARGE) if name.endswith('full') else (B_MAIN,):
+                state = wall_state(cfg, prm, b, 10)
+                act = (torch.rand((2, b), generator=gen, device=dev) * 2 - 1) * (100.0 if jerk else 10.0)
+                planes = torch.cat([PL.state_to_planes(cfg, state)[:6], act]).contiguous()
+                u, modes = plan_modes(n_noise, b)
+                for mode, uk, seed, uref in modes:
+                    ref = kpl.planning_cycles_plain(planes, kc, uref)
+                    for producer in (0, 1):
+                        got = with_producer(producer, lambda: kpl.planning_cycles_cuda(planes, kc, uk, seed), kpl)
+                        e, bad = planes_check(got, ref, exact=(6,))
+                        walls = int((got[6] > 0).sum())
+                        tag = f'{name} B={b} ({mode}, producer {producer})'
+                        require(not bad, f'{tag}: planes {bad} disagree')
+                        require(0 < walls < b, f'{tag}: {walls} wall hits')
+                        entry['max_abs_err'] = max(entry['max_abs_err'], e)
+                    entry['wall_hits'][mode if b == B_MAIN else f'{mode}_B={b}'] = walls
+                # the profiler's kernel records: a launch of E is shorter than the host's enqueue of it
+                entry['device_ms'][b] = {p: launch_device_ms(lambda p=p: with_producer(
+                    p, lambda: kpl.planning_cycles_cuda(planes, kc, None, 7), kpl), 100) for p in (0, 1)}
+                entry['producer'][b] = kpl.uses_producer(b, kc, 'cycles')
+                if b != B_MAIN:
+                    continue
+                injected_ms, _ = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, u))
+                ms, ms_groups = time_groups(lambda: kpl.planning_cycles_cuda(planes, kc, None, 7))
+                plain_ms = time_ms(lambda: kpl.planning_cycles_plain(planes, kc, u), 1)
+                ops = ops_total(*[(B_MAIN * cfg.num_cycles * n, nm) for n, nm in planning_cycle_ops(
+                    kc.box, kc.rule.full, jerk)])
+                bound_ms, bound_by = bound((8 + 7) * 4 * B_MAIN, ops)
+                entry.update(ms=ms, ms_groups=ms_groups, ms_spread=spread(ms_groups), bound_ms=bound_ms,
+                             bound_by=bound_by, plain_ms=plain_ms, injected_ms=injected_ms,
+                             injected_bound_ms=bound((8 + n_noise + 7) * 4 * B_MAIN, ops)[0])
+            if name.endswith('full'):
+                entry['sass'] = plan_split_report('planning_cycles_kernel', kc.box)
+            res[name] = entry
+        main = res['circle_full']
+        kstats['planning_cycles'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()), ms=main['ms'],
+                                         plain_ms=main['plain_ms'], bound_ms=main['bound_ms'],
+                                         bound_by=main['bound_by'])
+        return {'B': B_MAIN, 'B_large': B_LARGE, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
+                'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
+                'wide_batch_E': {' '.join(k): v['cycles'] for k, v in kpl.WIDE_BATCH.items()},
+                'block_shapes': 'thread-per-env (0) and the consumer with its producer warps (1), both held '
+                                'against the plain versions; device_ms: Philox, the profiler\'s ms a launch',
+                'configs': res}
 
     @phase('kernel_F_planning_autoreset')
     def _():
@@ -1075,7 +1160,7 @@ def main() -> int:
                         kpl.planning_rollout_cuda(st, acts, kc, u)[1])
                     injected_ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, u), 5)
                     ms = time_ms(lambda: kpl.planning_rollout_cuda(st, acts, kc, None, 7), 5)
-                    plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1)
+                    plain_ms = time_ms(lambda: kpl.planning_rollout_plain(st, acts, kc, u), 1, warmup=0)
 
                     def ops(ends):
                         # a floor: each episode end tests at least one start and one goal candidate
@@ -1090,7 +1175,7 @@ def main() -> int:
                     kstats['planning_rollout'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             if name.endswith('full'):
                 entry['sass'] = plan_split_report('planning_rollout_kernel', kc.box)
-            entry['producer'] = {b: kpl.uses_producer(b, kc, rollout=True) for b in (B_MAIN, B_LARGE)}
+            entry['producer'] = {b: kpl.uses_producer(b, kc, 'rollout') for b in (B_MAIN, B_LARGE)}
             res[name] = entry
         kstats['planning_rollout'].update(max_abs_err=max(r['max_abs_err'] for r in res.values()))
         return {'B': B_MAIN, 'B_large': B_LARGE, 'K': K_MAIN,
@@ -1327,7 +1412,7 @@ def main() -> int:
         sets_inj = float(kmu.planning_multi_autoreset_cuda(st, act, mc, u)[18 * m + 5].sum())
         injected_ms, injected_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, u))
         ms, ms_groups = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7))
-        plain_ms = time_ms(lambda: kmu.planning_multi_autoreset_plain(st, act, mc, u), 1)
+        plain_ms = time_ms(lambda: kmu.planning_multi_autoreset_plain(st, act, mc, u), 1, warmup=0)
         bound_ms, bound_by = bound((10 * m + 1 + 18 * m + 6) * 4 * B_MAIN,
                                    multi_step_ops(cfg, mc, cycles, float(got[18 * m + 5].sum())))
         main = {'M': m, 'B': B_MAIN, 'lanes': list(kmu.lane_layout(m, B_MAIN)), 'max_abs_err': e, 'ms': ms,
@@ -1531,7 +1616,8 @@ def main() -> int:
                 act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
                 entry['large'] = check_large_autoreset(kcj, st_l, act_l, emit=True)
                 entry.update(split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kcj, None, 7, True),
-                                          (st, act), (st_l, act_l), 'pushing_autoreset_kernelILb0ELb0ELb0ELb1E'))
+                                          (st, act), (st_l, act_l), 'pushing_autoreset_kernelILb0ELb0ELb0ELb1E',
+                                          kcj))
             res['jerk' if jerk else 'acc'] = entry
         kstats['pushing_autoreset_features'].update(max_abs_err=max(
             e[m]['max_abs_err_features'] for e in res.values() for m in ('injected', 'philox')))
@@ -1977,9 +2063,13 @@ def main() -> int:
         plain_ms = time_ms(lambda: kp.pushing_cycles_plain(planes, kcb, u), 3)
         ops = ops_total((B_MAIN * kcb.num_cycles, 'pushing_cycle_box'))
         bound_ms, bound_by = bound((18 + 17) * 4 * B_MAIN, ops)
-        kstats['pushing_cycles_box'].update(max_abs_err=max(e['max_abs_err'] for e in entry.values()), ms=ms,
-                                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        return {'B': B_MAIN, 'collision': box_coll, **entry, 'ms': ms, 'ms_groups': ms_groups,
+        act_l = (torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0
+        shapes = cycles_shapes(kcb, planes, torch.cat([P.state_to_planes(box_state(B_LARGE))[:16], act_l]).contiguous())
+        kstats['pushing_cycles_box'].update(
+            max_abs_err=max(*(e['max_abs_err'] for e in entry.values()),
+                            *(v['max_abs_err'] for k, v in shapes.items() if k.startswith(('injected', 'philox')))),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        return {'B': B_MAIN, 'collision': box_coll, **entry, 'shapes': shapes, 'ms': ms, 'ms_groups': ms_groups,
                 'ms_spread': spread(ms_groups), 'circle_ms': kstats['pushing_cycles'].get('ms'),
                 'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms, 'injected_ms': injected_ms,
                 'injected_bound_ms': bound((18 + n_noise + 17) * 4 * B_MAIN, ops)[0],
@@ -2014,7 +2104,7 @@ def main() -> int:
         act_l = ((torch.rand((2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
         entry['large'] = check_large_autoreset(kcb, st_l, act_l, emit)
         split = split_report(lambda s_, a_: kp.pushing_autoreset_cuda(s_, a_, kcb, None, 7, emit), (st, act),
-                             (st_l, act_l), 'pushing_autoreset_kernelILb0ELb1ELb0EL' + ('b1E' if emit else 'b0E'))
+                             (st_l, act_l), 'pushing_autoreset_kernelILb0ELb1ELb0EL' + ('b1E' if emit else 'b0E'), kcb)
         injected_ms = time_ms(lambda: kp.pushing_autoreset_cuda(st, act, kcb, u, 0, emit), 20)
         plain_ms = time_ms(lambda: kp.pushing_autoreset_plain(st, act, kcb, u, emit), 3)
         ops = B_MAIN * (box_step_ops() + (sum(OPS['pushing_features']) if emit else 0))
@@ -2066,9 +2156,9 @@ def main() -> int:
         entry['large'] = check_large_rollout(kcb, st_l)
         acts_l = ((torch.rand((K_MAIN, 2, B_LARGE), generator=gen, device=dev) * 2 - 1) * 8.0).contiguous()
         split = split_report(lambda s_, a_: kp.pushing_rollout_cuda(s_, a_, kcb, None, 7), (st, acts), (st_l, acts_l),
-                             'pushing_rollout_kernelILb0ELb1ELb0E', grouped=False)
+                             'pushing_rollout_kernelILb0ELb1ELb0E', kcb, 'rollout', grouped=False)
         injected_ms = time_ms(lambda: kp.pushing_rollout_cuda(st, acts, kcb, u32), 5)
-        plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kcb, u32), 1)
+        plain_ms = time_ms(lambda: kp.pushing_rollout_plain(st, acts, kcb, u32), 1, warmup=0)
         ops = K_MAIN * B_MAIN * box_step_ops()
         bound_ms, bound_by = bound((19 + K_MAIN * (2 + 3) + 19) * 4 * B_MAIN, ops)
         kstats['pushing_rollout_box'].update(

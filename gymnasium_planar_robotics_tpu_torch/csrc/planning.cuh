@@ -12,9 +12,9 @@
 // Arithmetic is the Pallas kernels' expression by expression, each product
 // and sum rounded on its own (common.cuh), so the flags and the state agree
 // bit for bit with the plain PyTorch versions (ops/kernels/planning.py).
-// Kernel E draws its noise as its cycles run; F and G take it from a
-// producer warp that computes it ahead (split.cuh), or, for the wide batch,
-// draw it as E does.
+// Up to the wide batch, kernels E, F and G take their noise from producer
+// warps that compute it ahead (split.cuh); above it each thread draws its
+// env's noise as its cycles run.
 
 #pragma once
 
@@ -65,9 +65,9 @@ __device__ __forceinline__ bool shape_valid(const PlanningLaunch& L, float px, f
 // wall_pose draws the noise (the position pair; for the box (kBox) also two
 // pairs of quaternion noise around the identity, turned into the rotation R
 // by quat_to_R2), wall_valid tests the pose.  Neither half reads the state
-// but npx, npy, so kernels F and G compute wall_pose ahead on the producer
-// warp.  Each product and sum is rounded on its own (common.cuh), so a pose
-// computed ahead has the bits of one drawn in the cycle.
+// but npx, npy, so kernels E, F and G compute wall_pose ahead on the
+// producer warps.  Each product and sum is rounded on its own (common.cuh),
+// so a pose computed ahead has the bits of one drawn in the cycle.
 template <bool kBox, class Noise>
 __device__ __forceinline__ void wall_pose(const PlanningConsts& c, Noise& noise, float& nwx, float& nwy, Rot2& R) {
   normal_pair(noise, nwx, nwy);
@@ -311,20 +311,20 @@ __device__ __forceinline__ void store_planning_state(float* out, int64_t B, int6
 }
 
 // ---------------------------------------------------------------------------
-// kernels F and G on Hopper: warp-specialised producer/consumer blocks
+// kernels E, F and G on Hopper: warp-specialised producer/consumer blocks
 // (split.cuh).  Warp 0, the consumer, runs the dependent chain from
 // registers: per cycle the clamp chain, the integration, the wall validity
-// of the noisy pose and the latch; per step the termination, the restart
-// select and the two observations (planning_autoreset_step), reading each
-// step's action one step ahead.  The producer warps (several: one computes
-// more per cycle than the consumer) compute per cycle the velocity pair and
-// the wall pose (the box: R) and per step the observation normals and the
-// restart (PlanStep), for every env whether or not it is done.  Every
-// offset of a step's draws is a multiple of 4 (n_step = (2 + 2p) *
-// num_cycles + 8 + 4 * cand_k), so a cycle's draws are one Philox block
-// (two for the box).  Without the producer (the wide batch) each thread
-// runs its env's step on the thread-per-env arithmetic (InlineStep), in
-// blocks of kInlineWarps warps.
+// of the noisy pose and the latch; for F and G per step the termination, the
+// restart select and the two observations (planning_autoreset_step),
+// reading each step's action one step ahead.  The producer warps (several:
+// one computes more per cycle than the consumer) compute per cycle the
+// velocity pair and the wall pose (the box: R) and, for F and G, per step
+// the observation normals and the restart (PlanStep), for every env whether
+// or not it is done.  Every offset of a step's draws is a multiple of 4
+// (n_step = (2 + 2p) * num_cycles, + 8 + 4 * cand_k for an autoreset step),
+// so a cycle's draws are one Philox block (two for the box).  Without the
+// producer (the wide batch) each thread runs its env's step on the
+// thread-per-env arithmetic (InlineStep), in blocks of kInlineWarps warps.
 // ---------------------------------------------------------------------------
 
 // Producer: n cycles of one step of env `env` (draws from d0) into v.
@@ -388,16 +388,17 @@ __device__ void produce_step(float (*v)[32], const PlanningLaunch& L, const Src&
   produce_sampler<kBox, kFull>(v, L, src, er, d_goal, PlanStep::kGx, lane);
 }
 
-// K steps of one env from st_in: step(ux, uy, st, aux) runs a step, each
-// step's action read one step ahead; Out receives each step's result
-// (step(e, t, st, aux)) and the final state (finish(e, st)) where `valid`.
-template <class Out, class Step>
-__device__ __forceinline__ void consume_steps(const float* __restrict__ st_in, const float* __restrict__ actions,
-                                              int64_t B, int K, int64_t e, bool valid, Out& out, Step&& step) {
+// K steps of one env: step(ux, uy, st, aux) runs a step, each step's action
+// read one step ahead; where `valid`, Io reads the env's state (load(e, st))
+// and receives each step's result (step(e, t, st, aux)) and the final state
+// (finish(e, st)).
+template <class Io, class Step>
+__device__ __forceinline__ void consume_steps(const float* __restrict__ actions, int64_t B, int K, int64_t e,
+                                              bool valid, Io& io, Step&& step) {
   PlanningState st{};
   float ux = 0.0f, uy = 0.0f;
   if (valid) {
-    load_planning_state(st_in, B, e, st);
+    io.load(e, st);
     ux = actions[e];
     uy = actions[B + e];
   }
@@ -409,11 +410,37 @@ __device__ __forceinline__ void consume_steps(const float* __restrict__ st_in, c
     }
     PlanningAux aux;
     step(ux, uy, st, aux);
-    if (valid) out.step(e, t, st, aux);
+    if (valid) io.step(e, t, st, aux);
     ux = next_ux;
     uy = next_uy;
   }
-  if (valid) out.finish(e, st);
+  if (valid) io.finish(e, st);
+}
+
+// planning_cycles compiled on its own, called out of line.  Kernel E's
+// consumer takes it for the box on a holed layout: inlined there, beside
+// the producer warps' code, the box's table walk ran 1.5x slower than the
+// thread-per-env kernel's; out of line, 10% faster (PERF.md section 6).
+template <bool kBox, bool kFull, class Cycles>
+__device__ __noinline__ float planning_cycles_call(const PlanningLaunch& L, Cycles& cycles, Mover& m, float ux,
+                                                   float uy) {
+  return planning_cycles<kBox, kFull>(L, cycles, m, ux, uy);
+}
+
+// One step of the consumer: the cycles' draws from `cycles`, an autoreset
+// step's other values from sv (kSteps, split.cuh); kernel E's step is its
+// cycles alone, with the wall flag in aux.wall, called out of line where
+// kOutOfLine.
+template <bool kBox, bool kFull, Steps kSteps, bool kOutOfLine, class Cycles, class Values>
+__device__ __forceinline__ void consume_step(const PlanningLaunch& L, Cycles& cycles, Values& sv, PlanningState& st,
+                                             float ux, float uy, PlanningAux& aux) {
+  if constexpr (kSteps == Steps::kAutoreset) {
+    planning_autoreset_step<kBox, kFull>(L, cycles, sv, st, ux, uy, aux);
+  } else if constexpr (kOutOfLine) {
+    aux.wall = planning_cycles_call<kBox, kFull>(L, cycles, st.m, ux, uy);
+  } else {
+    aux.wall = planning_cycles<kBox, kFull>(L, cycles, st.m, ux, uy);
+  }
 }
 
 // Producer warps of a block with the producer.  One producer warp's draws
@@ -421,25 +448,26 @@ __device__ __forceinline__ void consume_steps(const float* __restrict__ st_in, c
 // count divides kRingSlots, so that each slot has one producer.
 constexpr int kPlanningProducers = 2;
 static_assert(kRingSlots % kPlanningProducers == 0, "each ring slot needs a single producer");
-// threads of the largest block of kernels F and G
+// threads of the largest block of kernels E, F and G
 constexpr int kPlanningSplitWarps = 1 + kPlanningProducers;
 constexpr int kPlanningMaxThreads = 32 * (kPlanningSplitWarps > kInlineWarps ? kPlanningSplitWarps : kInlineWarps);
 
-// The body of kernels F and G: K steps of this block's envs, with the
-// producer (kProducer: a block of the consumer warp and kPlanningProducers
-// producer warps, one tile) or without (a block of kInlineWarps warps, one
-// thread an env).
-template <bool kBox, bool kFull, bool kProducer, class Src, class Out>
-__device__ __forceinline__ void planning_body(const PlanningLaunch& L, const Src& src, const float* __restrict__ st_in,
-                                              const float* __restrict__ actions, int64_t B, int K, Out& out) {
+// The body of kernels E, F and G: K steps of this block's envs (kSteps: a
+// step with or without its step stage), with the producer (kProducer: a
+// block of the consumer warp and kPlanningProducers producer warps, one
+// tile) or without (a block of kInlineWarps warps, one thread an env).
+template <bool kBox, bool kFull, bool kProducer, Steps kSteps, class Src, class Io>
+__device__ __forceinline__ void planning_body(const PlanningLaunch& L, const Src& src,
+                                              const float* __restrict__ actions, int64_t B, int K, Io& io) {
+  constexpr bool kStepStage = kSteps == Steps::kAutoreset;
   if constexpr (!kProducer) {
     const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (e >= B) return;
     // one stream per env, on across the K steps
     auto noise = src.at(e, 0);
-    consume_steps(st_in, actions, B, K, e, true, out, [&](float ux, float uy, PlanningState& st, PlanningAux& aux) {
+    consume_steps(actions, B, K, e, true, io, [&](float ux, float uy, PlanningState& st, PlanningAux& aux) {
       InlineStep<kBox, kFull, decltype(noise)> sv{L, noise};
-      planning_autoreset_step<kBox, kFull>(L, noise, sv, st, ux, uy, aux);
+      consume_step<kBox, kFull, kSteps, false>(L, noise, sv, st, ux, uy, aux);
     });
   } else {
     const int warp = static_cast<int>(threadIdx.x >> 5), lane = static_cast<int>(threadIdx.x & 31);
@@ -458,18 +486,18 @@ __device__ __forceinline__ void planning_body(const PlanningLaunch& L, const Src
       // consumer
       Popped<RingReader<kBox>> cycles{RingReader<kBox>{&sh, lane}};
       RingStep<kBox> sv{cycles.src};
-      consume_steps(st_in, actions, B, K, e, e < B, out, [&](float ux, float uy, PlanningState& st, PlanningAux& aux) {
+      consume_steps(actions, B, K, e, e < B, io, [&](float ux, float uy, PlanningState& st, PlanningAux& aux) {
         cycles.src.begin_step(L.num_cycles);
-        planning_autoreset_step<kBox, kFull>(L, cycles, sv, st, ux, uy, aux);
+        consume_step<kBox, kFull, kSteps, !kStepStage && kBox && !kFull>(L, cycles, sv, st, ux, uy, aux);
       });
     } else {
       // producer warp w (1 .. P): stages k = w - 1, w - 1 + P, ... of the
       // tile's K * stages, so that stage k's slot k % kRingSlots always has
       // the same producer
       const int q = cycle_values<kBox>(), per = stage_cycles<kBox>();
-      const int cyc_stages = (L.num_cycles + per - 1) / per, stages = cyc_stages + 1;
+      const int cyc_stages = (L.num_cycles + per - 1) / per, stages = cyc_stages + (kStepStage ? 1 : 0);
       const uint32_t d_obs = static_cast<uint32_t>(q * L.num_cycles);
-      const uint32_t n_step = d_obs + 8u + 4u * static_cast<uint32_t>(L.cand_k);
+      const uint32_t n_step = d_obs + (kStepStage ? 8u + 4u * static_cast<uint32_t>(L.cand_k) : 0u);
       const int64_t er = e < B ? e : B - 1;  // tail lanes draw a real env's values
       const uint32_t n_stages = static_cast<uint32_t>(K) * static_cast<uint32_t>(stages);
       for (uint32_t k = static_cast<uint32_t>(warp - 1); k < n_stages; k += kPlanningProducers) {
@@ -477,7 +505,7 @@ __device__ __forceinline__ void planning_body(const PlanningLaunch& L, const Src
         const uint32_t d_step = k / static_cast<uint32_t>(stages) * n_step;
         const RingPos r = ring_pos(k);
         mbar_wait(&sh.empty[r.slot], r.parity ^ 1u);
-        if (j == cyc_stages) {
+        if (kStepStage && j == cyc_stages) {
           produce_step<kBox, kFull>(sh.stage[r.slot], L, src, B, tile, d_step + d_obs, lane);
         } else {
           const int i0 = j * per, n = L.num_cycles - i0 < per ? L.num_cycles - i0 : per;

@@ -24,10 +24,12 @@
 
 namespace gprt {
 
-// the 23 output planes of a one-step launch
+// the 9 state planes in, the 23 output planes out of a one-step launch
 struct AutoresetOut {
+  const float* st_in;
   float* out;
   int64_t B;
+  __device__ void load(int64_t e, PlanningState& st) const { load_planning_state(st_in, B, e, st); }
   __device__ void step(int64_t e, int, const PlanningState& st, const PlanningAux& a) {
     store_planning_state(out, B, e, st);
     float* o = out + 9 * B + e;
@@ -43,11 +45,11 @@ __global__ void __launch_bounds__(kPlanningMaxThreads)
     planning_autoreset_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                               const float* __restrict__ noise, float* __restrict__ out, int64_t B,
                               const PlanningLaunch L, Seed seed) {
-  AutoresetOut o{out, B};
+  AutoresetOut o{st_in, out, B};
   if constexpr (kInject) {
-    planning_body<kBox, kFull, kProducer>(L, InjectedSource{noise, B}, st_in, act, B, 1, o);
+    planning_body<kBox, kFull, kProducer, Steps::kAutoreset>(L, InjectedSource{noise, B}, act, B, 1, o);
   } else {
-    planning_body<kBox, kFull, kProducer>(L, PhiloxSource{seed.get()}, st_in, act, B, 1, o);
+    planning_body<kBox, kFull, kProducer, Steps::kAutoreset>(L, PhiloxSource{seed.get()}, act, B, 1, o);
   }
 }
 

@@ -19,12 +19,14 @@
 
 namespace gprt {
 
-// the K steps' signals and the final state
+// the state planes in; the K steps' signals and the final state out
 struct RolloutOut {
+  const float* st_in;
   float* st_out;
   float* step_out;
   int64_t B;
   int K;
+  __device__ void load(int64_t e, PlanningState& st) const { load_planning_state(st_in, B, e, st); }
   __device__ void step(int64_t e, int t, const PlanningState&, const PlanningAux& aux) {
     step_out[(0 * static_cast<int64_t>(K) + t) * B + e] = aux.wall;
     step_out[(1 * static_cast<int64_t>(K) + t) * B + e] = aux.reached;
@@ -38,11 +40,11 @@ __global__ void __launch_bounds__(kPlanningMaxThreads)
     planning_rollout_kernel(const float* __restrict__ st_in, const float* __restrict__ actions,
                             const float* __restrict__ noise, float* __restrict__ st_out,
                             float* __restrict__ step_out, int64_t B, int K, const PlanningLaunch L, Seed seed) {
-  RolloutOut o{st_out, step_out, B, K};
+  RolloutOut o{st_in, st_out, step_out, B, K};
   if constexpr (kInject) {
-    planning_body<kBox, kFull, kProducer>(L, InjectedSource{noise, B}, st_in, actions, B, K, o);
+    planning_body<kBox, kFull, kProducer, Steps::kAutoreset>(L, InjectedSource{noise, B}, actions, B, K, o);
   } else {
-    planning_body<kBox, kFull, kProducer>(L, PhiloxSource{seed.get()}, st_in, actions, B, K, o);
+    planning_body<kBox, kFull, kProducer, Steps::kAutoreset>(L, PhiloxSource{seed.get()}, actions, B, K, o);
   }
 }
 

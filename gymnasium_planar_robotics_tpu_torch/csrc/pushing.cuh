@@ -53,7 +53,7 @@ struct Phys {
 // the noise (the position pair; for the box (kBox) also two pairs of
 // quaternion noise around the identity, turned into the 2D rotation R by
 // quat_to_R2), wall_valid tests the pose.  Neither half reads the state
-// but npx, npy, so kernels C and D compute wall_pose ahead on producer
+// but npx, npy, so kernels B, C and D compute wall_pose ahead on producer
 // warps.  The circle keeps the expression it had before the box existed
 // (nvcc may contract it); the box rounds each operation as the plain
 // version does.
@@ -325,24 +325,26 @@ __device__ __forceinline__ void store_state(float* out, int64_t B, int64_t e, co
 }
 
 // ---------------------------------------------------------------------------
-// kernels C and D on Hopper: warp-specialised producer/consumer blocks
-// (split.cuh).  Warp 0, the consumer, runs the dependent physics
-// (autoreset_step) from registers, reading each step's action itself, one
-// step ahead.  Warp 1, the producer, computes per cycle the velocity pair
-// and the wall pose (the box: R), per step the twelve observation normals
-// and the restart's result (StepValue).  Without the producer (the wide
-// batch) each warp draws its own values (InlineStep).
+// kernels B, C and D on Hopper: warp-specialised producer/consumer blocks
+// (split.cuh).  Warp 0, the consumer, runs the dependent physics (run_cycles;
+// for C and D the rest of autoreset_step) from registers, reading each
+// step's action itself, one step ahead.  Warp 1, the producer, computes per
+// cycle the velocity pair and the wall pose (the box: R), and for C and D
+// per step the twelve observation normals and the restart's result
+// (StepValue).  Without the producer (the wide batch) each warp draws its
+// own values (InlineStep).
 // ---------------------------------------------------------------------------
 
 static_assert(kStepValues <= kStageValues, "a step stage holds the step's values");
 
-// A step's draw offsets and stage counts (p = 1 wall pair circle, 3 box).
+// A step's draw offsets and stage counts (p = 1 wall pair circle, 3 box); a
+// step without its step stage (kernel B) draws its cycles' values alone.
 struct StepPlan {
   int cycle_draws, n_step, d_obs, cyc_stages, stages;
-  __device__ StepPlan(int num_cycles, int cand_k, bool box, int per_stage)
-      : cycle_draws(box ? 8 : 4), n_step((box ? 8 : 4) * num_cycles + 16 + 2 * cand_k),
+  __device__ StepPlan(int num_cycles, int cand_k, bool box, int per_stage, bool step_stage)
+      : cycle_draws(box ? 8 : 4), n_step((box ? 8 : 4) * num_cycles + (step_stage ? 16 + 2 * cand_k : 0)),
         d_obs((box ? 8 : 4) * num_cycles), cyc_stages((num_cycles + per_stage - 1) / per_stage),
-        stages(1 + (num_cycles + per_stage - 1) / per_stage) {}
+        stages((step_stage ? 1 : 0) + (num_cycles + per_stage - 1) / per_stage) {}
 };
 
 // Producer: cycles i0 .. i0 + n - 1 of one step (their draws start at d0).
@@ -498,17 +500,18 @@ struct InlineStep {
   __device__ __forceinline__ float operator()(int i) const { return v[i]; }
 };
 
-// One tile's K steps on one warp: step(t, ux, uy, st, aux) runs step t;
-// each step's action is read one step ahead.
-template <class Out, class Step>
-__device__ __forceinline__ void consume_tile(const float* __restrict__ st_in, const float* __restrict__ actions,
-                                             int64_t B, int K, int64_t tile, int lane, Out& out, Step&& step) {
+// One tile's K steps on one warp: io.load(e, st) reads env e's state,
+// step(t, ux, uy, st, aux) runs step t; each step's action is read one step
+// ahead.
+template <class Io, class Step>
+__device__ __forceinline__ void consume_tile(const float* __restrict__ actions, int64_t B, int K, int64_t tile,
+                                             int lane, Io& io, Step&& step) {
   const int64_t e = tile * 32 + lane;
   const bool valid = e < B;
   StepState st{};
   float ux = 0.0f, uy = 0.0f;
   if (valid) {
-    load_state(st_in, B, e, st);
+    io.load(e, st);
     ux = actions[e];
     uy = actions[B + e];
   }
@@ -521,23 +524,36 @@ __device__ __forceinline__ void consume_tile(const float* __restrict__ st_in, co
     const float g_old_x = st.gx, g_old_y = st.gy;
     StepAux aux;
     step(t, ux, uy, st, aux);
-    if (valid) out.step(e, t, st, aux, g_old_x, g_old_y);
+    if (valid) io.step(e, t, st, aux, g_old_x, g_old_y);
     ux = next_ux;
     uy = next_uy;
   }
-  if (valid) out.finish(e, st);
+  if (valid) io.finish(e, st);
 }
 
-// The body of kernels C and D: K steps of this block's tiles.  With the
-// producer (block kSplitWarps warps, one tile) the roles split as above;
-// without it (block kInlineWarps warps, the ring unused) warp w serves tile
-// kInlineWarps * blockIdx.x + w.  Out receives each step's result
-// (step(e, t, st, aux, g_old_x, g_old_y)) and the final state (finish(e,
-// st)) of the envs < B.
-template <bool kJerk, bool kBox, class Src, class Out>
-__device__ __forceinline__ void split_body(const Consts& c, const Src& src, const float* __restrict__ st_in,
-                                           const float* __restrict__ actions, int64_t B, int K, int num_cycles,
-                                           int cand_k, bool producer, Out& out) {
+// One step of the consumer: the cycles' draws from `cycles`, an autoreset
+// step's other values from sv (kSteps, split.cuh); kernel B's step is its
+// cycles alone, with the wall flag in aux.wall.
+template <bool kJerk, bool kBox, Steps kSteps, class Cycles, class Values>
+__device__ __forceinline__ void consume_step(const Consts& c, Cycles& cycles, Values& sv, int num_cycles, float ux,
+                                             float uy, StepState& st, StepAux& aux) {
+  if constexpr (kSteps == Steps::kAutoreset) {
+    autoreset_step<kJerk, kBox>(c, cycles, sv, num_cycles, ux, uy, st, aux);
+  } else {
+    aux.wall = run_cycles<kJerk, kBox>(c, cycles, num_cycles, st.p, ux, uy);
+  }
+}
+
+// The body of kernels B, C and D: K steps of this block's tiles (kSteps: a
+// step with or without its step stage).  With the producer (block
+// kSplitWarps warps, one tile) the roles split as above; without it (block
+// kInlineWarps warps, the ring unused) warp w serves tile kInlineWarps *
+// blockIdx.x + w.  Io reads each env's state (load(e, st)) and receives each
+// step's result (step(e, t, st, aux, g_old_x, g_old_y)) and the final state
+// (finish(e, st)) of the envs < B.
+template <bool kJerk, bool kBox, Steps kSteps, class Src, class Io>
+__device__ __forceinline__ void split_body(const Consts& c, const Src& src, const float* __restrict__ actions,
+                                           int64_t B, int K, int num_cycles, int cand_k, bool producer, Io& io) {
   const int warp = static_cast<int>(threadIdx.x >> 5), lane = static_cast<int>(threadIdx.x & 31);
   if (!producer) {
     const int64_t tile = static_cast<int64_t>(blockIdx.x) * kInlineWarps + warp;
@@ -545,9 +561,9 @@ __device__ __forceinline__ void split_body(const Consts& c, const Src& src, cons
     const int64_t er = tile * 32 + lane < B ? tile * 32 + lane : B - 1;
     // one stream per env, on across the K steps
     auto noise = src.at(er, 0);
-    consume_tile(st_in, actions, B, K, tile, lane, out, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
+    consume_tile(actions, B, K, tile, lane, io, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
       InlineStep<decltype(noise)> sv{c, noise, cand_k};
-      autoreset_step<kJerk, kBox>(c, noise, sv, num_cycles, ux, uy, st, aux);
+      consume_step<kJerk, kBox, kSteps>(c, noise, sv, num_cycles, ux, uy, st, aux);
     });
     return;
   }
@@ -565,13 +581,13 @@ __device__ __forceinline__ void split_body(const Consts& c, const Src& src, cons
   if (warp == 0) {
     // consumer
     Popped<RingReader<kBox>> cycles{RingReader<kBox>{&sh, lane}};
-    consume_tile(st_in, actions, B, K, tile, lane, out, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
+    consume_tile(actions, B, K, tile, lane, io, [&](int, float ux, float uy, StepState& st, StepAux& aux) {
       cycles.src.begin_step(num_cycles);
-      autoreset_step<kJerk, kBox>(c, cycles, cycles.src, num_cycles, ux, uy, st, aux);
+      consume_step<kJerk, kBox, kSteps>(c, cycles, cycles.src, num_cycles, ux, uy, st, aux);
     });
   } else {
     // producer: stages k = 0 .. K * stages - 1
-    const StepPlan plan(num_cycles, cand_k, kBox, stage_cycles<kBox>());
+    const StepPlan plan(num_cycles, cand_k, kBox, stage_cycles<kBox>(), kSteps == Steps::kAutoreset);
     const int64_t e = tile * 32 + lane;
     const int64_t er = e < B ? e : B - 1;  // tail lanes draw a real env's values
     const uint32_t n_stages = static_cast<uint32_t>(K) * static_cast<uint32_t>(plan.stages);
@@ -580,7 +596,7 @@ __device__ __forceinline__ void split_body(const Consts& c, const Src& src, cons
       const uint32_t d_step = k / plan.stages * static_cast<uint32_t>(plan.n_step);
       const RingPos r = ring_pos(k);
       mbar_wait(&sh.empty[r.slot], r.parity ^ 1u);
-      if (j == static_cast<uint32_t>(plan.cyc_stages)) {
+      if (kSteps == Steps::kAutoreset && j == static_cast<uint32_t>(plan.cyc_stages)) {
         produce_step(sh.stage[r.slot], c, src, B, tile, d_step + plan.d_obs, cand_k, lane);
       } else {
         const int i0 = static_cast<int>(j) * stage_cycles<kBox>();

@@ -49,12 +49,15 @@ __device__ __forceinline__ void store_features(float* f, int64_t B, float mpx, f
   f[8 * B] = agx - mpx; f[9 * B] = agy - mpy; f[10 * B] = gx - agx; f[11 * B] = gy - agy;
 }
 
-// the 36 output planes (and with kEmit the feature blocks) of a one-step launch
+// the 19 state planes in, the 36 output planes (and with kEmit the feature
+// blocks) out of a one-step launch
 template <bool kEmit>
 struct AutoresetOut {
+  const float* st_in;
   float* out;
   float* feat;
   int64_t B;
+  __device__ void load(int64_t e, StepState& st) const { load_state(st_in, B, e, st); }
   __device__ void step(int64_t e, int, const StepState& st, const StepAux& aux, float g_old_x, float g_old_y) {
     store_state(out, B, e, st);
     store_aux(out, B, e, aux);
@@ -74,11 +77,13 @@ __global__ void __launch_bounds__(kSplitMaxThreads)
     pushing_autoreset_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                              const float* __restrict__ noise, float* __restrict__ out, float* __restrict__ feat,
                              int64_t B, const Consts c, int num_cycles, int cand_k, Seed seed, bool producer) {
-  AutoresetOut<kEmit> o{out, feat, B};
+  AutoresetOut<kEmit> o{st_in, out, feat, B};
   if constexpr (kInject) {
-    split_body<kJerk, kBox>(c, InjectedSource{noise, B}, st_in, act, B, 1, num_cycles, cand_k, producer, o);
+    split_body<kJerk, kBox, Steps::kAutoreset>(c, InjectedSource{noise, B}, act, B, 1, num_cycles, cand_k, producer,
+                                               o);
   } else {
-    split_body<kJerk, kBox>(c, PhiloxSource{seed.get()}, st_in, act, B, 1, num_cycles, cand_k, producer, o);
+    split_body<kJerk, kBox, Steps::kAutoreset>(c, PhiloxSource{seed.get()}, act, B, 1, num_cycles, cand_k, producer,
+                                               o);
   }
 }
 

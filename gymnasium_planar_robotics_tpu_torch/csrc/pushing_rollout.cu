@@ -19,12 +19,14 @@
 
 namespace gprt {
 
-// the K steps' signals and the final state
+// the state planes in; the K steps' signals and the final state out
 struct RolloutOut {
+  const float* st_in;
   float* st_out;
   float* step_out;
   int64_t B;
   int K;
+  __device__ void load(int64_t e, StepState& st) const { load_state(st_in, B, e, st); }
   __device__ void step(int64_t e, int t, const StepState&, const StepAux& aux, float, float) {
     step_out[(0 * static_cast<int64_t>(K) + t) * B + e] = aux.wall;
     step_out[(1 * static_cast<int64_t>(K) + t) * B + e] = aux.reached;
@@ -38,11 +40,13 @@ __global__ void __launch_bounds__(kSplitMaxThreads)
     pushing_rollout_kernel(const float* __restrict__ st_in, const float* __restrict__ actions,
                            const float* __restrict__ noise, float* __restrict__ st_out, float* __restrict__ step_out,
                            int64_t B, int K, const Consts c, int num_cycles, int cand_k, Seed seed, bool producer) {
-  RolloutOut o{st_out, step_out, B, K};
+  RolloutOut o{st_in, st_out, step_out, B, K};
   if constexpr (kInject) {
-    split_body<kJerk, kBox>(c, InjectedSource{noise, B}, st_in, actions, B, K, num_cycles, cand_k, producer, o);
+    split_body<kJerk, kBox, Steps::kAutoreset>(c, InjectedSource{noise, B}, actions, B, K, num_cycles, cand_k,
+                                               producer, o);
   } else {
-    split_body<kJerk, kBox>(c, PhiloxSource{seed.get()}, st_in, actions, B, K, num_cycles, cand_k, producer, o);
+    split_body<kJerk, kBox, Steps::kAutoreset>(c, PhiloxSource{seed.get()}, actions, B, K, num_cycles, cand_k,
+                                               producer, o);
   }
 }
 

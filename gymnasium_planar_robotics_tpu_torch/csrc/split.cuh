@@ -1,5 +1,5 @@
-// The producer/consumer split shared by the autoreset kernels of pushing
-// (C, C-feat, D: pushing.cuh) and of single-mover planning (F, G:
+// The producer/consumer split shared by the kernels of pushing (B, C,
+// C-feat, D: pushing.cuh) and of single-mover planning (E, F, G:
 // planning.cuh): a ring of stages in shared memory, its full/empty
 // mbarriers, the draw sources taken by absolute index and the consumer's
 // reader, and the launch shape of a block with or without the producer.
@@ -8,21 +8,23 @@
 // consumer, runs each env's dependent chain from registers; the producer
 // (one warp for pushing, P = kPlanningProducers warps for planning, warp
 // 1 + k % P making stage k, P dividing kRingSlots so that each slot has one
-// producer) computes ahead of it every
-// value of a step that does not depend on the state -- per control cycle the
-// velocity pair and the wall pose (the box: its rotation R), per step the
-// family's observation normals and the restart's result -- and hands them
-// over in stages.  A step is its cycle stages (stage_cycles<kBox>() cycles
-// each), then one step stage, which the consumer needs only after the
-// cycles.  A tile's stages are numbered k = 0, 1, ... over its K steps;
-// stage k lives in slot k % kRingSlots.  Draws are taken by absolute index:
-// draw d of step t of env e is draw t * n_step + d of e's stream (word d % 4
-// of the Philox block at counter ((t * n_step + d) / 4, e), or injected
-// plane t * n_step + d), so the values are the ones the thread-per-env
-// arithmetic draws in order.  Lanes of envs >= B take part in every barrier
-// and skip only their loads and stores.  Without the producer (the wide
-// batch) there is no ring: every warp of a block of kInlineWarps warps draws
-// its own values.
+// producer) computes ahead of it every value of a step that does not depend
+// on the state -- per control cycle the velocity pair and the wall pose (the
+// box: its rotation R), per autoreset step the family's observation normals
+// and the restart's result -- and hands them over in stages.  A step is its
+// cycle stages (stage_cycles<kBox>() cycles each, the last one partly filled
+// when they do not divide num_cycles), then, for an autoreset step
+// (Steps::kAutoreset), one step stage, which the consumer needs only after
+// the cycles; a step of the cycles kernels B and E (Steps::kCycles) has
+// none.  A tile's stages are numbered k = 0, 1, ... over its K steps; stage
+// k lives in slot k % kRingSlots.  Draws are taken by absolute index: draw d
+// of step t of env e is draw t * n_step + d of e's stream (word d % 4 of the
+// Philox block at counter ((t * n_step + d) / 4, e), or injected plane t *
+// n_step + d), so the values are the ones the thread-per-env arithmetic
+// draws in order.  Lanes of envs >= B take part in every barrier and skip
+// only their loads and stores.  Without the producer (the wide batch) there
+// is no ring: every warp of a block of kInlineWarps warps draws its own
+// values.
 
 #pragma once
 
@@ -41,6 +43,10 @@ template <bool kBox>
 __host__ __device__ constexpr int cycle_values() { return kBox ? 8 : 4; }
 template <bool kBox>
 __host__ __device__ constexpr int stage_cycles() { return kStageValues / cycle_values<kBox>(); }
+
+// What one step of a tile is: the cycles, then a step stage and the rest of
+// the autoreset step (kernels C, D, F, G); or the cycles alone (B, E).
+enum class Steps { kAutoreset, kCycles };
 
 struct SplitShared {
   float stage[kRingSlots][kStageValues][32];

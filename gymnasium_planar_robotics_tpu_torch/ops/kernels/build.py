@@ -124,16 +124,18 @@ def lib() -> ctypes.CDLL:
             getattr(handle, names).argtypes = []
         handle.gprt_noise_probe.restype = i32
         handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, p]
+        # (in, noise, out, B, consts, num_cycles, jerk, box, seed, seed_dev, producer, stream)
         handle.gprt_pushing_cycles.restype = i32
-        handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, p]
+        handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, i32, p]
         # (st, act, noise, out, feat, B, consts, num_cycles, cand_k, jerk, box, seed, seed_dev, producer, stream)
         handle.gprt_pushing_autoreset.restype = i32
         handle.gprt_pushing_autoreset.argtypes = [p, p, p, p, p, i64, p, i32, i32, i32, i32, u64, p, i32, p]
         handle.gprt_pushing_rollout.restype = i32
         handle.gprt_pushing_rollout.argtypes = [p, p, p, p, p, i64, i32, p, i32, i32, i32, i32, u64, p, i32, p]
-        # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, seed_dev, stream)
+        # (in, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, seed, seed_dev, producer,
+        #  stream)
         handle.gprt_planning_cycles.restype = i32
-        handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p, p]
+        handle.gprt_planning_cycles.argtypes = [p, p, p, i64, p, p, i32, i32, i32, i32, i32, u64, p, i32, p]
         # (st, act, noise, out, B, consts, table, n_cells, box, full, jerk, num_cycles, cand_k, seed, seed_dev,
         #  producer, stream)
         handle.gprt_planning_autoreset.restype = i32

@@ -357,6 +357,33 @@ def launch_args(kc: KernelConsts, device):
             int(kc.box), int(kc.rule.full), int(kc.learn_jerk), kc.num_cycles)
 
 
+#: the widest batch for which kernels E, F and G launch blocks with
+#: producer warps, by configuration: (collision shape, layout rule) ->
+#: {kernel: envs}, the kernels E (``cycles``), F (``autoreset``) and G
+#: (``rollout``).  Up to it the card is latency-bound and the producers take
+#: the noise and the restart off each env's chain; above it, where the issue
+#: rate binds, thread-per-env blocks are faster.  G's blocks start the ring
+#: once for K steps; on holed layouts every wall check walks the table and
+#: F's and G's producers draw the restart of every env, so the card fills at
+#: fewer envs (measured on the card: PERF.md section 6)
+WIDE_BATCH = {
+    ('circle', 'full'): {'cycles': 32768, 'autoreset': 32768, 'rollout': 131072},
+    ('box', 'full'): {'cycles': 32768, 'autoreset': 32768, 'rollout': 98304},
+    ('circle', 'holed'): {'cycles': 32768, 'autoreset': 32768, 'rollout': 32768},
+    ('box', 'holed'): {'cycles': 65536, 'autoreset': 16384, 'rollout': 16384},
+}
+
+
+def uses_producer(b: int, kc: KernelConsts, kernel: str = 'autoreset') -> int:
+    """1 if a launch of ``kernel`` (``'cycles'``: E, ``'autoreset'``: F,
+    ``'rollout'``: G) over ``b`` envs in ``kc``'s configuration runs blocks
+    with the producer (the consumer warp and ``kPlanningProducers`` = 2
+    producer warps, ``csrc/planning.cuh``), up to its wide batch; else 0,
+    thread-per-env blocks."""
+    wide = WIDE_BATCH['box' if kc.box else 'circle', 'full' if kc.rule.full else 'holed'][kernel]
+    return int(b <= wide)
+
+
 def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel E on the card."""
     b = planes.shape[1]
@@ -366,36 +393,11 @@ def planning_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | to
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_planning_cycles(
             planes.data_ptr(), noise_ptr, out.data_ptr(), b, *launch_args(kc, planes.device),
-            *kernels.seed_args(seed, planes.device), kernels.stream_ptr(out),
+            *kernels.seed_args(seed, planes.device), uses_producer(b, kc, 'cycles'), kernels.stream_ptr(out),
         )
     build.check(err, 'planning_cycles')
     kernels.LAUNCHES['planning_cycles'] += 1
     return out
-
-
-#: the widest batch for which kernels F and G launch blocks with producer
-#: warps, by configuration: (collision shape, layout rule) -> (F, G).  Up to
-#: it the card is latency-bound and the producers take the noise and the
-#: restart off each env's chain; above it, where the issue rate binds,
-#: thread-per-env blocks are faster.  G's blocks start the ring once for K
-#: steps; on holed layouts every wall check walks the table and the
-#: producers draw the restart of every env, so the card fills at fewer envs
-#: (measured on the card: PERF.md section 6)
-WIDE_BATCH = {
-    ('circle', 'full'): (32768, 131072),
-    ('box', 'full'): (32768, 98304),
-    ('circle', 'holed'): (32768, 32768),
-    ('box', 'holed'): (16384, 16384),
-}
-
-
-def uses_producer(b: int, kc: KernelConsts, rollout: bool = False) -> int:
-    """1 if a launch of kernel F (G with ``rollout``) over ``b`` envs in
-    ``kc``'s configuration runs blocks with the producer (the consumer warp
-    and ``kPlanningProducers`` = 2 producer warps, ``csrc/planning.cuh``), up
-    to its wide batch; else 0, thread-per-env blocks."""
-    wide = WIDE_BATCH['box' if kc.box else 'circle', 'full' if kc.rule.full else 'holed'][int(rollout)]
-    return int(b <= wide)
 
 
 def planning_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None,
@@ -430,7 +432,7 @@ def planning_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed:
         err = build.lib().gprt_planning_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
             *launch_args(kc, state.device), kc.cand_k, *kernels.seed_args(seed, state.device),
-            uses_producer(b, kc, rollout=True), kernels.stream_ptr(st_out),
+            uses_producer(b, kc, 'rollout'), kernels.stream_ptr(st_out),
         )
     build.check(err, 'planning_rollout')
     kernels.LAUNCHES['planning_rollout'] += 1

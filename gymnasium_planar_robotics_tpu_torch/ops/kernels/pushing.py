@@ -560,6 +560,28 @@ def _consts_ptr(kc: KernelConsts) -> int:
     return kc.vector.ctypes.data
 
 
+#: the widest batch for which each pushing kernel launches blocks with the
+#: producer warp, by collision shape: shape -> {kernel: envs}, the kernels
+#: B (``cycles``), C and C-feat (``autoreset``) and D (``rollout``).  Up to
+#: it the card is latency-bound and the producer takes the draws off each
+#: consumer's chain; above it, where the issue rate binds, blocks whose
+#: every warp draws its own values are faster.  B's circle, whose draws are
+#: the smallest share of its chain, crosses first (measured on the card:
+#: PERF.md section 6)
+WIDE_BATCH = {
+    'circle': {'cycles': 8192, 'autoreset': 32768, 'rollout': 32768},
+    'box': {'cycles': 32768, 'autoreset': 32768, 'rollout': 32768},
+}
+
+
+def uses_producer(b: int, kc: KernelConsts, kernel: str = 'autoreset') -> int:
+    """1 if a launch of ``kernel`` (``'cycles'``: B, ``'autoreset'``: C and
+    C-feat, ``'rollout'``: D) over ``b`` envs in ``kc``'s collision shape
+    runs blocks with the producer warp, up to its wide batch; else 0, blocks
+    whose every warp draws its own values."""
+    return int(b <= WIDE_BATCH['box' if kc.box else 'circle'][kernel])
+
+
 def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | torch.Tensor = 0) -> torch.Tensor:
     """Kernel B on the card (``seed``: ``kernels.seed_args``)."""
     b = planes.shape[1]
@@ -569,7 +591,8 @@ def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | tor
     with torch.cuda.device(planes.device):
         err = build.lib().gprt_pushing_cycles(
             planes.data_ptr(), noise_ptr, out.data_ptr(), b, _consts_ptr(kc), kc.num_cycles,
-            int(kc.learn_jerk), int(kc.box), *kernels.seed_args(seed, planes.device), kernels.stream_ptr(out),
+            int(kc.learn_jerk), int(kc.box), *kernels.seed_args(seed, planes.device),
+            uses_producer(b, kc, 'cycles'), kernels.stream_ptr(out),
         )
     name = launch_name('pushing_cycles', kc)
     build.check(err, name)
@@ -577,22 +600,8 @@ def pushing_cycles_cuda(planes, kc: KernelConsts, uniforms=None, seed: int | tor
     return out
 
 
-#: the widest batch for which kernels C and D launch blocks with the
-#: producer warp: up to it the card is latency-bound and the producer takes
-#: the draws off each consumer's chain; above it, where the issue rate
-#: binds, blocks whose every warp draws its own values are faster (PERF.md
-#: section 6)
-WIDE_BATCH = 32768
-
-
-def producer_warps(b: int) -> int:
-    """Producer warps per block of a launch of kernel C or D over ``b``
-    envs: 1 up to ``WIDE_BATCH`` envs, else 0."""
-    return 1 if b <= WIDE_BATCH else 0
-
-
 def split_layout() -> dict:
-    """Kernels C and D's ring layout as the built library has it (ring
+    """Kernels B, C and D's ring layout as the built library has it (ring
     slots, values per stage, cycles per stage of each shape)."""
     text = build.lib().gprt_split_layout().decode()
     return {k: int(v) for k, v in (f.split('=') for f in text.split(','))}
@@ -614,8 +623,7 @@ def pushing_autoreset_cuda(state, action, kc: KernelConsts, uniforms=None, seed:
         err = build.lib().gprt_pushing_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), feat.data_ptr() if emit_features else None,
             b, _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
-            *kernels.seed_args(seed, state.device), producer_warps(b),
-            kernels.stream_ptr(out),
+            *kernels.seed_args(seed, state.device), uses_producer(b, kc), kernels.stream_ptr(out),
         )
     name = launch_name('pushing_autoreset_features' if emit_features else 'pushing_autoreset', kc)
     build.check(err, name)
@@ -637,8 +645,7 @@ def pushing_rollout_cuda(state, actions, kc: KernelConsts, uniforms=None, seed: 
         err = build.lib().gprt_pushing_rollout(
             state.data_ptr(), actions.data_ptr(), noise_ptr, st_out.data_ptr(), step_out.data_ptr(), b, k,
             _consts_ptr(kc), kc.num_cycles, kc.cand_k, int(kc.learn_jerk), int(kc.box),
-            *kernels.seed_args(seed, state.device), producer_warps(b),
-            kernels.stream_ptr(st_out),
+            *kernels.seed_args(seed, state.device), uses_producer(b, kc, 'rollout'), kernels.stream_ptr(st_out),
         )
     name = launch_name('pushing_rollout', kc)
     build.check(err, name)

@@ -35,6 +35,18 @@ is read from.  The producer-warp count is compiled in
 (``kPlanningProducers``, ``csrc/planning.cuh``): to time another, change it
 there and run again.
 
+The cycles kernels (``--family cycles``): kernel A's device ms per launch at
+the main path's shape (3 normal pairs at 4096 envs, the injected uniforms
+its path draws, and its Philox mode); kernel B's (circle and box, acc) and
+kernel E's (the four ``PLAN_CONFIGS``) at each of ``--widths`` (default
+4096-65,536) on a state eight random steps into a rollout, in both block
+shapes where the tree's wrapper switches B and E
+(``uses_producer(b, kc, 'cycles')``), else in the wrapper's: the tables
+``pushing.WIDE_BATCH`` and ``planning.WIDE_BATCH`` read B's and E's entries
+from.  Beside them, the ms a step of each family's public
+``make_fused_step`` (kernel B, kernel E) at 4096 envs, with the host's time
+to enqueue a step.
+
 Every cell runs ``--repeats`` times and reports every repeat, their median
 and their spread ((max - min) / median), and the host's time to enqueue each
 rollout, with the card's name and power limit in the JSON line printed.
@@ -49,6 +61,7 @@ in turn, alternating (a, b, b, a)::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -133,6 +146,38 @@ def launch_cost(b: int, device: str = 'cuda:0', groups: int = 20, per_group: int
     device_ms, _ = time_ms(lambda: kpush.pushing_autoreset_cuda(st, act, kc, None, 7), groups * per_group)
     return {'host_us_per_launch': statistics.median(host), 'host_us_range': [min(host), max(host)],
             'device_ms_per_launch': device_ms}
+
+
+def wide_table(module, wide: int):
+    """``module.WIDE_BATCH`` with every entry ``wide``: an int, or a table by
+    configuration of tuples (a parent tree's) or of ``{kernel: envs}``."""
+    table = module.WIDE_BATCH
+    if isinstance(table, int):
+        return wide
+    return {k: dict.fromkeys(v, wide) if isinstance(v, dict) else (wide,) * len(v) for k, v in table.items()}
+
+
+class forced_shape:
+    """Within the block, every kernel of ``module`` (``ops.kernels.pushing``
+    or ``planning``) launches blocks with the producer (``producer`` 1) or
+    without (0) at every width (``WIDE_BATCH`` patched)."""
+
+    def __init__(self, module, producer: int):
+        self.module, self.wide = module, (1 << 62) if producer else 0
+
+    def __enter__(self):
+        self.saved = self.module.WIDE_BATCH
+        self.module.WIDE_BATCH = wide_table(self.module, self.wide)
+
+    def __exit__(self, *exc):
+        self.module.WIDE_BATCH = self.saved
+
+
+def switches_cycles(module) -> bool:
+    """Whether the tree's wrapper launches its cycles kernel (B or E) in both
+    block shapes: a ``cycles`` entry in each row of ``WIDE_BATCH``."""
+    table = getattr(module, 'WIDE_BATCH', None)
+    return isinstance(table, dict) and all(isinstance(v, dict) and 'cycles' in v for v in table.values())
 
 
 def rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> dict:
@@ -312,9 +357,8 @@ def planning_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: 
     from gymnasium_planar_robotics_tpu_torch.models import planning
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
 
-    # label -> every wide batch patched in for the launches
     split = hasattr(kplan, 'uses_producer')
-    shapes = {'thread_per_env': 0, 'producer': 1 << 62} if split else {'wrapper': None}
+    shapes = {'thread_per_env': 0, 'producer': 1} if split else {'wrapper': None}
     out = {}
     for name in configs:
         for b in widths:
@@ -324,22 +368,18 @@ def planning_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: 
             g = torch.Generator(device=device).manual_seed(41)
             acts = ((torch.rand((KS[-1], 2, b), generator=g, device=device) * 2 - 1) * 10.0).contiguous()
             cell = {'F_ms': {}, 'G_ms': {}}
-            for label, wide in shapes.items():
-                saved = getattr(kplan, 'WIDE_BATCH', None)  # the parent tree has none
-                if wide is not None:
-                    kplan.WIDE_BATCH = dict.fromkeys(saved, (wide, wide))
-                try:
+            for label, producer in shapes.items():
+                with forced_shape(kplan, producer) if producer is not None else contextlib.nullcontext():
                     # device time from the profiler: F's launch is shorter than the host's enqueue of it
                     cell['F_ms'][label] = launch_device_ms(
                         lambda: kplan.planning_autoreset_cuda(st, acts[0], kc, None, 7), launches)
                     cell['G_ms'][label] = launch_device_ms(
                         lambda: kplan.planning_rollout_cuda(st, acts, kc, None, 7), max(launches // 10, 3))
-                finally:
-                    if wide is not None:
-                        kplan.WIDE_BATCH = saved
             if split:
-                cell['wrapper_producer'] = {'F': kplan.uses_producer(b, kc),
-                                            'G': kplan.uses_producer(b, kc, rollout=True)}
+                # a parent tree's switch takes ``rollout``, this tree's the kernel's name
+                named = switches_cycles(kplan)
+                cell['wrapper_producer'] = {'F': kplan.uses_producer(b, kc, 'autoreset' if named else False),
+                                            'G': kplan.uses_producer(b, kc, 'rollout' if named else True)}
             out[f'{name},B={b}'] = cell
     return out
 
@@ -366,19 +406,104 @@ def planning_rates(repeats: int, profile: bool = False, device: str = 'cuda:0') 
     return out
 
 
+def pushing_rollout_state(b: int, seed: int, device: str = 'cuda:0', box: bool = False, steps: int = 8):
+    """(config, params, state) of the default pushing env (``box``: the box
+    collision shape of ``chip_smoke.py``, bench.py:653-655): ``init_batch``,
+    then ``steps`` fused autoreset steps of uniform random actions in [-10,
+    10]."""
+    from gymnasium_planar_robotics_tpu_torch.models import pushing
+
+    kw = {'collision_params': {'shape': 'box', 'size': [0.09, 0.09]}} if box else {}
+    cfg, prm = pushing.make_pushing_env(device=device, **kw)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, _, _ = pushing.init_batch(cfg, prm, b, g)
+    step = pushing.make_fused_step_autoreset(cfg, prm)
+    for _ in range(steps):
+        state = step(state, (torch.rand((b, 2), generator=g, device=device) * 2 - 1) * 10.0, generator=g)[0]
+    return cfg, prm, state
+
+
+def step_ms(step, state, b: int, device: str, iters: int = 50) -> dict:
+    """The ms a step of a public ``make_fused_step`` from ``state`` (uniform
+    random actions in [-10, 10], a card generator), CUDA events over
+    ``iters`` steps, with the host's ms to enqueue one and its share."""
+    g = torch.Generator(device=device).manual_seed(6)
+    acts = (torch.rand((iters + 1, b, 2), generator=g, device=device) * 2 - 1) * 10.0
+    it = iter(range(iters + 1))
+    ms, host = time_ms(lambda: step(state, acts[next(it)], generator=g), iters)
+    return {'ms': ms, 'host_ms': host, 'host_share': min(host / ms, 1.0)}
+
+
+def cycles_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: str = 'cuda:0',
+                     launches: int = 100) -> dict:
+    """Kernel A's device ms per launch at the main path's shape, kernels B
+    (circle and box) and E (``configs``) at each width in both block shapes
+    where the tree's wrapper switches them (``switches_cycles``), else in the
+    wrapper's (Philox, seed 7; ``launch_device_ms``), and the public fused
+    steps of both families at 4096 envs (``step_ms``)."""
+    from gymnasium_planar_robotics_tpu_torch.models import planning, pushing
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import noise
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
+
+    b_main = WIDTHS[0]
+    u = torch.rand((6, b_main), generator=torch.Generator(device=device).manual_seed(42), device=device)
+    out = {'A': {'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, b_main, device, uniforms=u), launches),
+                 'philox': launch_device_ms(lambda: noise.noise_probe_cuda(3, b_main, device, seed=7), launches)}}
+
+    def both_shapes(module, launch) -> dict:
+        if not switches_cycles(module):
+            return {'wrapper': launch_device_ms(launch, launches)}
+        res = {}
+        for label, producer in (('thread_per_env', 0), ('producer', 1)):
+            with forced_shape(module, producer):
+                res[label] = launch_device_ms(launch, launches)
+        return res
+
+    for box in (False, True):
+        for b in widths:
+            cfg, prm, state = pushing_rollout_state(b, 43, device, box)
+            kc = kpush.make_kernel_consts(cfg, prm, 32)
+            act = (torch.rand((2, b), generator=torch.Generator(device=device).manual_seed(44), device=device) * 2
+                   - 1) * 10.0
+            planes = torch.cat([pushing.state_to_planes(state)[:16], act]).contiguous()
+            cell = both_shapes(kpush, lambda: kpush.pushing_cycles_cuda(planes, kc, None, 7))
+            if switches_cycles(kpush):
+                cell['wrapper_producer'] = kpush.uses_producer(b, kc, 'cycles')
+            out[f"B{'_box' if box else ''},B={b}"] = cell
+    for name in configs:
+        for b in widths:
+            cfg, prm, state = planning_rollout_state(b, 40, device, name)
+            kc = kplan.make_kernel_consts(cfg, prm)
+            act = (torch.rand((2, b), generator=torch.Generator(device=device).manual_seed(41), device=device) * 2
+                   - 1) * 10.0
+            planes = torch.cat([planning.state_to_planes(cfg, state)[:6], act]).contiguous()
+            cell = both_shapes(kplan, lambda: kplan.planning_cycles_cuda(planes, kc, None, 7))
+            if switches_cycles(kplan):
+                cell['wrapper_producer'] = kplan.uses_producer(b, kc, 'cycles')
+            out[f'E,{name},B={b}'] = cell
+    cfg, prm, state = pushing_rollout_state(b_main, 45, device)
+    out['pushing_fused_step'] = step_ms(pushing.make_fused_step(cfg, prm), state, b_main, device)
+    cfg, prm, state = planning_rollout_state(b_main, 46, device)
+    out['planning_fused_step'] = step_ms(planning.make_fused_step(cfg, prm), state, b_main, device)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--label', default='')
     ap.add_argument('--repeats', type=int, default=5)
     ap.add_argument('--profile', action='store_true', help='also trace one rollout per cell')
-    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'planning', 'all'), default='all',
-                    help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them)")
+    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'planning', 'cycles', 'all'), default='all',
+                    help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them); 'cycles': "
+                         "kernels A, B and E, and the public fused steps")
     ap.add_argument('--movers', default=','.join(map(str, MULTI_TABLES)),
                     help="'layouts': comma-separated mover counts (keys of MULTI_TABLES)")
     ap.add_argument('--configs', default=','.join(PLAN_CONFIGS),
-                    help="'planning': comma-separated configurations of the kernel timings (keys of PLAN_CONFIGS)")
+                    help="'planning', 'cycles': comma-separated configurations of the kernel timings (keys of "
+                         "PLAN_CONFIGS)")
     ap.add_argument('--widths', default=None,
-                    help="'layouts', 'planning': comma-separated env counts of the kernel timings (default "
+                    help="'layouts', 'planning', 'cycles': comma-separated env counts of the kernel timings (default "
                          f"{','.join(map(str, WIDTHS))} and {','.join(map(str, PLAN_WIDTHS))})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -399,6 +524,8 @@ def main() -> int:
     if args.family in ('planning', 'all'):
         out['planning'] = planning_rates(args.repeats, args.profile)
         out['planning_kernels'] = planning_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))
+    if args.family in ('cycles', 'all'):
+        out['cycles_kernels'] = cycles_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))
     print(json.dumps(out))
     return 0
 

@@ -14,8 +14,13 @@ G's producer/consumer design and its plain mirror, ``ops/kernels/planning.py``).
   candidate is searched after its first candidate.
 - The restart reads no state, and each sampler's ``trials`` is 1 + j for
   its first accepted candidate j, else ``cand_k``.
+- Kernel E's ring (a step of cycle stages and no step stage): stage k holds
+  cycles k * per .. (k + 1) * per - 1, the last stage partial, made by
+  producer warp 1 + k % 2, each value taken by absolute index (whole Philox
+  blocks); in stage order the values are ``cycle_draws_plain``'s, and the
+  cycles run on them are kernel E's plain version, bit for bit.
 - The kernels' block shape (with the producer or thread-per-env) by batch
-  width.
+  width: E, F and G each up to its configuration's wide batch.
 """
 
 import numpy as np
@@ -30,7 +35,9 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 B = 24
 BOX = {'shape': 'box', 'size': np.array([0.09, 0.08])}
 LAYOUTS = {'full': np.ones((3, 3)), 'holed': np.array([[1, 1, 0], [1, 1, 1], [0, 1, 1]])}
-KW = dict(std_noise=[2e-3, 5e-2, 1e-5], num_cycles=6)
+KW = dict(std_noise=[2e-3, 5e-2, 1e-5])
+NUM_CYCLES = 6
+STAGE_VALUES, RING_SLOTS, PRODUCERS = 24, 4, 2  # kStageValues, kRingSlots (split.cuh), kPlanningProducers
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -41,9 +48,9 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def make(box: bool, layout: str, jerk: bool, cand_k: int):
+def make(box: bool, layout: str, jerk: bool, cand_k: int, num_cycles: int = NUM_CYCLES):
     cfg, prm = tplan.make_planning_env(LAYOUTS[layout], 1, collision_params=BOX if box else {}, learn_jerk=jerk,
-                                       device='cpu', **KW)
+                                       device='cpu', num_cycles=num_cycles, **KW)
     return cfg, prm, kplan.make_kernel_consts(cfg, prm, cand_k)
 
 
@@ -273,22 +280,87 @@ def test_restart_reads_no_state(box):
     assert torch.equal(a[21], b[21])  # stalled: every env is done, so exactly the restarts that found none
 
 
-@pytest.mark.parametrize('rollout', [False, True])
+def ring_stages(kc, u: torch.Tensor) -> list:
+    """Kernel E's ring for one step, as its producer warps fill it: a step
+    without its step stage, stage k made by warp 1 + k % PRODUCERS into slot
+    k % RING_SLOTS and holding cycles k * per .. min((k + 1) * per,
+    num_cycles) - 1 (per = STAGE_VALUES // q cycles, q the values of a
+    cycle: 4 circle, 8 box), cycle i's values computed from its whole Philox
+    blocks at draw q * i: the velocity pair from the first two words, the
+    wall pose from the rest.  Returns (warp, slot, cycles) a stage."""
+    q = 8 if kc.box else 4
+    per = STAGE_VALUES // q
+    stages = []
+    for k in range(-(-kc.num_cycles // per)):
+        cycles = []
+        for i in range(k * per, min((k + 1) * per, kc.num_cycles)):
+            assert (q * i) % 4 == 0
+            s = noise.UniformStream(u[q * i:])
+            cycles.append((s.normal_pair(), kplan._wall_pose_plain(kc, s)))
+        stages.append((1 + k % PRODUCERS, k % RING_SLOTS, cycles))
+    return stages
+
+
+@pytest.mark.parametrize('mode', ['injected', 'philox'])
+@pytest.mark.parametrize('num_cycles', [40, 6])
+@pytest.mark.parametrize('layout', list(LAYOUTS))
+@pytest.mark.parametrize('box, jerk', [(False, False), (False, True), (True, False), (True, True)],
+                         ids=['circle-acc', 'circle-jerk', 'box-acc', 'box-jerk'])
+def test_cycles_ring_takes_the_draws_by_absolute_index(box, jerk, layout, num_cycles, mode):
+    cfg, prm, kc = make(box, layout, jerk, 16, num_cycles)
+    q = 8 if box else 4
+    per = STAGE_VALUES // q
+    u = uniforms(mode, kplan.cycles_noise_planes(num_cycles, box), seed=num_cycles)
+    stages = ring_stages(kc, u)
+    sizes = [len(cycles) for _, _, cycles in stages]
+    assert sum(sizes) == num_cycles and all(n * q <= STAGE_VALUES for n in sizes)
+    assert sizes[:-1] == [per] * (len(sizes) - 1) and sizes[-1] == num_cycles - per * (len(sizes) - 1)
+    if num_cycles == 40:
+        assert sizes[-1] < per  # the last stage partial: 4 of 6 cycles (circle), 1 of 3 (box)
+    producer_of = {}
+    for warp, slot, _ in stages:
+        assert producer_of.setdefault(slot, warp) == warp  # each slot has a single producer
+    stream = noise.UniformStream(u)
+    want = kplan.cycle_draws_plain(kc, stream)
+    stream.finalize()
+    got = [cycle for _, _, cycles in stages for cycle in cycles]
+
+    def flat(cycles):
+        return [x for (v, (wx, wy, R)) in cycles for x in (*v, wx, wy, *R)]
+
+    for a, b in zip(flat(got), flat(want), strict=True):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    # the consumer's cycles on the ring's values are kernel E's plain version
+    st = busy_state(cfg, prm, seed=num_cycles)
+    st[0, :B // 4] = 0.64  # at the +x wall, moving out
+    act = (torch.rand((2, B), generator=torch.Generator().manual_seed(4)) * 2 - 1) * (100.0 if jerk else 10.0)
+    planes = torch.cat([st[:6], act])
+    mover, wall = kplan._cycles_plain(kc, got, list(planes[:6]), act[0], act[1])
+    out = kplan.planning_cycles_plain(planes, kc, u)
+    assert torch.equal(torch.stack(mover + [wall]), out)
+    assert int((out[6] > 0).sum()) > 0  # wall hits
+
+
+@pytest.mark.parametrize('kernel', ['cycles', 'autoreset', 'rollout'])
 @pytest.mark.parametrize('box, layout', [(False, 'full'), (True, 'full'), (False, 'holed'), (True, 'holed')])
 @pytest.mark.parametrize('b, producer', [(1, 1), (31, 1), (4096, 1), ('wide', 1), ('wide + 1', 0), (1 << 20, 0)])
-def test_uses_producer_by_width(b, producer, box, layout, rollout):
-    """Kernels F and G launch blocks with the producer up to their
+def test_uses_producer_by_width(b, producer, box, layout, kernel):
+    """Kernels E, F and G launch blocks with the producer up to their
     configuration's wide batch and thread-per-env blocks above."""
     _, _, kc = make(box, layout, False, 16)
-    wide = kplan.WIDE_BATCH['box' if box else 'circle', layout][int(rollout)]
+    wide = kplan.WIDE_BATCH['box' if box else 'circle', layout][kernel]
     b = {'wide': wide, 'wide + 1': wide + 1}.get(b, b)
     assert wide >= 4096
-    assert kplan.uses_producer(b, kc, rollout) == producer
+    assert kplan.uses_producer(b, kc, kernel) == producer
+    if kernel == 'autoreset':
+        assert kplan.uses_producer(b, kc) == producer  # F's, the default
 
 
 def test_uses_producer_follows_the_wide_batches(monkeypatch):
     _, _, kc = make(False, 'full', False, 16)
-    monkeypatch.setitem(kplan.WIDE_BATCH, ('circle', 'full'), (0, 4096))
+    monkeypatch.setitem(kplan.WIDE_BATCH, ('circle', 'full'), {'cycles': 8192, 'autoreset': 0, 'rollout': 4096})
     assert kplan.uses_producer(1, kc) == 0
-    assert kplan.uses_producer(4096, kc, rollout=True) == 1
-    assert kplan.uses_producer(4097, kc, rollout=True) == 0
+    assert kplan.uses_producer(4096, kc, 'rollout') == 1
+    assert kplan.uses_producer(4097, kc, 'rollout') == 0
+    assert kplan.uses_producer(8192, kc, 'cycles') == 1
+    assert kplan.uses_producer(8193, kc, 'cycles') == 0

@@ -13,7 +13,7 @@ every product and sum on their own and divide by IEEE division, as the
 plain versions' eager ops do, so flags and steps must match exactly and
 every other plane to rtol 1e-6 / atol 1e-7 (in practice bit for bit).
 
-Kernels F and G run in two block shapes: with the producer (the consumer
+Kernels E, F and G run in two block shapes: with the producer (the consumer
 warp and its producer warps, the wrapper's choice up to its configuration's
 ``planning.WIDE_BATCH`` envs) and thread-per-env (above it); each test of
 them runs both, the threshold moved to reach the other (``use_producer``).
@@ -76,9 +76,9 @@ def far_goals(state):
 
 
 def use_producer(monkeypatch, producer):
-    """Make kernels F and G launch blocks with the producer (1) or thread-per-env blocks (0) at every width."""
+    """Make kernels E, F and G launch blocks with the producer (1) or thread-per-env blocks (0) at every width."""
     wide = 1 << 62 if producer else 0
-    monkeypatch.setattr(kplan, 'WIDE_BATCH', dict.fromkeys(kplan.WIDE_BATCH, (wide, wide)))
+    monkeypatch.setattr(kplan, 'WIDE_BATCH', {k: dict.fromkeys(v, wide) for k, v in kplan.WIDE_BATCH.items()})
 
 
 def assert_planes(got, want, exact=()):
@@ -234,3 +234,36 @@ def test_kernel_g_matches_plain_at_ragged_widths(cuda, monkeypatch, b, name, pro
         out = kplan.planning_autoreset_cuda(st, acts[0].contiguous(), kc, u1, seed)
         assert torch.equal(one_st, out[:9]) and torch.equal(one_sig[0, 0], out[19]), mode
 
+
+@pytest.mark.parametrize('producer', [0, 1])
+@pytest.mark.parametrize('name', sorted(CONFIGS))
+@pytest.mark.parametrize('b', RAGGED)
+def test_kernel_e_matches_plain_at_ragged_widths(cuda, monkeypatch, b, name, producer):
+    """Kernel E with the producer (its stages hold whole cycles, the last one
+    partial) and thread-per-env, both noise modes."""
+    use_producer(monkeypatch, producer)
+    cfg, prm = make(name, cuda, learn_jerk=name.startswith('box'))
+    kc = kplan.make_kernel_consts(cfg, prm)
+    state = wall_state(cfg, prm, b, cuda, seed=b + 2)
+    act = (torch.rand((2, b), device=cuda) * 2 - 1) * (100.0 if cfg.learn_jerk else 10.0)
+    planes = torch.cat([tplan.state_to_planes(cfg, state)[:6], act]).contiguous()
+    for mode, u, seed, u_plain in ragged_modes(kplan.cycles_noise_planes(cfg.num_cycles, kc.box), b, cuda):
+        got = kplan.planning_cycles_cuda(planes, kc, u, seed)
+        assert_planes(got, kplan.planning_cycles_plain(planes, kc, u_plain), exact=(6,))
+
+
+@pytest.mark.parametrize('name', sorted(CONFIGS))
+def test_kernel_e_above_its_wide_batch(cuda, name):
+    """The wrapper's own choice above kernel E's wide batch in each
+    configuration (thread-per-env blocks), whose last block is partial."""
+    cfg, prm = make(name, cuda, learn_jerk=name.startswith('box'))
+    kc = kplan.make_kernel_consts(cfg, prm)
+    b = kplan.WIDE_BATCH['box' if kc.box else 'circle', 'full' if kc.rule.full else 'holed']['cycles'] + 33
+    assert kplan.uses_producer(b, kc, 'cycles') == 0
+    state = wall_state(cfg, prm, b, cuda, seed=4)
+    act = (torch.rand((2, b), device=cuda) * 2 - 1) * (100.0 if cfg.learn_jerk else 10.0)
+    planes = torch.cat([tplan.state_to_planes(cfg, state)[:6], act]).contiguous()
+    for mode, u, seed, u_plain in ragged_modes(kplan.cycles_noise_planes(cfg.num_cycles, kc.box), b, cuda):
+        got = kplan.planning_cycles_cuda(planes, kc, u, seed)
+        assert_planes(got, kplan.planning_cycles_plain(planes, kc, u_plain), exact=(6,))
+        assert 0 < int((got[6] > 0).sum()) < b, mode

@@ -195,8 +195,9 @@ SPLIT_WIDTHS = [(1, 32), (31, 32), (33, 7), (4097, 32)]
 
 
 def use_producer(monkeypatch, producer):
-    """Make kernels C and D launch blocks with (1) or without (0) the producer warp at every width."""
-    monkeypatch.setattr(kpush, 'WIDE_BATCH', 1 << 62 if producer else 0)
+    """Make kernels B, C and D launch blocks with (1) or without (0) the producer warp at every width."""
+    wide = 1 << 62 if producer else 0
+    monkeypatch.setattr(kpush, 'WIDE_BATCH', {k: dict.fromkeys(v, wide) for k, v in kpush.WIDE_BATCH.items()})
 
 
 SHAPE_KW = {'collision_params': BOX}
@@ -273,10 +274,10 @@ def test_box_split_kernels_above_the_wide_batch(cuda, learn_jerk):
     producer), whose last block holds a full tile, a tile of one env and
     two warps past the last env: C, C-feat and D (K=3) against their plain
     versions."""
-    b, cand_k, K = kpush.WIDE_BATCH + 33, 32, 3
-    assert kpush.producer_warps(b) == 0
+    b, cand_k, K = kpush.WIDE_BATCH['box']['autoreset'] + 33, 32, 3
     cfg, prm = split_env(cuda, learn_jerk)
     kc = kpush.make_kernel_consts(cfg, prm, cand_k)
+    assert kpush.uses_producer(b, kc) == 0 and kpush.uses_producer(b, kc, 'rollout') == 0
     st = tpush.state_to_planes(episode_state(cfg, prm, b, cuda, seed=5))
     acts = ((torch.rand((K, 2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)).contiguous()
     n_step = kpush.autoreset_noise_planes(cfg.num_cycles, cand_k, kc.box)
@@ -293,3 +294,47 @@ def test_box_split_kernels_above_the_wide_batch(cuda, learn_jerk):
             tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
             env_ok &= (got_st[i] - want_st[i]).abs() <= 10 * (tol['atol'] + tol['rtol'] * want_st[i].abs())
         assert float(env_ok.double().mean()) >= 0.99, (mode, float(env_ok.double().mean()))
+
+
+# -- kernel B at ragged widths, in both block shapes ----------------------------------
+@pytest.mark.parametrize('producer', [0, 1])
+@pytest.mark.parametrize('learn_jerk', [False, True])
+@pytest.mark.parametrize('b', [1, 31, 33, 4097])
+def test_box_split_kernel_b_matches_plain_at_ragged_widths(cuda, monkeypatch, b, learn_jerk, producer):
+    """Kernel B with (1) and without (0) the producer warp, both noise
+    modes: its stages hold whole cycles, the last one partial."""
+    use_producer(monkeypatch, producer)
+    cfg, prm = split_env(cuda, learn_jerk)
+    kc = kpush.make_kernel_consts(cfg, prm)
+    state = episode_state(cfg, prm, b, cuda, seed=b)
+    act = (torch.rand((2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)
+    planes = torch.cat([tpush.state_to_planes(state)[:16], act]).contiguous()
+    for mode, u, seed, u_plain in modes(kpush.cycles_noise_planes(cfg.num_cycles, kc.box), b, cuda):
+        got = kpush.pushing_cycles_cuda(planes, kc, u, seed)
+        assert_planes_close(got, kpush.pushing_cycles_plain(planes, kc, u_plain))
+
+
+@pytest.mark.parametrize('learn_jerk', [False, True])
+def test_box_split_kernel_b_above_its_wide_batch(cuda, learn_jerk):
+    """The wrapper's own choice above kernel B's wide batch (blocks without
+    the producer), whose last block holds a full tile, a tile of one env and
+    two warps past the last env: the wall flags equal for every env, the
+    planes at their class tolerances but on at most 0.1% of the envs, which
+    hit the wall in both and latch it one control cycle apart."""
+    cfg, prm = split_env(cuda, learn_jerk)
+    kc = kpush.make_kernel_consts(cfg, prm)
+    b = kpush.WIDE_BATCH['box' if kc.box else 'circle']['cycles'] + 33
+    assert kpush.uses_producer(b, kc, 'cycles') == 0
+    state = episode_state(cfg, prm, b, cuda, seed=6)
+    act = (torch.rand((2, b), device=cuda) * 2 - 1) * (80.0 if learn_jerk else 8.0)
+    planes = torch.cat([tpush.state_to_planes(state)[:16], act]).contiguous()
+    for mode, u, seed, u_plain in modes(kpush.cycles_noise_planes(cfg.num_cycles, kc.box), b, cuda):
+        got = kpush.pushing_cycles_cuda(planes, kc, u, seed)
+        want = kpush.pushing_cycles_plain(planes, kc, u_plain)
+        assert torch.equal(got[16], want[16]), mode
+        ok = torch.ones(b, dtype=torch.bool, device=cuda)
+        for i in range(16):
+            tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
+            ok &= (got[i] - want[i]).abs() <= tol['atol'] + tol['rtol'] * want[i].abs()
+        assert bool((got[16][~ok] > 0).all()), (mode, 'an env that hit no wall disagrees')
+        assert int((~ok).sum()) <= 1e-3 * b, (mode, int((~ok).sum()))

@@ -14,7 +14,13 @@ design and its plain mirror, ``ops/kernels/pushing.py``).
   candidate is searched after the first candidate.
 - The restart reads no state, and its ``trials`` is 1 + j for the first
   accepted candidate j, else ``cand_k``.
-- The kernels' producer warps by batch width.
+- Kernel B's ring (a step of cycle stages and no step stage): stage k holds
+  cycles k * per .. (k + 1) * per - 1, the last stage partial, each value
+  taken by absolute index; in stage order the values are
+  ``cycle_draws_plain``'s, and the cycles run on them are kernel B's plain
+  version, bit for bit.
+- The kernels' block shape (with the producer warp or without) by batch
+  width: B, C and D each up to its own wide batch.
 """
 
 import numpy as np
@@ -28,6 +34,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 B = 24
 NUM_CYCLES = 6
 BOX = {'shape': 'box', 'size': [0.09, 0.09]}
+STAGE_VALUES = 24  # values of one ring stage for each env (kStageValues, csrc/split.cuh)
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -38,8 +45,8 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def make(box: bool, jerk: bool, cand_k: int):
-    cfg, prm = tpush.make_pushing_env(num_cycles=NUM_CYCLES, learn_jerk=jerk, device='cpu',
+def make(box: bool, jerk: bool, cand_k: int, num_cycles: int = NUM_CYCLES):
+    cfg, prm = tpush.make_pushing_env(num_cycles=num_cycles, learn_jerk=jerk, device='cpu',
                                       **({'collision_params': BOX} if box else {}))
     return cfg, prm, kpush.make_kernel_consts(cfg, prm, cand_k)
 
@@ -269,17 +276,96 @@ def test_restart_reads_no_state(box):
     assert torch.equal(a[34], b[34])  # stalled: every env is done, so exactly the restarts that found none
 
 
+def ring_stages(kc, u: torch.Tensor) -> list:
+    """Kernel B's ring for one step, as its producer warp fills it: a step
+    without its step stage, stage k holding cycles k * per .. min((k + 1) *
+    per, num_cycles) - 1 (per = STAGE_VALUES // q cycles, q the values of a
+    cycle: 4 circle, 8 box), cycle i's values computed from its draws by
+    absolute index (the velocity pair from draw q * i, the wall pose from
+    q * i + 2)."""
+    q = 8 if kc.box else 4
+    per = STAGE_VALUES // q
+    stages = []
+    for k in range(-(-kc.num_cycles // per)):
+        stage = []
+        for i in range(k * per, min((k + 1) * per, kc.num_cycles)):
+            s = noise.UniformStream(u[q * i:])
+            stage.append((s.normal_pair(), kpush._wall_pose_plain(kc.f, s, kc.box)))
+        stages.append(stage)
+    return stages
+
+
+@pytest.mark.parametrize('mode', ['injected', 'philox'])
+@pytest.mark.parametrize('num_cycles', [40, 6])
+@pytest.mark.parametrize('box, jerk', [(False, False), (False, True), (True, False), (True, True)],
+                         ids=['circle-acc', 'circle-jerk', 'box-acc', 'box-jerk'])
+def test_cycles_ring_takes_the_draws_by_absolute_index(box, jerk, num_cycles, mode):
+    cfg, prm, kc = make(box, jerk, 32, num_cycles)
+    q = 8 if box else 4
+    per = STAGE_VALUES // q
+    u = uniforms(mode, kpush.cycles_noise_planes(num_cycles, box), seed=num_cycles)
+    stages = ring_stages(kc, u)
+    sizes = [len(stage) for stage in stages]
+    assert sum(sizes) == num_cycles and all(n * q <= STAGE_VALUES for n in sizes)
+    assert sizes[:-1] == [per] * (len(sizes) - 1) and sizes[-1] == num_cycles - per * (len(sizes) - 1)
+    if num_cycles == 40:
+        assert sizes[-1] < per  # the last stage partial: 4 of 6 cycles (circle), 1 of 3 (box)
+    stream = noise.UniformStream(u)
+    want = kpush.cycle_draws_plain(kc.f, stream, num_cycles, box)
+    stream.finalize()
+    got = [cycle for stage in stages for cycle in stage]
+
+    def flat(cycles):
+        return [x for (v, (wx, wy, R)) in cycles for x in (*v, wx, wy, *(R or ()))]
+
+    for a, b in zip(flat(got), flat(want), strict=True):
+        assert torch.equal(a, b)
+    # the consumer's cycles on the ring's values are kernel B's plain version
+    st = busy_state(cfg, prm, seed=num_cycles)
+    act = torch.rand((2, B), generator=torch.Generator().manual_seed(4)) * 16.0 - 8.0
+    planes = torch.cat([st[:16], act])
+    phys, wall = kpush._run_cycles_plain(kc.f, got, jerk, box, list(planes[:16]), act[0], act[1])
+    out = kpush.pushing_cycles_plain(planes, kc, u)
+    assert torch.equal(torch.stack(phys + [wall]), out)
+    assert int((out[16] > 0).sum()) > 0  # wall hits
+
+
+@pytest.mark.parametrize('kernel', ['autoreset', 'rollout'])
+@pytest.mark.parametrize('box', [False, True])
 @pytest.mark.parametrize('b, want', [(1, 1), (31, 1), (4096, 1), (32768, 1), (32769, 0), (65536, 0),
                                      (1 << 20, 0)])
-def test_producer_warps_by_width(b, want):
+def test_uses_producer_by_width(b, want, box, kernel):
     """Kernels C and D launch blocks with one producer warp up to 32,768
-    envs and blocks without one above (the measured table)."""
-    assert kpush.WIDE_BATCH == 32768
-    assert kpush.producer_warps(b) == want
+    envs and blocks without one above (the measured table), in both
+    collision shapes."""
+    _, _, kc = make(box, False, 32)
+    assert kpush.WIDE_BATCH['box' if box else 'circle'][kernel] == 32768
+    assert kpush.uses_producer(b, kc, kernel) == want
+    if kernel == 'autoreset':
+        assert kpush.uses_producer(b, kc) == want  # C's, the default
 
 
-def test_producer_warps_follow_the_wide_batch(monkeypatch):
-    monkeypatch.setattr(kpush, 'WIDE_BATCH', 0)
-    assert kpush.producer_warps(1) == 0
-    monkeypatch.setattr(kpush, 'WIDE_BATCH', 1 << 20)
-    assert kpush.producer_warps(65536) == 1
+@pytest.mark.parametrize('box', [False, True])
+@pytest.mark.parametrize('b, producer', [(1, 1), (31, 1), (4096, 1), ('wide', 1), ('wide + 1', 0), (1 << 20, 0)])
+def test_uses_producer_by_width_for_kernel_b(b, producer, box):
+    """Kernel B launches blocks with the producer warp up to its own wide
+    batch, in each collision shape, and blocks without one above."""
+    _, _, kc = make(box, False, 32)
+    wide = kpush.WIDE_BATCH['box' if box else 'circle']['cycles']
+    b = {'wide': wide, 'wide + 1': wide + 1}.get(b, b)
+    assert wide >= 4096
+    assert kpush.uses_producer(b, kc, 'cycles') == producer
+
+
+def test_uses_producer_follows_the_wide_batch(monkeypatch):
+    _, _, kc = make(False, False, 32)
+    monkeypatch.setitem(kpush.WIDE_BATCH, 'circle', {'cycles': 0, 'autoreset': 0, 'rollout': 0})
+    assert kpush.uses_producer(1, kc) == 0
+    assert kpush.uses_producer(1, kc, 'cycles') == 0
+    monkeypatch.setitem(kpush.WIDE_BATCH, 'circle', {'cycles': 1 << 20, 'autoreset': 1 << 20, 'rollout': 1 << 20})
+    assert kpush.uses_producer(65536, kc) == 1
+    assert kpush.uses_producer(65536, kc, 'rollout') == 1
+    assert kpush.uses_producer(1 << 20, kc, 'cycles') == 1
+    assert kpush.uses_producer((1 << 20) + 1, kc, 'cycles') == 0
+    _, _, kcb = make(True, False, 32)
+    assert kpush.uses_producer(65536, kcb) == 0  # the box keeps its own row
