@@ -12,7 +12,7 @@ phase:
 2. kernel A (noise probe) against its plain PyTorch version on injected
    uniforms and on the host copy of its Philox stream, plus the moments of
    262,144 Philox normals, and the profiler's device time a launch at the
-   main path's shape;
+   main path's shape, beside an empty kernel's on the same grid;
 3. kernels B, C and D against their plain versions at 4096 envs, from
    states with the mover planted at the object, in both noise modes:
    injected uniforms, and the kernel's own Philox stream (seed 7, the mode
@@ -68,12 +68,15 @@ phase:
    each env runs up to its latch), and 2, 4, 8 and 12 movers at 4096 and
    65,536 envs in every layout (G, L) the wrapper can pick, the table
    ``LANE_TABLE`` is read from, with each instantiation's ``ptxas -v``;
+   and 65, 96 and 128 movers (L = 4 slots), circle and box, held at 1
+   cycle (both noise modes at 65, Philox above) and timed at 40;
 10. the public M-mover path: ``make_planning_env(np.ones((4, 4)), 4)`` ->
    ``init_batch(4096)`` -> ``make_fused_step_autoreset`` x5 ->
    ``multi_agent.make_batched_parallel_step`` x3 -> ``make_fused_rollout``
    T=64, counters set to 0 before and read after (72 launches of H); then
    the same at 12 movers on the full 8x8 table, counted on its own (no
-   eager fallback);
+   eager fallback); and the multi-agent step at 65 movers (3 launches of
+   H);
 11. env-steps/s of the M=4 ``make_fused_rollout`` at 4096 and 65,536 envs,
    T=64, five repeats (median, with the host's enqueue time), plus the
    plain version once at 4096 envs;
@@ -129,7 +132,20 @@ phase:
    against its plain version in both block shapes;
 23. every fused step (pushing, box pushing, 1-, 4- and 12-mover planning,
    the multi-agent step at 4 and 12 movers) with a generator on the card
-   makes no host synchronisation (sync debug mode 'warn').
+   makes no host synchronisation (sync debug mode 'warn');
+24. DDPG+HER on pushing: ``tools/train_push_her.py``'s train step at its
+   defaults ((256, 256), 50 rollout steps, 20 updates at minibatch 4096, a
+   4M replay buffer, the fused step) at 512 and 2048 envs, a warm-up and 3
+   iterations split into rollout, relabel + insert and update (CUDA
+   events), counters set to 0 before each and read after (50 launches of C
+   an iteration), no host synchronisation in the rollout, the buffer's
+   bytes;
+25. HER on 1-mover planning's fused step (kernel F): the learning gate of
+   ``tests/test_her_learning.py`` (3x3, 256 envs, 250 iterations with and
+   without relabelling), its thresholds reported with the curves;
+26. ``utils/checkpoint``: the HER runner saved after 2 iterations and
+   restored into a fresh one, bit-equal, and its next iteration bit-equal
+   to the uninterrupted run's.
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread (where the
@@ -155,6 +171,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -210,6 +227,10 @@ BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_b
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 M_WIDE = 12  # movers of the wide M-mover configuration: full 8x8 table, cand_k=128
 H_LAYOUT_MOVERS = (2, 4, 8, 12)  # movers at which kernel H is timed in every lane layout
+H_WIDE_MOVERS = (65, 96, 128)  # movers above 64: kernel H's L = 4 slots
+HER_BATCHES = (512, 2048)  # the HER recipe's batch (tools/train_push_her.py --batch) and the PPO recipe's
+HER_ITERS = 3  # timed HER iterations a batch, after one warm-up
+HER_GATE_ITERS = 250  # iterations of each learner in the HER gate (tests/test_her_learning.py:98)
 B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
 TRAIN_STEPS = 20
 B_EAGER, T_EAGER = 2048, 64  # the eager step_autoreset's run
@@ -498,9 +519,11 @@ def main() -> int:
         u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
         ms, ms_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7))
         injected_ms, injected_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
-        # the profiler's kernel records: a launch of A is shorter than the host's enqueue of it
+        # the profiler's kernel records: a launch of A is shorter than the host's enqueue of it; an empty
+        # kernel on A's grid beside it is the floor of a launch of that shape
         device_ms = {'philox': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7), 100),
-                     'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 100)}
+                     'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 100),
+                     'empty_kernel_same_grid': launch_device_ms(lambda: noise.empty_launch_cuda(B_MAIN, dev), 100)}
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
         ops = ops_total((3 * B_MAIN, 'normal_pair'))
         bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
@@ -1351,6 +1374,39 @@ def main() -> int:
                             *holed)
         return per_cycle * cycles_run + per_env * b + per_set * sets_tested
 
+    def ladder_h(m, box, b, num_cycles):
+        """(config, params, state planes, action planes) of M movers on a
+        square grid of slots 0.42 m apart on the smallest full table that
+        holds them with 0.3 m margins (circle r = 0.11, or the box), at
+        ``num_cycles`` cycles: envs [0, b/4) with mover 0 at the -x wall
+        moving out at 1 m/s, envs [b/4, b/2) with movers 0 and 1 1 mm apart
+        head-on; random velocities, accelerations, goals and actions, every
+        8th env about to truncate (random sets of this many movers are never
+        apart, so ``init_batch`` has no part here)."""
+        nx = math.ceil(math.sqrt(m))
+        side = math.ceil((0.6 + 0.42 * (nx - 1)) / 0.24)
+        cfg, prm = PL.make_planning_env(np.ones((side, side)), m, collision_params=box_coll if box else {},
+                                        num_cycles=num_cycles, std_noise=[2e-3, 5e-2, 1e-5], device=dev)
+        g = torch.Generator(device=dev).manual_seed(40 + m)
+        slots = torch.tensor([(0.3 + 0.42 * i, 0.3 + 0.42 * j) for i in range(nx) for j in range(nx)][:m],
+                             device=dev)
+        pos = slots[None] + (torch.rand((b, m, 2), generator=g, device=dev) - 0.5) * 0.01
+        vel = (torch.rand((b, m, 2), generator=g, device=dev) - 0.5) * 0.6
+        hx = prm.c_size.reshape(m, -1)[:, 0]
+        q = b // 4
+        pos[:q, 0, 0] = torch.linspace(float(hx[0]) - 0.01, float(hx[0]) + 0.02, q, device=dev)
+        vel[:q, 0] = torch.tensor([-1.0, 0.1], device=dev)
+        pos[q:2 * q, 1] = pos[q:2 * q, 0] + torch.stack([hx[0] + hx[1] + 1e-3, torch.zeros_like(hx[0])])
+        vel[q:2 * q, 0] = torch.tensor([1.0, 0.0], device=dev)
+        vel[q:2 * q, 1] = torch.tensor([-1.0, 0.0], device=dev)
+        acc = (torch.rand((b, m, 2), generator=g, device=dev) - 0.5) * 10.0
+        goals = prm.min_xy + torch.rand((b, m, 2), generator=g, device=dev) * (prm.max_xy - prm.min_xy)
+        steps = torch.randint(0, cfg.max_episode_steps - 5, (b,), generator=g, device=dev, dtype=torch.int32)
+        steps[::8] = cfg.max_episode_steps - 1
+        state = PL.PlanningState(pos=pos, vel=vel, acc=acc, act=acc.clone(), goals=goals, steps=steps)
+        act = ((torch.rand((2 * m, b), generator=g, device=dev) * 2 - 1) * 8.0).contiguous()
+        return cfg, prm, PL.state_to_planes(cfg, state), act
+
     def multi_rollout_h(m, b, seed):
         """(config, params, kernel constants, state planes, action planes) of
         kernel H at M movers on a state eight random steps into a rollout
@@ -1363,6 +1419,7 @@ def main() -> int:
     @phase('kernel_H_planning_multi_autoreset')
     def _():
         res = {}
+        t_part = {'start': time.perf_counter()}
         for name, (_, _, _, _, cand_k) in multi_configs.items():
             cfg, prm = multi_env(name)
             m = cfg.num_movers
@@ -1396,6 +1453,7 @@ def main() -> int:
             entry['ms'], _ = time_groups(lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 10)
             res[name] = entry
 
+        t_part['configs'] = time.perf_counter()
         # the main configuration on the states the main path gives kernel H,
         # in the wrapper's layout: the kernels line's time and bound
         cfg, prm, mc, st, act = multi_rollout_h(M_MAIN, B_MAIN, 21)
@@ -1424,6 +1482,7 @@ def main() -> int:
         kstats['planning_multi_autoreset'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                                   max_abs_err=max([e] + [r['max_abs_err'] for r in res.values()]))
 
+        t_part['main'] = time.perf_counter()
         # every layout (G, L) the wrapper can pick: held against the plain
         # version at 4096 envs, then timed on rollout states at both widths
         for m in H_LAYOUT_MOVERS:
@@ -1436,6 +1495,62 @@ def main() -> int:
                                           exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
                 require(not bad, f'M={m} (G, L)={lay}: planes {bad} disagree')
         layout_ms = kernel_h_layouts(H_LAYOUT_MOVERS, (B_MAIN, B_LARGE), DEVICE)
+        t_part['layouts'] = time.perf_counter()
+
+        # 65-128 movers: 32 lanes of 4 slots.  Held against the plain version
+        # at 1 cycle and 1 candidate set on all envs, both noise modes at 65
+        # movers and the Philox mode the path launches above; then timed at
+        # the full 40 cycles and cand_k 16 (Philox), on the same planted
+        # states, and that launch held against the plain version on 64 envs
+        above = {}
+        for m in H_WIDE_MOVERS:
+            for box in (False, True):
+                tag = f'M={m} {"box" if box else "circle"}'
+                entry = {'lanes': list(kmu.lane_layout(m, B_MAIN))}
+                require(kmu.layouts(m) == ((32, 4),) and kmu.lane_layout(m, B_MAIN) == (32, 4), f'{tag}: layout')
+                for cycles, cand_k in ((1, 1), (40, 16)):
+                    cfg, prm, st, act = ladder_h(m, box, B_MAIN, cycles)
+                    mc = kmu.make_multi_kernel_consts(cfg, prm, cand_k)
+                    n_noise = kmu.multi_noise_planes(cycles, m, cand_k, box)
+                    if cycles == 1:
+                        u = torch.rand((n_noise, B_MAIN), generator=gen, device=dev)
+                        modes = (('philox', kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7),
+                                  philox(7, n_noise, B_MAIN)),)
+                        if m == H_WIDE_MOVERS[0]:
+                            modes += (('injected', kmu.planning_multi_autoreset_cuda(st, act, mc, u), u),)
+                        for mode, got, uref in modes:
+                            ref = kmu.planning_multi_autoreset_plain(st, act, mc, uref)
+                            e, bad = planes_check(got, ref, exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
+                            walls_, movers = int((got[18 * m + 1] > 0).sum()), int((got[18 * m + 2] > 0).sum())
+                            require(not bad, f'{tag} ({mode}): planes {bad} disagree')
+                            require(walls_ > 0 and movers > 0, f'{tag} ({mode}): {walls_} wall, {movers} mover hits')
+                            entry[mode] = {'max_abs_err': e, 'wall_hits': walls_, 'mover_hits': movers,
+                                           'sets_tested': int(got[18 * m + 5].sum())}
+                    else:  # launches of a millisecond or more: CUDA events time the device
+                        entry['ms'], entry['ms_groups'] = time_groups(
+                            lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 5)
+                        # the timed launch held against the plain version on 64 of its envs, 16 of each
+                        # planted quarter (wall, head-on, random, random)
+                        q = B_MAIN // 4
+                        cols = np.concatenate([np.arange(k * q, k * q + 16) for k in range(4)])
+                        idx = torch.from_numpy(cols).to(dev)
+                        got = kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7)[:, idx]
+                        ref = kmu.planning_multi_autoreset_plain(
+                            st[:, idx].contiguous(), act[:, idx].contiguous(), mc,
+                            noise.philox_uniforms(7, n_noise, len(cols), cols).to(dev))
+                        e, bad = planes_check(got, ref, exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
+                        require(not bad, f'{tag} (40 cycles, cand_k 16, philox): planes {bad} disagree')
+                        restarts = int(((got[8 * m] == 0) & (st[8 * m, idx] > 0)).sum())
+                        entry['timed_check'] = {
+                            'envs': len(cols), 'max_abs_err': e, 'restarts': restarts,
+                            'stalled': int(got[18 * m + 4].sum()), 'wall_hits': int((got[18 * m + 1] > 0).sum()),
+                            'mover_hits': int((got[18 * m + 2] > 0).sum()), 'sets_tested': int(got[18 * m + 5].sum())}
+                above[tag] = entry
+        t_part['above_64_movers'] = time.perf_counter()
+        kstats['planning_multi_autoreset']['max_abs_err'] = max(
+            [kstats['planning_multi_autoreset']['max_abs_err']]
+            + [v[mode]['max_abs_err'] for v in above.values() for mode in ('injected', 'philox', 'timed_check')
+               if mode in v])
         # ptxas -v of each instantiation (L, box)
         ptxas = {}
         for fn, line in report['phases']['card_build'].get('ptxas', {}).items():
@@ -1444,8 +1559,9 @@ def main() -> int:
                 ptxas['L={},box={}'.format(*mt.groups())] = line
         return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
-                'configs': res, 'main': main, 'layout_ms': layout_ms, 'lane_table': {
-                    str(k): v for k, v in kmu.LANE_TABLE.items()}, 'wide_batch': kmu.WIDE_BATCH, 'ptxas': ptxas}
+                'configs': res, 'main': main, 'layout_ms': layout_ms, 'above_64_movers': above, 'lane_table': {
+                    str(k): v for k, v in kmu.LANE_TABLE.items()}, 'wide_batch': kmu.WIDE_BATCH, 'ptxas': ptxas,
+                'seconds_by_part': {k: t_part[k] - t_part[p] for p, k in zip(list(t_part), list(t_part)[1:])}}
 
     # -- 10. the public M-mover path ------------------------------------------------
     def drive_multi_path(m, side, seed):
@@ -1530,6 +1646,33 @@ def main() -> int:
         res = drive_multi_path(M_MAIN, 4, 5)
         # the same path at 12 movers on the 8x8 table, counted on its own
         res[f'M={M_WIDE}'] = drive_multi_path(M_WIDE, 8, 15)
+        # the multi-agent step at 65 movers (f32) takes kernel H, L = 4 slots,
+        # counted on its own; the movers start on a grid of slots (random
+        # sets of 65 are never apart)
+        m = H_WIDE_MOVERS[0]
+        cfg, prm, _, _ = ladder_h(m, False, 1, 40)
+        g = torch.Generator(device=dev).manual_seed(25)
+        nx = math.ceil(math.sqrt(m))
+        slots = [(0.3 + 0.42 * i, 0.3 + 0.42 * j) for i in range(nx) for j in range(nx)][:m]
+        state, _, _ = PL.reset(cfg, prm, B_MAIN, g, start_xy=slots, goals_xy=slots[::-1])
+        require(multi_agent.fused_covers(cfg, prm), f'{m} movers: the multi-agent step would step eagerly')
+        par = multi_agent.make_batched_parallel_step(cfg, prm)
+        kernels.reset_launches()
+        rewards = []
+        for _ in range(3):
+            state, batch = par(state, (torch.rand((B_MAIN, m, 2), generator=g, device=dev) * 2 - 1) * 10.0,
+                               generator=g)
+            rewards.append(batch.reward)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        require(launches['planning_multi_autoreset'] == 3 and sum(launches.values()) == 3,
+                f'{m} movers: launches {launches}')
+        rew = torch.stack(rewards)
+        require(rew.shape == (3, B_MAIN, m) and set(torch.unique(rew).tolist()) <= {50.0, -50.0, 0.0, -1.0},
+                f'{m} movers: per-agent rewards {torch.unique(rew).tolist()[:8]}')
+        require(bool(torch.isfinite(state.pos).all()), f'{m} movers: positions not finite')
+        res[f'M={m} multi_agent'] = {'launches': launches, 'lanes': list(kmu.lane_layout(m, B_MAIN)),
+                                     'reward_mean': float(rew.mean())}
         return res
 
     multi_launches = report['phases']['multi_planning_main_path'].get('launches', {})
@@ -2336,6 +2479,170 @@ def main() -> int:
         bad = {k: v for k, v in res.items() if v['host_syncs']}
         require(not bad, f'fused steps wait on the host: {bad}')
         return {'B': B_MAIN, 'generator': 'on the card', 'steps': res}
+
+    # -- 24. DDPG/TD3+HER on pushing's fused step -------------------------------------------
+    from gymnasium_planar_robotics_tpu_torch.models import her
+    from gymnasium_planar_robotics_tpu_torch.tools import her_gate
+    from gymnasium_planar_robotics_tpu_torch.tools import train_push_her as TPH
+    from gymnasium_planar_robotics_tpu_torch.utils import checkpoint
+
+    def syncs_in(fn):
+        """(result of ``fn()``, the host synchronisations it made) under
+        sync debug mode 'warn'."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum('called a synchronizing' in str(w.message) for w in caught)
+
+    def require_full_f32():
+        """HER's products run in full float32, as the JAX package's."""
+        require(torch.get_float32_matmul_precision() == 'highest' and not torch.backends.cuda.matmul.allow_tf32,
+                f'float32 matmul precision {torch.get_float32_matmul_precision()!r}, '
+                f'TF32 {torch.backends.cuda.matmul.allow_tf32}')
+
+    def relabel_insert(step, traj, buf, g):
+        batch, rel = step.relabel(traj, g)
+        her._replay_insert(buf, batch)
+        return batch, rel
+
+    @phase('her_pushing_main_path')
+    def _():
+        """The ``train_push_her.py`` recipe's train step at its defaults
+        ((256, 256), 50 rollout steps, 20 updates at minibatch 4096, a 4M
+        replay buffer, the fused step: kernel C) at HER_BATCHES envs: one
+        warm-up iteration, then HER_ITERS iterations split by CUDA events
+        into rollout, relabel + insert and update, launch counters set to 0
+        before each and read after."""
+        res = {}
+        for b in HER_BATCHES:
+            args = TPH.parser().parse_args(['--batch', str(b), '--seed', '3', '--device', DEVICE])
+            _, _, hcfg, step, runner = TPH.build(args)
+            require_full_f32()
+            torch.cuda.reset_peak_memory_stats(dev)
+            runner, _ = step(runner)  # warm-up
+            torch.cuda.synchronize()
+            state, obs, nets, a_opt, c_opt, buf, g = runner
+            parts = {'rollout': [], 'relabel_insert': [], 'update': []}
+            syncs = {k: [] for k in parts}
+            launches = []
+            iter_ms = []
+            for _ in range(HER_ITERS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                ev[0].record()
+                (state, obs, traj), n = syncs_in(lambda: step.collect(state, obs, nets, g))
+                syncs['rollout'].append(n)
+                ev[1].record()
+                (batch, _), n = syncs_in(lambda: relabel_insert(step, traj, buf, g))
+                syncs['relabel_insert'].append(n)
+                ev[2].record()
+                (c_l, a_l), n = syncs_in(lambda: step.update(nets, a_opt, c_opt, batch, buf, g))
+                syncs['update'].append(n)
+                ev[3].record()
+                torch.cuda.synchronize()
+                iter_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(dict(kernels.LAUNCHES))
+                for k, i in zip(parts, range(3)):
+                    parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+                require(bool(torch.isfinite(c_l)) and bool(torch.isfinite(a_l)), f'B={b}: losses not finite')
+            per_iter = [lc['pushing_autoreset'] for lc in launches]
+            require(all(n == hcfg.rollout_steps for n in per_iter), f'B={b}: kernel C launched {per_iter} times '
+                                                                    f'an iteration, expected {hcfg.rollout_steps}')
+            require(all(sum(lc.values()) == lc['pushing_autoreset'] for lc in launches),
+                    f'B={b}: other kernels launched: {launches[-1]}')
+            require(not any(syncs['rollout']), f'B={b}: the rollout synchronised with the host {syncs["rollout"]}')
+            require(buf['filled'] == min((HER_ITERS + 1) * 2 * hcfg.rollout_steps * b, hcfg.replay_size),
+                    f'B={b}: replay filled {buf["filled"]}')
+            med = statistics.median(iter_ms)
+            res[f'B={b}'] = {
+                'iter_ms_host_clock': iter_ms, 'iter_ms_median': med,
+                'parts_ms': parts, 'parts_ms_median': {k: statistics.median(v) for k, v in parts.items()},
+                'env_steps_per_s': b * hcfg.rollout_steps / (med / 1e3),
+                'kernel_C_launches_per_iter': per_iter, 'host_syncs': syncs,
+                'replay_bytes': sum(buf[k].numel() * buf[k].element_size() for k in her.REPLAY_FIELDS),
+                'replay_filled': buf['filled'],
+                'peak_memory_bytes': torch.cuda.max_memory_allocated(dev)}
+        return {'card': card, 'recipe': 'train_push_her.py defaults (DDPG, (256, 256), 20 updates, minibatch 4096, '
+                'replay 4M, fused)', 'iters': HER_ITERS, **res}
+
+    @phase('her_planning_learns')
+    def _():
+        """The gate of the JAX package's HER learning test on the card
+        (``tools/her_gate.py``): DDPG+HER on sparse 1-mover planning (3x3,
+        ``std_noise=1e-5``, ``a_max`` 3, 256 envs, (64, 64), 16 rollout
+        steps, 8 updates, no replay) over planning's fused step (kernel F),
+        250 iterations with and without relabelling, at the fixed seed 0 (as
+        the JAX test runs at its fixed seed; the run is deterministic on the
+        card).  Fails unless all three thresholds hold: late > early + 0.08,
+        late > 0.38, and late > late without relabelling + 0.10; also on a
+        non-finite rate, kernel F not launched once a rollout step, or
+        products not in full float32."""
+        res = her_gate.gate(0, HER_GATE_ITERS, DEVICE)
+        require(res['finite'], 'a non-finite episode success rate')
+        require(res['kernel_F_launches'] == 2 * HER_GATE_ITERS * 16,
+                f'kernel F launched {res["kernel_F_launches"]} times, expected {2 * HER_GATE_ITERS * 16}')
+        require_full_f32()
+        nums = f'early {res["early"]}, late {res["late"]}, late without relabelling {res["late_no_relabel"]}'
+        require(res['lift_held'], f'the gate: late not above early + 0.08 ({nums})')
+        require(res['level_held'], f'the gate: late not above 0.38 ({nums})')
+        require(res['relabel_held'], f'the gate: late not above late without relabelling + 0.10 ({nums})')
+        return res
+
+    @phase('checkpoint_round_trip')
+    def _():
+        """The HER runner on the card (the recipe at 512 envs, a 262,144-
+        transition replay buffer), saved after 2 iterations and restored
+        into a fresh runner: bit-equal, and its next iteration's metrics,
+        weights, Adam moments and buffer equal the uninterrupted run's bit
+        for bit."""
+        import tempfile
+
+        argv = ['--batch', '512', '--replay', '262144', '--device', DEVICE, '--seed', '4']
+
+        def fresh(seed_argv=argv):
+            return TPH.build(TPH.parser().parse_args(seed_argv))[3:]
+
+        step, runner = fresh()
+        for _ in range(2):
+            runner, _ = step(runner)
+        (ROOT / 'chiprun_out').mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / 'chiprun_out') as tmp:
+            t0 = time.perf_counter()
+            checkpoint.save(tmp, runner, step=2)
+            save_s = time.perf_counter() - t0
+            step2, other = fresh(argv[:-1] + ['9'])
+            t0 = time.perf_counter()
+            restored = checkpoint.restore(tmp, other)
+            restore_s = time.perf_counter() - t0
+            require(checkpoint.saved_step(tmp) == 2, 'saved step')
+
+        def flat(r):
+            state, obs, nets, a_opt, c_opt, buf, g = r
+            out = [getattr(state, f.name) for f in dataclasses.fields(state)] + list(obs.values())
+            out += list(nets.state_dict().values()) + [buf[k] for k in her.REPLAY_FIELDS] + [g.get_state()]
+            for opt in (a_opt, c_opt):
+                out += [v for st_ in opt.state_dict()['state'].values() for v in st_.values()]
+            return out, (buf['ptr'], buf['filled'])
+
+        a, ints_a = flat(runner)
+        b_, ints_b = flat(restored)
+        require(ints_a == ints_b and len(a) == len(b_) and all(torch.equal(x, y) for x, y in zip(a, b_)),
+                'the restored runner differs from the saved one')
+        runner, m_full = step(runner)
+        restored, m_res = step2(restored)
+        same_metrics = all(torch.equal(m_full[k], m_res[k]) for k in m_full)
+        a, _ = flat(runner)
+        b_, _ = flat(restored)
+        differ = sum(not torch.equal(x, y) for x, y in zip(a, b_))
+        require(same_metrics and differ == 0, f'resumed iteration differs: metrics equal {same_metrics}, '
+                                              f'{differ} tensors differ')
+        return {'tensors': len(a), 'checkpoint_bytes': sum(x.numel() * x.element_size() for x in a),
+                'save_s': save_s, 'restore_s': restore_s, 'bit_equal': True}
 
     report['card'] = card
     kernel_rows = []

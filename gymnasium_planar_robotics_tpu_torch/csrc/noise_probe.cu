@@ -40,6 +40,11 @@ __global__ void __launch_bounds__(kThreads) noise_probe_kernel(const float* __re
   }
 }
 
+// An empty kernel on kernel A's grid (one thread per env, kThreads a
+// block).  It replaces no TPU kernel: timed beside A, it is the floor of a
+// launch of A's shape on the card.
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
 }  // namespace gprt
 
 // noise: [2*draws, B] uniforms, or null for the in-kernel Philox stream.
@@ -56,5 +61,14 @@ extern "C" int gprt_noise_probe(const float* noise, float* out, int64_t B, int d
   } else {
     noise_probe_kernel<false><<<num_blocks(B), kThreads, 0, s>>>(noise, out, B, draws, seed);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on the grid kernel A takes for B envs.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int gprt_empty_launch(int64_t B, void* stream) {
+  using namespace gprt;
+  if (B <= 0) return 0;
+  empty_kernel<<<num_blocks(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Kernel H: one M-mover planning autoreset env step, for any M from 2 to
-// kMaxMovers (device functions and the launcher; the C interface is in
+// kMaxMovers (128) (device functions and the launcher; the C interface is in
 // planning_multi_autoreset.cu).
 //
 // Replaces: gymnasium_planar_robotics_tpu/ops/pallas_step.py
@@ -48,8 +48,9 @@
 // memory by each block.  As before, an env that is not done passes over the
 // sampling draws unread, and a sampler stops at its first accepted set.  The
 // layout rule and the noise mode are run-time branches, uniform over the
-// launch: four instantiations (L in {1, 2} x collision shape) keep the build
-// short.
+// launch: six instantiations (L in {1, 2, 4} x collision shape) keep the
+// build short; L = 4 is taken only above 64 movers, where 32 lanes of 2 slots
+// no longer hold them.
 //
 // Every product and sum is rounded on its own (common.cuh), as the plain
 // PyTorch version's eager ops do (ops/kernels/planning_multi.py), so the two
@@ -61,10 +62,12 @@
 
 namespace gprt {
 
-// The most movers a launch takes: at 64 a block's shared memory (the
-// constants, 2,016 pairs, and its groups' poses and cycle normals) stays
-// within 112 KB, two blocks an SM; and 32 lanes of 2 slots hold 64 movers.
-constexpr int kMaxMovers = 64;
+// The most movers a launch takes: 32 lanes of 4 slots hold 128, and at 128 a
+// block's shared memory (the constants, 8,128 pairs, and its four groups'
+// poses and cycle normals) is 159,392 bytes for the box (132 KB circle), one
+// block an SM under the 227 KB a block may take.  The pair list's i | j << 8
+// holds indices up to 255.
+constexpr int kMaxMovers = 128;
 
 // The per-mover and per-pair constants, one f32 vector in device memory.
 // Field order and each field's length rule (m: one per mover, pairs: one per

@@ -4,8 +4,9 @@
 // _planning_multi_autoreset_kernel, reached from
 // make_fused_planning_multi_autoreset_cycles.  The device code, its bound
 // and its design (lane groups: G lanes an env, L mover slots a lane) are in
-// planning_multi.cuh.  Four instantiations, L in {1, 2} x the collision
-// shape (M, G, the layout rule and the noise mode are run-time values).
+// planning_multi.cuh.  Six instantiations, L in {1, 2, 4} x the collision
+// shape, L = 4 only above 64 movers (M, G, the layout rule and the noise
+// mode are run-time values).
 
 #include "planning_multi.cuh"
 
@@ -19,7 +20,7 @@ extern "C" const char* gprt_multi_const_names() { return GPRT_MULTI_FIELDS(GPRT_
 // num_cycles + 8M + 4M * cand_k, B] uniforms or null for Philox; out:
 // [18M + 6, B]; consts: the planning constants (host, by value);
 // multi_consts: the constants vector for m movers in device memory.  lanes
-// (G, a power of two up to 32) and slots (L in {1, 2}) with G * L >= m
+// (G, a power of two up to 32) and slots (L in {1, 2, 4}) with G * L >= m
 // lay an env over a group of lanes.  Returns cudaErrorInvalidValue for m
 // outside 2 ... kMaxMovers or a layout outside those.  seed_value, seed_dev:
 // the Philox seed (gprt::Seed, common.cuh).
@@ -46,7 +47,7 @@ extern "C" int gprt_planning_multi_autoreset(const float* st, const float* act, 
                                                                                           lanes, fl, seed, s);   \
     break;
   switch (slots) {
-    GPRT_MULTI_CASE(1) GPRT_MULTI_CASE(2)
+    GPRT_MULTI_CASE(1) GPRT_MULTI_CASE(2) GPRT_MULTI_CASE(4)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GPRT_MULTI_CASE

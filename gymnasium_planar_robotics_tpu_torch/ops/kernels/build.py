@@ -124,6 +124,8 @@ def lib() -> ctypes.CDLL:
             getattr(handle, names).argtypes = []
         handle.gprt_noise_probe.restype = i32
         handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, p]
+        handle.gprt_empty_launch.restype = i32
+        handle.gprt_empty_launch.argtypes = [i64, p]
         # (in, noise, out, B, consts, num_cycles, jerk, box, seed, seed_dev, producer, stream)
         handle.gprt_pushing_cycles.restype = i32
         handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, i32, p]

@@ -94,12 +94,15 @@ def philox4x32_10(ctr: np.ndarray, key: tuple[int, int]) -> np.ndarray:
     return np.stack(c)
 
 
-def philox_bits(seed: int, n_draws: int, batch: int) -> np.ndarray:
+def philox_bits(seed: int, n_draws: int, batch: int, envs=None) -> np.ndarray:
     """The kernels' random words ``[n_draws, batch]`` uint32 for one launch
     seed: draw ``d`` of env ``e`` is word ``d % 4`` of Philox at counter
-    ``(d // 4, e, 0, 0)`` under key ``(seed & 0xffffffff, seed >> 32)``."""
+    ``(d // 4, e, 0, 0)`` under key ``(seed & 0xffffffff, seed >> 32)``.
+    With ``envs`` (``batch`` indices), the words of those envs only."""
     n_blocks = -(-n_draws // 4)
-    blk, env = np.meshgrid(np.arange(n_blocks, dtype=np.uint32), np.arange(batch, dtype=np.uint32), indexing='ij')
+    envs = np.arange(batch) if envs is None else np.asarray(envs)
+    assert envs.shape == (batch,)
+    blk, env = np.meshgrid(np.arange(n_blocks, dtype=np.uint32), envs.astype(np.uint32), indexing='ij')
     zeros = np.zeros_like(blk)
     out = philox4x32_10(np.stack([blk.ravel(), env.ravel(), zeros.ravel(), zeros.ravel()]),
                         (seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF))
@@ -107,9 +110,10 @@ def philox_bits(seed: int, n_draws: int, batch: int) -> np.ndarray:
     return words[:n_draws]
 
 
-def philox_uniforms(seed: int, n_draws: int, batch: int) -> torch.Tensor:
-    """The uniforms a kernel launched with ``seed`` draws, ``[n_draws, batch]``."""
-    return uniform_from_bits(torch.from_numpy(philox_bits(seed, n_draws, batch).astype(np.int64)))
+def philox_uniforms(seed: int, n_draws: int, batch: int, envs=None) -> torch.Tensor:
+    """The uniforms a kernel launched with ``seed`` draws, ``[n_draws, batch]``
+    (of ``envs`` only, if given)."""
+    return uniform_from_bits(torch.from_numpy(philox_bits(seed, n_draws, batch, envs).astype(np.int64)))
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +153,18 @@ def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | No
     build.check(err, 'noise_probe')
     kernels.LAUNCHES['noise_probe'] += 1
     return out
+
+
+def empty_launch_cuda(batch: int, device) -> None:
+    """An empty kernel on kernel A's grid for ``batch`` envs: the floor of a
+    launch of A's shape, timed beside it (no plain version: it computes
+    nothing; not counted in ``LAUNCHES``, as no path launches it)."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        raise ValueError(f'empty_launch_cuda needs a CUDA device, got {device}')
+    with torch.cuda.device(device):
+        build.check(build.lib().gprt_empty_launch(batch, torch.cuda.current_stream(device).cuda_stream),
+                    'empty_launch')
 
 
 def noise_probe(draws: int, batch: int, device, *, uniforms: torch.Tensor | None = None, seed: int | None = None,

@@ -31,7 +31,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, planning, to_
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain, scalar, sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
 
-MAX_MOVERS = 64  # kMaxMovers in csrc/planning_multi.cuh (a block's shared memory)
+MAX_MOVERS = 128  # kMaxMovers in csrc/planning_multi.cuh (32 lanes x 4 slots; a block's shared memory)
 
 #: (name, length rule) of the constants vector in ``csrc/planning_multi.cuh``
 #: (``GPRT_MULTI_FIELDS``): ``m`` one value per mover, ``pairs`` one per pair
@@ -43,7 +43,9 @@ MULTI_FIELDS = (
 )
 
 LANES = (1, 2, 4, 8, 16, 32)  # the G a lane group may have
-SLOTS = (1, 2)  # the L the kernel is instantiated for: 32 lanes x 2 slots hold MAX_MOVERS
+#: the L the kernel is instantiated for; the last, 4, only above 64 movers
+#: (32 lanes x 2 slots), where 32 lanes x 4 hold MAX_MOVERS
+SLOTS = (1, 2, 4)
 
 #: Kernel H's lane layout, (G lanes an env, L mover slots a lane), by the
 #: movers' row (the smallest key >= M, ``table_row``) and the width: row ->
@@ -54,8 +56,8 @@ SLOTS = (1, 2)  # the L the kernel is instantiated for: 32 lanes x 2 slots hold 
 #: 65,536 few lanes up to 8 movers and all 32 at 12.  ``WIDE_BATCH``: at
 #: 8192 envs the narrow layout was the faster of the two at 2, 4 and 8
 #: movers, at 16,384 the wide one (at 4 movers 1.4% slower: a tie) (PERF.md
-#: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed; above 32
-#: movers (32, 2) is the only layout.
+#: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed; 33-64
+#: movers take (32, 2) and 65-128 (32, 4), the only layouts there.
 WIDE_BATCH = 8192
 LANE_TABLE = {
     2: ((8, 1), (1, 2)),
@@ -63,6 +65,7 @@ LANE_TABLE = {
     8: ((16, 1), (4, 2)),
     32: ((32, 1), (32, 1)),
     64: ((32, 2), (32, 2)),
+    128: ((32, 4), (32, 4)),
 }
 
 
@@ -74,16 +77,18 @@ def table_row(m: int) -> int:
 
 def check_movers(m: int) -> None:
     if not 2 <= m <= MAX_MOVERS:
-        raise NotImplementedError(f'kernel H takes 2 to {MAX_MOVERS} movers (the shared memory of a block), got {m} '
-                                  f'(ROADMAP.md)')
+        raise NotImplementedError(f'kernel H takes 2 to {MAX_MOVERS} movers (32 lanes x 4 slots; at {MAX_MOVERS} box '
+                                  f'movers a block holds 156 KB of shared memory), got {m} (ROADMAP.md)')
 
 
 def layouts(m: int) -> tuple:
     """Every (G, L) kernel H can run M movers on: for each G in ``LANES``
     the fewest slots ``L`` in ``SLOTS`` with G * L >= M (where one exists);
-    with G > M the lanes beyond M own no mover but draw."""
+    with G > M the lanes beyond M own no mover but draw.  L = 4 only where
+    32 lanes of 2 slots cannot hold M (above 64 movers)."""
     check_movers(m)
-    return tuple((g, min(n for n in SLOTS if g * n >= m)) for g in LANES if g * SLOTS[-1] >= m)
+    slots = SLOTS if m > LANES[-1] * SLOTS[-2] else SLOTS[:-1]
+    return tuple((g, min(n for n in slots if g * n >= m)) for g in LANES if g * slots[-1] >= m)
 
 
 def lane_layout(m: int, b: int) -> tuple:
@@ -203,6 +208,18 @@ def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
 # ---------------------------------------------------------------------------
 
 
+def pair_index(m: int, device) -> tuple:
+    """The first and second movers of ``pairs(m)``, as index tensors."""
+    ij = torch.tensor(pairs(m), dtype=torch.long, device=device)
+    return ij[:, 0], ij[:, 1]
+
+
+def column(values: list, like: torch.Tensor) -> torch.Tensor:
+    """f32 constants (Python floats) as a ``[n, 1]`` column beside ``like``'s
+    ``[B]`` planes."""
+    return torch.tensor(values, dtype=torch.float32, device=like.device)[:, None]
+
+
 def _noisy_rotation(noise: UniformStream, std_pos: float):
     q1, q2 = noise.normal_pair()
     q3, q4 = noise.normal_pair()
@@ -256,6 +273,8 @@ def _cycles_plain(mc: MultiConsts, noise: UniformStream, P, V, A, U):
     wall_f = torch.zeros_like(P[0])
     mover_f = torch.zeros_like(P[0])
     ran = torch.zeros_like(P[0])
+    ii, jj = pair_index(m, P[0].device)
+    c_pair_x, c_pair_y, pair_sum = (column(mf[k], P[0]) for k in ('c_pair_x', 'c_pair_y', 'pair_sum'))
     for _ in range(kc.num_cycles):
         done = done_f > 0.0
         ran = ran + torch.where(done, 0.0, 1.0)
@@ -282,15 +301,16 @@ def _cycles_plain(mc: MultiConsts, noise: UniformStream, P, V, A, U):
             my.append(nP[2 * i + 1] + cy * std_pos)
             if kc.box:
                 mr.append(_noisy_rotation(noise, std_pos))
-        new_mover = torch.zeros_like(done)
-        for p, (i, j) in enumerate(pairs(m)):
-            if kc.box:
-                hit = rects_intersect_sat(mx[j] - mx[i], my[j] - my[i], mr[i], (mf['c_pair_x'][i], mf['c_pair_y'][i]),
-                                          mr[j], (mf['c_pair_x'][j], mf['c_pair_y'][j]))
-            else:
-                dx, dy = mx[i] - mx[j], my[i] - my[j]
-                hit = sqrt(dx * dx + dy * dy) <= mf['pair_sum'][p]
-            new_mover = new_mover | hit
+        # every pair at once ([pairs, B]; the same operations element by element)
+        mx, my = torch.stack(mx), torch.stack(my)
+        if kc.box:
+            rot = [torch.stack(c) for c in zip(*mr)]
+            hit = rects_intersect_sat(mx[jj] - mx[ii], my[jj] - my[ii], [r[ii] for r in rot],
+                                      (c_pair_x[ii], c_pair_y[ii]), [r[jj] for r in rot], (c_pair_x[jj], c_pair_y[jj]))
+        else:
+            dx, dy = mx[ii] - mx[jj], my[ii] - my[jj]
+            hit = sqrt(dx * dx + dy * dy) <= pair_sum
+        new_mover = hit.any(0)
         P = [torch.where(done, a, b) for a, b in zip(P, nP)]
         V = [torch.where(done, a, b) for a, b in zip(V, nV)]
         A = [torch.where(done, a, b) for a, b in zip(A, nA)]
@@ -313,23 +333,25 @@ def _sample_set_plain(mc: MultiConsts, noise: UniformStream, goal: bool):
         if found is None:
             found = torch.zeros_like(cand[0])
             trials = torch.zeros_like(cand[0])
+            ii, jj = pair_index(m, found.device)
+            sp_x, sp_y, sum_x, sum_y = (column(mf[k], found) for k in (
+                'c_sample_pair_x', 'c_sample_pair_y', 'sample_pair_sum_x', 'sample_pair_sum_y'))
         trials = trials + (1.0 - found)
         ok = torch.ones_like(cand[0], dtype=torch.bool)
         for i in range(m):
             ok = ok & walls.sample_valid_at(kc.rule, kc.box, cand[2 * i], cand[2 * i + 1],
                                             (mf['c_sample_x'][i], mf['c_sample_y'][i]))
-        for p, (i, j) in enumerate(pairs(m)):
-            dx, dy = cand[2 * i] - cand[2 * j], cand[2 * i + 1] - cand[2 * j + 1]
-            if goal:
-                ok = ok & (sqrt(dx * dx + dy * dy) >= mf['min_goal_dist'][0])
-            elif kc.box:
-                ok = ok & ~rects_intersect_ident(
-                    cand[2 * j] - cand[2 * i], cand[2 * j + 1] - cand[2 * i + 1],
-                    (mf['c_sample_pair_x'][i], mf['c_sample_pair_y'][i]),
-                    (mf['c_sample_pair_x'][j], mf['c_sample_pair_y'][j]),
-                    (mf['sample_pair_sum_x'][p], mf['sample_pair_sum_y'][p]))
-            else:
-                ok = ok & ~(sqrt(dx * dx + dy * dy) <= mf['sample_pair_sum_x'][p])
+        cx, cy = torch.stack(cand[0::2]), torch.stack(cand[1::2])
+        if goal:
+            dx, dy = cx[ii] - cx[jj], cy[ii] - cy[jj]
+            pair_ok = sqrt(dx * dx + dy * dy) >= mf['min_goal_dist'][0]
+        elif kc.box:
+            pair_ok = ~rects_intersect_ident(cx[jj] - cx[ii], cy[jj] - cy[ii], (sp_x[ii], sp_y[ii]),
+                                             (sp_x[jj], sp_y[jj]), (sum_x, sum_y))
+        else:
+            dx, dy = cx[ii] - cx[jj], cy[ii] - cy[jj]
+            pair_ok = ~(sqrt(dx * dx + dy * dy) <= sum_x)
+        ok = ok & pair_ok.all(0)
         take = ok & (found == 0.0)
         best = list(cand) if best is None else [torch.where(take, c, b) for c, b in zip(cand, best)]
         found = torch.maximum(found, torch.where(ok, 1.0, 0.0))

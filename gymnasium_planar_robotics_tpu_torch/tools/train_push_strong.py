@@ -19,15 +19,7 @@ import numpy as np
 import torch
 
 from gymnasium_planar_robotics_tpu_torch.models import common, ppo, pushing
-from gymnasium_planar_robotics_tpu_torch.ops import dynamics
-
-PUSHING_KW = dict(std_noise=1e-5, num_cycles=40, v_max=2.0, a_max=10.0, j_max=100.0, threshold_pos=0.05)
-HORIZON = 50
-
-
-def _pushing_vec(obs_part, achieved, desired):
-    mover_pos = obs_part[..., :2]
-    return torch.cat([obs_part, achieved, desired, achieved - mover_pos, desired - achieved], -1).to(torch.float32)
+from gymnasium_planar_robotics_tpu_torch.tools.transfer_eval import HORIZON, PUSHING_KW, _pushing_vec, run_episodes
 
 
 def obs_to_vec(obs):
@@ -51,28 +43,12 @@ def make_eval(eval_config, eval_params, episodes: int = 1024, seed: int = 100):
             state, obs, _ = pushing.init_batch(eval_config, eval_params, episodes, g)
         else:
             state, obs, g = initial
-        b = state.pos.shape[0]
-        device = state.pos.device
-        done_l = torch.zeros((b,), dtype=torch.bool, device=device)
-        succ_f, succ_a, wall = done_l.clone(), done_l.clone(), done_l.clone()
-        dfin = torch.full((b,), float('nan'), dtype=torch.float32, device=device)
-        for _ in range(HORIZON):
-            a = policy_fn(policy, obs_to_vec(obs))
-            state, obs, _, term, trunc, info = pushing.step_autoreset(eval_config, eval_params, state, a, generator=g)
-            done_now = (term | trunc) & ~done_l
-            succ_f = succ_f | (done_now & info['is_success'])
-            succ_a = succ_a | (~done_l & info['is_success'])
-            wall = wall | (done_now & term)  # pushing terminates only on a wall hit
-            # the final object-goal distance, latched at the episode's end
-            # (from the pre-reset observation)
-            fin = info['final_observation']
-            d = dynamics.norm(fin['achieved_goal'] - fin['desired_goal']).to(torch.float32)
-            dfin = torch.where(done_now, d, dfin)
-            done_l = done_l | term | trunc
-        assert bool(done_l.all())
-        dfin = dfin.cpu().numpy()
-        return dict(success=float(succ_f.double().mean()), success_any=float(succ_a.double().mean()),
-                    wall_rate=float(wall.double().mean()), dfin_med=float(np.nanmedian(dfin)),
+        ep = run_episodes(pushing, eval_config, eval_params, lambda o: policy_fn(policy, obs_to_vec(o)), state, obs,
+                          g)
+        dfin = ep['dfin'].cpu().numpy()
+        # pushing terminates only on a wall hit
+        return dict(success=float(ep['success'].double().mean()), success_any=float(ep['success_any'].double().mean()),
+                    wall_rate=float(ep['terminated'].double().mean()), dfin_med=float(np.nanmedian(dfin)),
                     dfin_p90=float(np.nanquantile(dfin, 0.9)))
 
     return run

@@ -28,7 +28,7 @@ from gymnasium_planar_robotics_tpu_torch.models import planning as tplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
 from test_torch_planning_params import _find_partial_kw
-from torch_planning_multi_cases import CASES, actions, make_env, plant_accepted_sets, planted_state
+from torch_planning_multi_cases import CASES, actions, case, make_env, plant_accepted_sets, planted_state
 
 PKG = Path(__file__).resolve().parents[1] / 'gymnasium_planar_robotics_tpu_torch'
 # ulp-level, as for kernel F; planes downstream of the clamp chain's
@@ -49,7 +49,7 @@ def _one_thread():
 
 
 def jax_env(name, **kw):
-    layout, m, coll, jerk, _, scale = CASES[name]
+    layout, m, coll, jerk, _, scale = case(name)
     cfg, prm = jplan.make_planning_env(layout, m, dtype=jnp.float32, collision_params=coll, learn_jerk=jerk,
                                        **dict(KW, **kw))
     if scale is not None:
@@ -67,10 +67,10 @@ def jax_planes(out) -> np.ndarray:
     return np.stack(planes)
 
 
-def check_plain_against_pallas(name, b, cand_k, plant=False, **kw):
+def check_plain_against_pallas(name, b, cand_k, plant=False, plant_k=1, **kw):
     """The plain kernel H against the Pallas kernel (interpret mode, the
     same injected uniforms) over all 18M + 6 planes; with ``plant`` every
-    other env accepts its second start and goal sets."""
+    other env accepts its start and goal sets number ``plant_k``."""
     jcfg, jprm = jax_env(name, **kw)
     tcfg, tprm = make_env(name, **dict(KW, **kw))
     m = tcfg.num_movers
@@ -80,7 +80,7 @@ def check_plain_against_pallas(name, b, cand_k, plant=False, **kw):
     n = kmulti.multi_noise_planes(tcfg.num_cycles, m, cand_k, mc.base.box)
     u = np.random.default_rng(3).random((n, b), dtype=np.float32)
     if plant:
-        plant_accepted_sets(u, name, tcfg, tprm, cand_k, np.arange(0, b, 2))
+        plant_accepted_sets(u, name, tcfg, tprm, cand_k, np.arange(0, b, 2), k=plant_k)
 
     fused = pallas_step.make_fused_planning_multi_autoreset_cycles(jcfg, jprm, interpret=True, cand_k=cand_k,
                                                                   inject_noise=True)
@@ -195,3 +195,34 @@ def test_multi_fields_match_cuda_struct():
         assert [kmulti.field_length(rule, m) for _, rule in kmulti.MULTI_FIELDS] == [
             names[lens[rule]] for _, rule in kmulti.MULTI_FIELDS]
     assert f'kMaxMovers = {kmulti.MAX_MOVERS};' in src
+
+
+if __name__ == '__main__':
+    # the check above M = 9, too costly for the suite (the Pallas kernel's
+    # interpret-mode trace and compile grow with the M(M-1)/2 pairs it
+    # unrolls): python tests/test_torch_planning_multi_kernel.py [--movers 65]
+    # [--box] [--envs 8] [--cycles 1] [--cand-k 1]; every other env accepts
+    # its first start and goal sets, the rest stall
+    import argparse
+    import json
+    import time
+
+    import jax
+
+    jax.config.update('jax_platforms', 'cpu')
+    jax.config.update('jax_enable_x64', True)
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--movers', type=int, default=65)
+    ap.add_argument('--box', action='store_true')
+    ap.add_argument('--envs', type=int, default=8)
+    ap.add_argument('--cycles', type=int, default=1)
+    ap.add_argument('--cand-k', type=int, default=1)
+    cli = ap.parse_args()
+    case_name = f'ladder_m{cli.movers}_{"box" if cli.box else "circle"}_full'
+    t0 = time.perf_counter()
+    out = check_plain_against_pallas(case_name, cli.envs, cli.cand_k, plant=True, plant_k=0, num_cycles=cli.cycles)
+    m = cli.movers
+    print(json.dumps({'case': case_name, 'envs': cli.envs, 'cycles': cli.cycles, 'cand_k': cli.cand_k,
+                      'planes_held': int(out.shape[0]), 'wall_hits': int((out[18 * m + 1] > 0).sum()),
+                      'mover_hits': int((out[18 * m + 2] > 0).sum()), 'stalled': int(out[18 * m + 4].sum()),
+                      'sets_tested': int(out[18 * m + 5].sum()), 'seconds': time.perf_counter() - t0}))

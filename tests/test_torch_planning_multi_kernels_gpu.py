@@ -12,8 +12,9 @@ missing-corner site, acc) and M = 4 (circle on the full 4x4 table, the main
 configuration) at a batch with a masked tail block in the wrapper's own
 layout; M = 2, 3, 5, 8, 9, 12, 17 and 33, circle and box, on full and holed
 tables, at B = 1, 31, 33 and 4097, in every layout kernel H can take for M
-(forced through ``LANE_TABLE``); the wrapper's layout above ``WIDE_BATCH``;
-and the public M-mover paths at 2 to 33 movers.  Both noise modes: injected
+(forced through ``LANE_TABLE``); 65, 96 and 128 movers, circle and box, in
+L = 4 slots at B = 33 and 4097; the wrapper's layout above ``WIDE_BATCH``;
+and the public M-mover paths at 2 to 128 movers.  Both noise modes: injected
 uniforms, and the kernel's own Philox stream against the plain version fed
 the host copy of that stream (``noise.philox_uniforms``), where the kernel
 passes over the sampling draws of envs that are not done.  The kernel
@@ -30,7 +31,7 @@ from gymnasium_planar_robotics_tpu_torch.models import planning as tplan
 from gymnasium_planar_robotics_tpu_torch.ops import kernels
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import philox_uniforms
-from torch_planning_multi_cases import LADDER, actions, make_env, plant_accepted_sets, planted_state
+from torch_planning_multi_cases import LADDER, actions, case, make_env, plant_accepted_sets, planted_state
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 B = 4096 + 77  # a masked tail block
@@ -119,6 +120,30 @@ def test_kernel_h_every_layout(cuda, monkeypatch, m, shape, mode):
 
 
 @pytest.mark.parametrize('mode', ['injected', 'philox'])
+@pytest.mark.parametrize('shape', ['circle', 'box'])
+@pytest.mark.parametrize('m', [65, 96, 128])
+def test_kernel_h_above_64_movers(cuda, m, shape, mode):
+    """65 to 128 movers take 32 lanes of 4 slots (the only layout there),
+    on the full table of their ladder case, at one env over a warp and a
+    tail block, at the depth ``chip_smoke.py`` times: 40 cycles and 16
+    candidate sets (in the injected mode half the envs accept their second
+    sets, so restarts fire)."""
+    name = f'ladder_m{m}_{shape}_full'
+    assert kmulti.layouts(m) == ((32, 4),)
+    for b in (33, 4097):
+        assert kmulti.lane_layout(m, b) == (32, 4)
+        mc, st, act, u, seed = ladder_inputs(name, b, cuda, mode, cand_k=16, num_cycles=40)
+        got = kmulti.planning_multi_autoreset(st, act, mc, uniforms=u if seed is None else None, seed=seed)
+        want = kmulti.planning_multi_autoreset_plain(st, act, mc, u)
+        assert_matches_plain(got, want, m, f'{name} B={b}')
+        if b == 4097:
+            assert int((want[18 * m + 1] > 0).sum()) > 0 and int((want[18 * m + 2] > 0).sum()) > 0
+            assert int((want[18 * m + 5] > 0).sum()) > 0
+            if mode == 'injected':
+                assert int(((want[8 * m] == 0) & (st[8 * m] > 0)).sum()) > 0  # restarts accepted
+
+
+@pytest.mark.parametrize('mode', ['injected', 'philox'])
 @pytest.mark.parametrize('m', [4, 12])
 def test_kernel_h_above_the_wide_batch(cuda, m, mode):
     """The wrapper's own layout above ``WIDE_BATCH`` envs."""
@@ -130,17 +155,29 @@ def test_kernel_h_above_the_wide_batch(cuda, m, mode):
     assert_matches_plain(got, kmulti.planning_multi_autoreset_plain(st, act, mc, u), m, name)
 
 
-@pytest.mark.parametrize('m', [2, 4, 9, 12, 33])
+@pytest.mark.parametrize('m', [2, 4, 9, 12, 33, 65, 128])
 def test_public_paths_run_kernel_h(cuda, m):
     """make_fused_step_autoreset, make_fused_rollout and the multi-agent
-    step at M movers launch kernel H once a step, with no eager fallback."""
+    step at M movers launch kernel H once a step, with no eager fallback;
+    129 movers raise, naming the limit."""
     from gymnasium_planar_robotics_tpu_torch.models import multi_agent
 
-    side = {2: 3, 4: 4, 9: 6, 12: 8, 33: 16}[m]
+    side = {2: 3, 4: 4, 9: 6, 12: 8, 33: 16, 65: 17, 128: 22}[m]
+    if m == 128:
+        cfg129, prm129 = tplan.make_planning_env(np.ones((24, 24)), 129, device=cuda)
+        assert not multi_agent.fused_covers(cfg129, prm129)
+        with pytest.raises(NotImplementedError, match='2 to 128 movers'):
+            tplan.make_fused_step_autoreset(cfg129, prm129)
     cfg, prm = tplan.make_planning_env(np.ones((side, side)), m, num_cycles=8, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(6)
     b = 257
-    state = tplan.init_batch(cfg, prm, b, g)[0]
+    if m <= 33:
+        state = tplan.init_batch(cfg, prm, b, g)[0]
+    else:
+        # random sets of this many movers are never apart (and init_batch's
+        # candidate sets would not fit the card): the ladder's slots
+        slots = case(f'ladder_m{m}_circle_full')[4]
+        state = tplan.reset(cfg, prm, b, g, start_xy=slots, goals_xy=slots[::-1])[0]
     assert multi_agent.fused_covers(cfg, prm)
     before = kernels.LAUNCHES['planning_multi_autoreset']
     step = tplan.make_fused_step_autoreset(cfg, prm)
