@@ -34,7 +34,8 @@ phase:
    every launch counter set to 0 before and read after; K=32 against K=1 at
    ``std_noise=0`` on envs that never restart, bit for bit;
 5. env-steps/s of the pushing ``make_fused_rollout`` at 4096 and 65,536
-   envs, kernels against the plain versions on the card, at K=1 and K=32;
+   envs, kernels against the plain versions on the card (over T_PLAIN = 16
+   steps), at K=1 and K=32;
 6. kernels E, F and G (single-mover planning) against their plain versions
    at 4096 envs, in both noise modes as in 3., on four configurations:
    circle and box collision shapes on the full 3x3 table and on a holed
@@ -53,7 +54,7 @@ phase:
    ``std_noise=0`` on envs that never restart;
 8. env-steps/s of the planning ``make_fused_rollout`` at 4096 and 65,536
    envs, T=64, K=1 and K=32, five alternating repeats each (median), plus
-   the plain versions once;
+   the plain versions once over 16 steps;
 9. kernel H (M-mover planning, any M: G lanes an env, L mover slots a
    lane) against its plain version at 4096 envs, in both noise modes, on
    six configurations: circle and box on the full 4x4 table with 4 movers,
@@ -69,7 +70,11 @@ phase:
    65,536 envs in every layout (G, L) the wrapper can pick, the table
    ``LANE_TABLE`` is read from, with each instantiation's ``ptxas -v``;
    and 65, 96 and 128 movers (L = 4 slots), circle and box, held at 1
-   cycle (both noise modes at 65, Philox above) and timed at 40;
+   cycle (both noise modes at 65, Philox above) and timed at 40; and 129
+   and 256 movers (the many-mover variant: one warp an env, the movers in
+   shared memory), circle and box, held at 1 cycle on 64 envs in both noise
+   modes and timed at 40 cycles on 4096 (129 circle movers held there in
+   full: the kernels line's entry);
 10. the public M-mover path: ``make_planning_env(np.ones((4, 4)), 4)`` ->
    ``init_batch(4096)`` -> ``make_fused_step_autoreset`` x5 ->
    ``multi_agent.make_batched_parallel_step`` x3 -> ``make_fused_rollout``
@@ -79,7 +84,7 @@ phase:
    H);
 11. env-steps/s of the M=4 ``make_fused_rollout`` at 4096 and 65,536 envs,
    T=64, five repeats (median, with the host's enqueue time), plus the
-   plain version once at 4096 envs;
+   plain version once at 4096 envs over 16 steps;
 12. kernel C-feat (kernel C with the policy feature blocks) against its
    plain version at 4096 envs, planted states, acc and jerk, in both noise
    modes: its 36 planes equal kernel C's at the same noise bit for bit, its
@@ -108,7 +113,7 @@ phase:
    8 and 11;
 18. the eager steps on the card: pushing's ``step`` against kernel B, and
    planning's (1 and 4 movers) against kernels E and H, at 4096 envs and
-   ``std_noise=0``; ``step_autoreset`` of both families for 64 steps at 2048
+   ``std_noise=0``; ``step_autoreset`` of both families for 32 steps at 2048
    envs, counters set to 0 before and read after, ms and host share per
    step, CUDA launches per step (``utils/profiling.trace``) and the host
    synchronisations in a step, beside the fused step;
@@ -118,7 +123,7 @@ phase:
 20. the box collision shape's kernels B, C, C-feat and D against their plain
    versions at 4096 envs (box half-extents 0.09, bench.py:653-655), a
    quarter of the envs driven into the -x wall, in both noise modes (D held
-   over 8 steps and timed at K=32), each timed beside its circle twin and
+   over 4 steps and timed at K=32), each timed beside its circle twin and
    its bound (``roofline.OPS['pushing_cycle_box']``), B, C, C-feat and D as
    in 3.;
 21. the box main path: ``make_fused_step``, ``make_fused_step_autoreset``,
@@ -145,7 +150,17 @@ phase:
    without relabelling), its thresholds reported with the curves;
 26. ``utils/checkpoint``: the HER runner saved after 2 iterations and
    restored into a fresh one, bit-equal, and its next iteration bit-equal
-   to the uninterrupted run's.
+   to the uninterrupted run's;
+27. the adapters' card path, ``envs/runner.py`` (this machine has no
+   gymnasium, pettingzoo or mujoco, so the Gym, vector and PettingZoo shells
+   themselves are held on the CPU): the single-env runner (eager step,
+   kernel A) for pushing and 1- and 4-mover planning, 50 steps around a
+   reset, ms a step, A's launches a step, one host synchronisation a step;
+   the vector runner at 4096 envs for pushing, box pushing, 1- and 4-mover
+   planning and 129 movers: the fused step (C, C box, F, H, H's many-mover
+   variant) at one launch and one host synchronisation a step, each step's
+   outputs bit-equal to the fused step called directly, ms a step and
+   env-steps/s through the numpy boundary.
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread (where the
@@ -191,6 +206,7 @@ B_MAIN = 4096
 B_LARGE = 65536
 K_LARGE_CHECK = 3  # kernel D's steps held against its plain version at B_LARGE
 T_ROLL = 64
+T_PLAIN = 16  # steps of the plain versions' timed rollouts in the rate phases (the kernels run T_ROLL)
 K_MAIN = 32
 DEVICE = 'cuda:0'
 
@@ -204,6 +220,9 @@ KERNELS = {
     'planning_rollout': ('csrc/planning_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1587'),
     'planning_multi_autoreset': ('csrc/planning_multi_autoreset.cu',
                                  'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1767'),
+    # kernel H above 128 movers: the many-mover variant (the movers in shared memory)
+    'planning_multi_autoreset_many': ('csrc/planning_multi_autoreset.cu',
+                                      'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1767'),
     # kernel C's emit_features branch (in _pushing_autoreset_kernel)
     'pushing_autoreset_features': ('csrc/pushing_autoreset.cu',
                                    'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1066'),
@@ -221,6 +240,7 @@ KERNELS = {
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
 MULTI_KERNELS = ('planning_multi_autoreset',)
+ADAPTER_KERNELS = ('planning_multi_autoreset_many',)  # counted on the adapters' path (phase 27)
 TRAIN_KERNELS = ('pushing_autoreset_features',)
 PEAK_KERNELS = ('peak_fma', 'peak_transc')
 BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_box', 'pushing_autoreset_features_box')
@@ -228,14 +248,17 @@ M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 M_WIDE = 12  # movers of the wide M-mover configuration: full 8x8 table, cand_k=128
 H_LAYOUT_MOVERS = (2, 4, 8, 12)  # movers at which kernel H is timed in every lane layout
 H_WIDE_MOVERS = (65, 96, 128)  # movers above 64: kernel H's L = 4 slots
+H_MANY_MOVERS = (129, 256)  # movers above 128: kernel H's many-mover variant
+T_ADAPTER = 50  # steps of the single-env runner (around a reset)
+T_VECTOR = 20  # timed steps of the vector runner
 HER_BATCHES = (512, 2048)  # the HER recipe's batch (tools/train_push_her.py --batch) and the PPO recipe's
 HER_ITERS = 3  # timed HER iterations a batch, after one warm-up
 HER_GATE_ITERS = 250  # iterations of each learner in the HER gate (tests/test_her_learning.py:98)
 B_TRAIN = 2048  # the PPO recipe's batch (tools/train_push_strong.py --batch)
 TRAIN_STEPS = 20
-B_EAGER, T_EAGER = 2048, 64  # the eager step_autoreset's run
-EAGER_ITERS = 3  # iterations of the PPO recipe on the eager step
-K_G_CHECK = 8  # kernel G's (and box D's) steps held against its plain version (but the timed run's K_MAIN)
+B_EAGER, T_EAGER = 2048, 32  # the eager step_autoreset's run
+EAGER_ITERS = 2  # iterations of the PPO recipe on the eager step
+K_G_CHECK = 4  # kernel G's (and box D's) steps held against its plain version (but the timed run's K_MAIN)
 T_BOX_EAGER = 3  # steps of the box's eager step_autoreset
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
@@ -926,13 +949,13 @@ def main() -> int:
                 kern = P.make_fused_rollout(cfg, prm, steps_per_launch=K)
                 plain = P._make_rollout(cfg, prm, K, plain_step, plain_chunk)
                 t_k = time_ms(lambda kern=kern: kern(state, acts, 3), 3)
-                t_p = time_ms(lambda plain=plain: plain(state, acts, 3), 1, warmup=0)
+                t_p = time_ms(lambda plain=plain: plain(state, acts[:T_PLAIN], 3), 1, warmup=0)
                 rates[f'B={b},K={K}'] = {
                     'kernel_ms': t_k, 'plain_ms': t_p,
                     'kernel_env_steps_per_s': b * T_ROLL / (t_k / 1e3),
-                    'plain_env_steps_per_s': b * T_ROLL / (t_p / 1e3),
+                    'plain_env_steps_per_s': b * T_PLAIN / (t_p / 1e3),
                 }
-        return {'T': T_ROLL, 'card': card, 'rates': rates}
+        return {'T': T_ROLL, 'T_plain': T_PLAIN, 'card': card, 'rates': rates}
 
     # -- 6. planning kernels E, F, G -------------------------------------------
     import numpy as np
@@ -1308,14 +1331,14 @@ def main() -> int:
 
             for K in (1, K_MAIN):
                 plain = PL._make_rollout(cfg, prm, K, plain_step, plain_chunk)
-                t_p = time_ms(lambda plain=plain: plain(state, acts, 3), 1, warmup=0)
+                t_p = time_ms(lambda plain=plain: plain(state, acts[:T_PLAIN], 3), 1, warmup=0)
                 med = statistics.median(event_ms[K])
                 rates[f'B={b},K={K}'] = {
                     'kernel_ms_runs': event_ms[K], 'host_enqueue_ms_runs': host_ms[K], 'kernel_ms_median': med,
                     'kernel_env_steps_per_s': b * T_ROLL / (med / 1e3), 'plain_ms': t_p,
-                    'plain_env_steps_per_s': b * T_ROLL / (t_p / 1e3),
+                    'plain_env_steps_per_s': b * T_PLAIN / (t_p / 1e3),
                 }
-        return {'T': T_ROLL, 'card': card, 'repeats': 5, 'rates': rates}
+        return {'T': T_ROLL, 'T_plain': T_PLAIN, 'card': card, 'repeats': 5, 'rates': rates}
 
     # -- 9. kernel H (M-mover planning) ----------------------------------------------
     from gymnasium_planar_robotics_tpu_torch.models import common, multi_agent
@@ -1551,15 +1574,77 @@ def main() -> int:
             [kstats['planning_multi_autoreset']['max_abs_err']]
             + [v[mode]['max_abs_err'] for v in above.values() for mode in ('injected', 'philox', 'timed_check')
                if mode in v])
+
+        # above 128 movers: the many-mover variant (one warp an env, the movers
+        # in shared memory).  Held against the plain version at 1 cycle and 1
+        # candidate set on 64 envs in both noise modes, then timed at 40 cycles
+        # and cand_k 16 on 4096 planted envs (Philox); the timed launch at 129
+        # circle movers is held against the plain version on all its envs and
+        # gives the kernels line (bound from this run's cycles and sets)
+        many = {}
+        for m in H_MANY_MOVERS:
+            for box in (False, True):
+                tag = f'M={m} {"box" if box else "circle"}'
+                require(kmu.layouts(m) == ((32, kmu.SMEM_SLOTS),) and kmu.lane_layout(m, B_MAIN) == (
+                    32, kmu.SMEM_SLOTS), f'{tag}: layout')
+                entry = {'smem_bytes': kmu.many_smem_bytes(m, box)}
+                cfg, prm, st, act = ladder_h(m, box, 64, 1)
+                mc = kmu.make_multi_kernel_consts(cfg, prm, 1)
+                n_noise = kmu.multi_noise_planes(1, m, 1, box)
+                u = torch.rand((n_noise, 64), generator=gen, device=dev)
+                for mode, got, uref in (('injected', kmu.planning_multi_autoreset_cuda(st, act, mc, u), u),
+                                        ('philox', kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7),
+                                         philox(7, n_noise, 64))):
+                    e, bad = planes_check(got, kmu.planning_multi_autoreset_plain(st, act, mc, uref),
+                                          exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
+                    walls_, movers = int((got[18 * m + 1] > 0).sum()), int((got[18 * m + 2] > 0).sum())
+                    require(not bad, f'{tag} ({mode}): planes {bad} disagree')
+                    require(walls_ > 0 and movers > 0, f'{tag} ({mode}): {walls_} wall, {movers} mover hits')
+                    entry[mode] = {'max_abs_err': e, 'wall_hits': walls_, 'mover_hits': movers,
+                                   'sets_tested': int(got[18 * m + 5].sum())}
+                cfg, prm, st, act = ladder_h(m, box, B_MAIN, 40)
+                mc = kmu.make_multi_kernel_consts(cfg, prm, 16)
+                entry['ms'], entry['ms_groups'] = time_groups(
+                    lambda: kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7), 3, 5)
+                if (m, box) == (H_MANY_MOVERS[0], False):
+                    n_noise = kmu.multi_noise_planes(40, m, 16, box)
+                    u7 = philox(7, n_noise, B_MAIN)
+                    got = kmu.planning_multi_autoreset_cuda(st, act, mc, None, 7)
+                    t0 = time.perf_counter()
+                    ref = kmu.planning_multi_autoreset_plain(st, act, mc, u7)
+                    torch.cuda.synchronize()
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    e, bad = planes_check(got, ref, exact=(8 * m, *range(18 * m + 1, 18 * m + 6)))
+                    require(not bad, f'{tag} (40 cycles, cand_k 16, philox): planes {bad} disagree')
+                    cycles = float(kmu.cycles_run_plain(st, act, mc, u7).sum())
+                    sets = float(got[18 * m + 5].sum())
+                    bound_ms, bound_by = bound((10 * m + 1 + 18 * m + 6) * 4 * B_MAIN,
+                                               multi_step_ops(cfg, mc, cycles, sets))
+                    entry['timed_check'] = {'envs': B_MAIN, 'max_abs_err': e, 'cycles_run_share': cycles / (
+                        40 * B_MAIN), 'sets_tested': sets, 'wall_hits': int((got[18 * m + 1] > 0).sum()),
+                        'mover_hits': int((got[18 * m + 2] > 0).sum())}
+                    kstats['planning_multi_autoreset_many'].update(
+                        ms=entry['ms'], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        max_abs_err=max(e, entry['injected']['max_abs_err'], entry['philox']['max_abs_err']))
+                else:
+                    kstats['planning_multi_autoreset_many']['max_abs_err'] = max(
+                        kstats['planning_multi_autoreset_many'].get('max_abs_err', 0.0),
+                        entry['injected']['max_abs_err'], entry['philox']['max_abs_err'])
+                many[tag] = entry
+        t_part['above_128_movers'] = time.perf_counter()
         # ptxas -v of each instantiation (L, box)
         ptxas = {}
         for fn, line in report['phases']['card_build'].get('ptxas', {}).items():
             mt = re.search(r'planning_multi_kernelILi(\d+)ELb(\d)E', fn)
             if mt:
                 ptxas['L={},box={}'.format(*mt.groups())] = line
+            mt = re.search(r'planning_multi_many_kernelILb(\d)E', fn)
+            if mt:
+                ptxas['many,box={}'.format(*mt.groups())] = line
         return {'B': B_MAIN, 'tol': f'flags exact, planes rtol {plan_rtol} atol {plan_atol}',
                 'modes': 'injected uniforms; Philox seed 7 against the plain version on its host copy',
-                'configs': res, 'main': main, 'layout_ms': layout_ms, 'above_64_movers': above, 'lane_table': {
+                'configs': res, 'main': main, 'layout_ms': layout_ms, 'above_64_movers': above,
+                'above_128_movers': many, 'max_movers': kmu.MAX_MOVERS, 'lane_table': {
                     str(k): v for k, v in kmu.LANE_TABLE.items()}, 'wide_batch': kmu.WIDE_BATCH, 'ptxas': ptxas,
                 'seconds_by_part': {k: t_part[k] - t_part[p] for p, k in zip(list(t_part), list(t_part)[1:])}}
 
@@ -1706,10 +1791,10 @@ def main() -> int:
                     return kmu.planning_multi_autoreset_plain(planes, action, mc, torch.rand((n_step, b), device=dev))
 
                 plain = PL._make_multi_rollout(cfg, prm, plain_step)
-                t_p = time_ms(lambda: plain(state, acts, 3), 1, warmup=0)
-                entry.update(plain_ms=t_p, plain_env_steps_per_s=b * T_ROLL / (t_p / 1e3))
+                t_p = time_ms(lambda: plain(state, acts[:T_PLAIN], 3), 1, warmup=0)
+                entry.update(plain_ms=t_p, plain_env_steps_per_s=b * T_PLAIN / (t_p / 1e3))
             rates[f'B={b}'] = entry
-        return {'T': T_ROLL, 'M': M_MAIN, 'card': card, 'repeats': 5, 'rates': rates}
+        return {'T': T_ROLL, 'T_plain': T_PLAIN, 'M': M_MAIN, 'card': card, 'repeats': 5, 'rates': rates}
 
     # -- 12. kernel C-feat -------------------------------------------------------------
     @phase('kernel_C_feat_pushing_autoreset_features')
@@ -2644,6 +2729,136 @@ def main() -> int:
         return {'tensors': len(a), 'checkpoint_bytes': sum(x.numel() * x.element_size() for x in a),
                 'save_s': save_s, 'restore_s': restore_s, 'bit_equal': True}
 
+    # -- 27. the adapters' card path: envs/runner.py (this machine has no gymnasium) ---------
+    from gymnasium_planar_robotics_tpu_torch.envs import runner as env_runner
+
+    box_size = {'shape': 'box', 'size': [0.09, 0.09]}
+    adapter_envs = {
+        'pushing': lambda: P.make_pushing_env(device=dev),
+        'pushing_box': lambda: P.make_pushing_env(collision_params=box_size, device=dev),
+        'planning_m1': lambda: PL.make_planning_env(np.ones((3, 3)), 1, device=dev),
+        'planning_m4': lambda: PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev),
+    }
+    adapter_kernel = {'pushing': 'pushing_autoreset', 'pushing_box': 'pushing_autoreset_box',
+                      'planning_m1': 'planning_autoreset', 'planning_m4': 'planning_multi_autoreset'}
+
+    def launches_in(fn):
+        """(result of ``fn()``, the kernel launches it made, the host
+        synchronisations sync debug mode saw in it)."""
+        before = dict(kernels.LAUNCHES)
+        out, calls = syncs_in(fn)
+        return out, {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}, calls
+
+    def drive_vector(cfg, prm, b, steps, state=None, seed=7):
+        """The vector runner over ``steps`` steps of random actions (and a
+        warm-up step before them): (runner, ms a step, launches a step,
+        episode ends, the replay ``check_vector`` holds it against)."""
+        vr = env_runner.VectorRunner(cfg, prm, b)
+        require(vr.using_fused, 'the vector runner would step eagerly')
+        vr.seed(seed)
+        if state is None:
+            vr.reset()
+        else:  # planted (init_batch's candidate sets of many movers would not fit the card)
+            vr.state = state
+        start = (type(vr.state)(**{k: v.clone() for k, v in vars(vr.state).items()}), vr.generator.get_state())
+        rng = np.random.default_rng(seed)
+        limit = float(prm.j_max if cfg.learn_jerk else prm.a_max)
+        n = 2 * getattr(cfg, 'num_movers', 1)
+        ms, per_step, ends, acts, outs = [], [], 0, [], []
+        for t in range(steps + 1):  # the first step is a warm-up
+            acts.append(rng.uniform(-limit, limit, (b, n)).astype(np.float32))
+            syncs0 = vr.host.host_syncs
+            t0 = time.perf_counter()
+            out, launched, calls = launches_in(lambda: vr.step(acts[-1]))
+            if t:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(launched)
+            outs.append(out)
+            require(vr.host.host_syncs == syncs0 + 1 and calls == 0, f'step {t}: {calls} hidden host syncs')
+            ends += int(out[2].sum() + out[3].sum())
+        return vr, ms, per_step, ends, (cfg, prm, start, acts, outs)
+
+    def check_vector(replay):
+        """Each step of a vector runner's drive bit for bit against the fused
+        step called directly from the same state and generator state."""
+        cfg, prm, (st, gen_state), acts, outs = replay
+        direct = (P if cfg.__class__ is P.PushingConfig else PL).make_fused_step_autoreset(cfg, prm)
+        g = torch.Generator(device=dev)
+        g.set_state(gen_state)
+        for t, (a, out) in enumerate(zip(acts, outs)):
+            st, *want = direct(st, torch.from_numpy(a).to(dev), generator=g)
+            got = [x for x in env_runner.leaves(out, []) if isinstance(x, np.ndarray)]
+            want = [x.cpu().numpy() for x in env_runner.leaves(tuple(want), [])]
+            require(len(got) == len(want) and all(np.array_equal(x, y) for x, y in zip(got, want)),
+                    f'step {t}: the runner differs from the direct fused step')
+
+    @phase('adapters_main_path')
+    def _():
+        """The adapters' card path: the single-env runner (the Gym and
+        PettingZoo envs' eager step, kernel A) for pushing and 1- and
+        4-mover planning, 50 steps around a reset; the vector runner (the
+        vector envs' fused autoreset step) at 4096 envs for pushing, box
+        pushing, 1- and 4-mover planning, and at 129 movers (kernel H's
+        many-mover variant); counters set to 0 before and read after."""
+        res = {'single': {}, 'vector': {}, 'card': card}
+        kernels.reset_launches()
+        for name in ('pushing', 'planning_m1', 'planning_m4'):
+            cfg, prm = adapter_envs[name]()
+            er = env_runner.EnvRunner(cfg, prm)
+            er.seed(12)
+            rng = np.random.default_rng(12)
+            limit = float(prm.j_max if cfg.learn_jerk else prm.a_max)
+            n = 2 * getattr(cfg, 'num_movers', 1)
+            er.reset()
+            ms, a_per_step, resets = [], [], 0
+            for t in range(T_ADAPTER + 1):  # the first step is a warm-up
+                syncs0 = er.host.host_syncs
+                t0 = time.perf_counter()
+                out, launched, calls = launches_in(lambda: er.step(rng.uniform(-limit, limit, n)))
+                if t:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                require(set(launched) == {'noise_probe'} and er.host.host_syncs == syncs0 + 1 and calls == 0,
+                        f'{name} step {t}: launches {launched}, {calls} hidden host syncs')
+                require(bool(np.isfinite(out[0]['observation']).all()), f'{name}: observation not finite')
+                a_per_step.append(launched['noise_probe'])
+                if out[2] or er.steps >= cfg.max_episode_steps:
+                    er.reset()
+                    resets += 1
+            res['single'][name] = {'B': 1, 'steps': T_ADAPTER, 'ms_median': statistics.median(ms), 'ms_min': min(ms),
+                                   'ms_max': max(ms), 'A_launches_per_step': statistics.mean(a_per_step),
+                                   'host_syncs_per_step': 1, 'resets': resets}
+        replays = []
+        for name in ('pushing', 'pushing_box', 'planning_m1', 'planning_m4'):
+            cfg, prm = adapter_envs[name]()
+            vr, ms, per_step, ends, replay = drive_vector(cfg, prm, B_MAIN, T_VECTOR)
+            replays.append(replay)
+            require(all(ls == {adapter_kernel[name]: 1} for ls in per_step), f'{name}: launches {per_step[:3]}')
+            med = statistics.median(ms)
+            res['vector'][name] = {'B': B_MAIN, 'using_fused': vr.using_fused, 'steps': T_VECTOR, 'ms_median': med,
+                                   'ms_min': min(ms), 'ms_max': max(ms), 'env_steps_per_s': B_MAIN / (med / 1e3),
+                                   'launches_per_step': per_step[-1], 'host_syncs_per_step': 1, 'episode_ends': ends}
+        # 129 movers from the slots of a full table (random sets of this many
+        # are never apart): kernel H's many-mover variant
+        m = H_MANY_MOVERS[0]
+        cfg, prm, _, _ = ladder_h(m, False, 1, 40)
+        nx = math.ceil(math.sqrt(m))
+        slots = [(0.3 + 0.42 * i, 0.3 + 0.42 * j) for i in range(nx) for j in range(nx)][:m]
+        g = torch.Generator(device=dev).manual_seed(27)
+        state = PL.reset(cfg, prm, B_MAIN, g, start_xy=slots, goals_xy=slots[::-1])[0]
+        vr, ms, per_step, ends, replay = drive_vector(cfg, prm, B_MAIN, 3, state=state)
+        replays.append(replay)
+        require(all(ls == {'planning_multi_autoreset_many': 1} for ls in per_step), f'M={m}: launches {per_step}')
+        med = statistics.median(ms)
+        res['vector'][f'planning_m{m}'] = {'B': B_MAIN, 'using_fused': vr.using_fused, 'steps': 3, 'ms_median': med,
+                                            'env_steps_per_s': B_MAIN / (med / 1e3), 'launches_per_step': per_step[-1]}
+        torch.cuda.synchronize()
+        res['launches'] = dict(kernels.LAUNCHES)
+        for replay in replays:  # after the counts are read: these launches are not the path's
+            check_vector(replay)
+        return res
+
+    adapter_launches = report['phases']['adapters_main_path'].get('launches', {})
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -2651,9 +2866,11 @@ def main() -> int:
         # each kernel's launches on its own path: A-D on the pushing main
         # path, E-G on the planning main path, H on the M-mover main path,
         # C-feat on the PPO training path, I on the roofline's peaks, the
-        # box variants of B-D and C-feat on the box main path
+        # box variants of B-D and C-feat on the box main path, H's
+        # many-mover variant on the adapters' path
         path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
                          else train_launches if name in TRAIN_KERNELS else box_launches if name in BOX_KERNELS
+                         else adapter_launches if name in ADAPTER_KERNELS
                          else measured.get('launches', {}) if name in PEAK_KERNELS else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,

@@ -1,6 +1,8 @@
 // Kernel H: one M-mover planning autoreset env step, for any M from 2 to
-// kMaxMovers (128) (device functions and the launcher; the C interface is in
-// planning_multi_autoreset.cu).
+// kMaxMovers (735) (device functions and the launchers; the C interface is in
+// planning_multi_autoreset.cu).  Up to kMaxSlotMovers (128) the movers sit in
+// register slots (below); above, the many-mover variant keeps them in shared
+// memory (at the end of this file).
 //
 // Replaces: gymnasium_planar_robotics_tpu/ops/pallas_step.py
 // _planning_multi_autoreset_kernel, reached from
@@ -62,12 +64,13 @@
 
 namespace gprt {
 
-// The most movers a launch takes: 32 lanes of 4 slots hold 128, and at 128 a
-// block's shared memory (the constants, 8,128 pairs, and its four groups'
-// poses and cycle normals) is 159,392 bytes for the box (132 KB circle), one
-// block an SM under the 227 KB a block may take.  The pair list's i | j << 8
-// holds indices up to 255.
-constexpr int kMaxMovers = 128;
+// The most movers the slot variants take: 32 lanes of 4 slots hold 128, and
+// at 128 a block's shared memory (the constants, 8,128 pairs, and its four
+// groups' poses and cycle normals) is 159,392 bytes for the box (132 KB
+// circle), one block an SM under the 227 KB a block may take.  The pair
+// list's i | j << 8 holds indices up to 255.  Above 128 the many-mover
+// variant runs, up to kMaxMovers (its block's shared memory, below).
+constexpr int kMaxSlotMovers = 128;
 
 // The per-mover and per-pair constants, one f32 vector in device memory.
 // Field order and each field's length rule (m: one per mover, pairs: one per
@@ -607,6 +610,384 @@ cudaError_t launch_planning_multi(const float* st, const float* act, const float
   const int64_t groups = kThreads / G;
   kernel<<<static_cast<unsigned int>((B + groups - 1) / groups), kThreads, smem, s>>>(st, act, noise, out, B, Lc,
                                                                                      consts, M, G, full, seed);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The many-mover variant: any M up to kMaxMovers, the movers in shared memory
+// ---------------------------------------------------------------------------
+//
+// Above 128 movers the slot variants run out of room twice: 32 lanes of 4
+// register slots hold 128 movers (L = 4 already takes 168 registers, and the
+// box spills), and the per-pair arrays grow with M^2 (3 x 8,128 floats of a
+// block's 159,392 bytes at 128 box movers).  This variant keeps neither:
+//
+// - An env is one warp (G = 32).  Lane l walks movers l, l + 32, ...; each
+//   mover's cycle state (position, velocity, acceleration, action: 8 floats)
+//   lives in the group's shared memory and only its own lane touches it.
+// - A lane draws its own movers' cycle normals (DrawStream at the mover's
+//   absolute draw index), so the group keeps no buffer of the cycle's
+//   normals; a Philox block shared by two movers is computed twice, O(M) a
+//   cycle beside the O(M^2) pair tests.
+// - The pairs are walked in row order with a stride of G from the lane's own
+//   first pair (no pair list, so no bound on the mover index), and a pair's
+//   summed sizes are formed on the fly: the host's float64 per-mover sizes
+//   (c, and c + offset on each axis) are in shared memory, two of them are
+//   added in float64 and the sum rounded once, the same f32 the host rounds
+//   into its per-pair table (make_multi_kernel_consts).  The H100's FP64
+//   units make the addition cheap.
+//
+// Draws, the cycle order, the latch, the restart and every rounding are the
+// slot variants', so this variant agrees with the plain version bit for bit.
+// Bound: as the slot variants; what limits a launch here is the block's
+// shared memory (bytes per mover, many_smem_bytes), which sets kMaxMovers and
+// the blocks an SM holds.
+
+// The slot variants' constants vector begins with its nine per-mover fields
+// (GPRT_MULTI_FIELDS) and ends with min_goal_dist; the block copies those.
+enum ManyField { kWallX, kWallY, kSampleX, kSampleY, kSamplePairX, kSamplePairY, kPairX, kPairY, kAccelScale };
+constexpr int kManyFields = 9;
+// [3, M] float64 per-mover sizes, rows: c_pair_x (the circle's cycle pair
+// test), c_sample_pair_x, c_sample_pair_y (the start sets' pair test)
+constexpr int kMany64Rows = 3;
+
+// a group's floats: the state [10, M] (x, y, vx, vy, ax, ay, ux, uy, then the
+// accepted start set sx, sy; after the cycles the u rows hold the accepted
+// goal set) and the poses (x, y, for the box also R's four entries), plus one
+// float of padding
+__host__ __device__ constexpr int many_group_floats(int m, bool box) { return (10 + (box ? 6 : 2)) * m + 1; }
+__host__ __device__ constexpr int many_const_floats(int m) { return (kManyFields * m + 1 + 3) & ~3; }
+__host__ __device__ constexpr size_t many_smem_bytes(int m, bool box) {
+  return sizeof(float) * static_cast<size_t>(many_const_floats(m)) +
+         sizeof(double) * static_cast<size_t>(kMany64Rows * m) +
+         sizeof(float) * static_cast<size_t>(kThreads / 32) * static_cast<size_t>(many_group_floats(m, box));
+}
+
+// The most movers a launch takes: the largest M whose many-mover block (the
+// box, the larger) fits the 227 KB (232,448 bytes) a block may take.
+constexpr size_t kMaxBlockSmem = 232448;
+constexpr int kMaxMovers = 735;
+static_assert(many_smem_bytes(kMaxMovers, true) <= kMaxBlockSmem &&
+                  many_smem_bytes(kMaxMovers + 1, true) > kMaxBlockSmem,
+              "kMaxMovers is the most box movers whose block fits");
+
+struct ManyConsts {
+  const float* f;     // [kManyFields, M]
+  const double* d64;  // [kMany64Rows, M]
+  float min_goal_dist;
+  int M;
+  __device__ __forceinline__ float at(ManyField k, int i) const { return f[k * M + i]; }
+  // row r's sizes of movers i and j added in float64, rounded once
+  __device__ __forceinline__ float sum(int r, int i, int j) const {
+    return __double2float_rn(__dadd_rn(d64[r * M + i], d64[r * M + j]));
+  }
+};
+
+struct ManyEnv {
+  const PlanningLaunch& L;
+  const ManyConsts& mc;
+  float* s;     // this env's state [10, M]
+  float* pose;  // this env's poses
+  int64_t e;
+  int M;
+  bool full;
+  Group g;
+};
+
+// The lane's next pair in row order, G pairs on from (i, j): while j runs
+// past the row's end, carry into the next row, whose pairs start at i + 1.
+// i == M - 1 ends the walk.
+__device__ __forceinline__ void next_pair(int M, int step, int& i, int& j) {
+  j += step;
+  while (j >= M && i < M - 1) {
+    ++i;
+    j += i + 1 - M;
+  }
+}
+
+template <bool kBox>
+__device__ __forceinline__ void many_cycles(const ManyEnv& ge, const Draws& dr, float& wall_f, float& mover_f) {
+  const PlanningConsts& c = ge.L.c;
+  const ManyConsts& mc = ge.mc;
+  const int M = ge.M, G = ge.g.G, p_w = kBox ? 3 : 1, n_draws = cycle_draws(M, kBox);
+  const Rot2 ident = {1.0f, 0.0f, 0.0f, 1.0f};
+  float* s = ge.s;
+  float* pose = ge.pose;
+  wall_f = 0.0f;
+  mover_f = 0.0f;
+  for (int cyc = 0; cyc < ge.L.num_cycles; ++cyc) {
+    const uint32_t d0 = static_cast<uint32_t>(cyc * n_draws);
+    bool wall = false;
+    for (int i = ge.g.lane; i < M; i += G) {
+      float px = s[i], py = s[M + i], vx = s[2 * M + i], vy = s[3 * M + i], ax = s[4 * M + i], ay = s[5 * M + i];
+      const float ux = s[6 * M + i], uy = s[7 * M + i];
+      float nvx, nvy;
+      auto nv = dr.at(ge.e, d0 + 2 * i);
+      normal_pair(nv, nvx, nvy);
+      const float vmx = madd(vx, nvx, c.std_vel), vmy = madd(vy, nvy, c.std_vel);
+      const float scale = mc.at(kAccelScale, i);
+      const float amx = mul(scale, ax), amy = mul(scale, ay);
+      float nax, nay;
+      if (ge.L.jerk) {
+        clamp_chain<true>(c.v_max, c.a_max, c.dt, vmx, vmy, ux, uy, amx, amy, ax, ay, nax, nay);
+      } else {
+        clamp_chain<false>(c.v_max, c.a_max, c.dt, vmx, vmy, ux, uy, amx, amy, ax, ay, nax, nay);
+      }
+      vx = madd(vx, c.dt, mul(scale, nax));
+      vy = madd(vy, c.dt, mul(scale, nay));
+      px = madd(px, c.dt, vx);
+      py = madd(py, c.dt, vy);
+      s[i] = px;
+      s[M + i] = py;
+      s[2 * M + i] = vx;
+      s[3 * M + i] = vy;
+      s[4 * M + i] = nax;
+      s[5 * M + i] = nay;
+      // the mover's wall check on its own pose noise and size
+      float w[6], q[6];
+      auto nw = dr.at(ge.e, d0 + static_cast<uint32_t>(2 * M + 2 * p_w * i));
+#pragma unroll
+      for (int k = 0; k < 2 * p_w; k += 2) normal_pair(nw, w[k], w[k + 1]);
+      const Rot2 R = kBox ? rotation_of(w[2], w[3], w[4], w[5], c.std_pos) : ident;
+      wall |= !multi_shape_valid<kBox>(ge.L, ge.full, madd(px, w[0], c.std_pos), madd(py, w[1], c.std_pos), R,
+                                       mc.at(kWallX, i), mc.at(kWallY, i));
+      // a second, independent noisy pose for the pair tests
+      auto nq = dr.at(ge.e, d0 + static_cast<uint32_t>(2 * M + 2 * p_w * M + 2 * p_w * i));
+#pragma unroll
+      for (int k = 0; k < 2 * p_w; k += 2) normal_pair(nq, q[k], q[k + 1]);
+      pose[i] = madd(px, q[0], c.std_pos);
+      pose[M + i] = madd(py, q[1], c.std_pos);
+      if (kBox) {
+        const Rot2 Rq = rotation_of(q[2], q[3], q[4], q[5], c.std_pos);
+        pose[2 * M + i] = Rq.r00;
+        pose[3 * M + i] = Rq.r01;
+        pose[4 * M + i] = Rq.r10;
+        pose[5 * M + i] = Rq.r11;
+      }
+    }
+    ge.g.sync();
+    bool hit = false;
+    int i = 0, j = 0;
+    next_pair(M, ge.g.lane + 1, i, j);  // the lane's first pair: pair index lane
+    for (; i < M - 1; next_pair(M, G, i, j)) {
+      if (kBox) {
+        const Rot2 Ri = {pose[2 * M + i], pose[3 * M + i], pose[4 * M + i], pose[5 * M + i]};
+        const Rot2 Rj = {pose[2 * M + j], pose[3 * M + j], pose[4 * M + j], pose[5 * M + j]};
+        hit |= rects_intersect_sat(sub(pose[j], pose[i]), sub(pose[M + j], pose[M + i]), Ri, mc.at(kPairX, i),
+                                   mc.at(kPairY, i), Rj, mc.at(kPairX, j), mc.at(kPairY, j));
+      } else {
+        hit |= sqrtf(sq2(sub(pose[i], pose[j]), sub(pose[M + i], pose[M + j]))) <= mc.sum(0, i, j);
+      }
+    }
+    const unsigned flags = ge.g.any((wall ? 1u : 0u) | (hit ? 2u : 0u));
+    ge.g.sync();  // this cycle's pose reads before the next cycle's writes
+    if (flags != 0u) {
+      wall_f = (flags & 1u) ? 1.0f : 0.0f;
+      mover_f = (flags & 2u) ? 1.0f : 0.0f;
+      break;
+    }
+  }
+}
+
+// group_sample of the slot variants with the movers walked by the lanes; an
+// accepted set goes to keep [2, M] (x row, then y row), each mover by its lane.
+template <bool kBox, bool kGoal>
+__device__ __forceinline__ bool many_sample(const ManyEnv& ge, const Draws& dr, uint32_t d_set, float* keep,
+                                            float& trials) {
+  const PlanningConsts& c = ge.L.c;
+  const ManyConsts& mc = ge.mc;
+  const int M = ge.M, G = ge.g.G;
+  const Rot2 ident = {1.0f, 0.0f, 0.0f, 1.0f};
+  float* pose = ge.pose;
+  for (int k = 0; k < ge.L.cand_k; ++k) {
+    bool ok = true;
+    for (int i = ge.g.lane; i < M; i += G) {
+      auto n = dr.at(ge.e, d_set + static_cast<uint32_t>(2 * M * k + 2 * i));
+      const float cx = uniform_in(n, c.min_x, c.span_x);
+      const float cy = uniform_in(n, c.min_y, c.span_y);
+      ok &= multi_shape_valid<kBox>(ge.L, ge.full, cx, cy, ident, mc.at(kSampleX, i), mc.at(kSampleY, i));
+      pose[i] = cx;
+      pose[M + i] = cy;
+    }
+    ge.g.sync();
+    int i = 0, j = 0;
+    next_pair(M, ge.g.lane + 1, i, j);
+    for (; i < M - 1; next_pair(M, G, i, j)) {
+      const float dx = sub(pose[i], pose[j]), dy = sub(pose[M + i], pose[M + j]);
+      if (kGoal) {
+        ok &= sqrtf(sq2(dx, dy)) >= mc.min_goal_dist;
+      } else if (kBox) {
+        ok &= !rects_intersect_ident(sub(pose[j], pose[i]), sub(pose[M + j], pose[M + i]), mc.at(kSamplePairX, i),
+                                     mc.at(kSamplePairY, i), mc.at(kSamplePairX, j), mc.at(kSamplePairY, j),
+                                     mc.sum(1, i, j), mc.sum(2, i, j));
+      } else {
+        ok &= !(sqrtf(sq2(dx, dy)) <= mc.sum(1, i, j));
+      }
+    }
+    const bool accepted = ge.g.all(ok);
+    ge.g.sync();  // this set's reads before the next writes
+    if (accepted) {
+      for (int i2 = ge.g.lane; i2 < M; i2 += G) {
+        keep[i2] = pose[i2];
+        keep[M + i2] = pose[M + i2];
+      }
+      trials = static_cast<float>(k + 1);
+      return true;
+    }
+  }
+  trials = static_cast<float>(ge.L.cand_k);
+  return false;
+}
+
+// group_step of the slot variants (the same output planes and draws) with
+// the movers in shared memory.  The pre-reset observation is read back from
+// the output planes the lane wrote, where the env carries on.
+template <bool kBox>
+__device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, const float* __restrict__ st_in,
+                                          const float* __restrict__ act, float* __restrict__ out, int64_t B) {
+  const PlanningConsts& c = ge.L.c;
+  const int M = ge.M, G = ge.g.G;
+  const int64_t e = ge.e;
+  float* s = ge.s;
+  for (int i = ge.g.lane; i < M; i += G) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {  // x, y, vx, vy, ax, ay
+      s[k * M + i] = st_in[(2 * (k / 2) * M + 2 * i + (k & 1)) * B + e];
+    }
+    s[6 * M + i] = act[(2 * i) * B + e];
+    s[7 * M + i] = act[(2 * i + 1) * B + e];
+  }
+  const float steps = st_in[(8 * M) * B + e];
+  float wall_f, mover_f;
+  many_cycles<kBox>(ge, dr, wall_f, mover_f);
+
+  // pre-reset observation and the goals reached within the noisy threshold
+  const uint32_t d_obs = static_cast<uint32_t>(ge.L.num_cycles * cycle_draws(M, kBox));
+  float* o = out + (8 * M + 1) * B + e;
+  unsigned unreached = 0;
+  for (int i = ge.g.lane; i < M; i += G) {
+    auto n = dr.at(e, d_obs + 4 * i);
+    float n1, n2, n3, n4;
+    normal_pair(n, n1, n2);
+    normal_pair(n, n3, n4);
+    const float fagx = madd(s[i], n1, c.std_pos), fagy = madd(s[M + i], n2, c.std_pos);
+    const float fvx = madd(s[2 * M + i], n3, c.std_vel), fvy = madd(s[3 * M + i], n4, c.std_vel);
+    const float ddx = sub(fagx, st_in[(6 * M + 2 * i) * B + e]), ddy = sub(fagy, st_in[(6 * M + 2 * i + 1) * B + e]);
+    unreached += sqrtf(sq2(ddx, ddy)) <= c.threshold ? 0u : 1u;
+    o[(4 * M + 2 * i) * B] = fvx;
+    o[(4 * M + 2 * i + 1) * B] = fvy;
+    o[(6 * M + 2 * i) * B] = fagx;
+    o[(6 * M + 2 * i + 1) * B] = fagy;
+    o[(8 * M + 2 * i) * B] = s[4 * M + i];  // pre-reset act (jerk-mode final observation)
+    o[(8 * M + 2 * i + 1) * B] = s[5 * M + i];
+  }
+  const float num_unreached = static_cast<float>(ge.g.sum(unreached));
+  const bool collided = (wall_f > 0.0f) | (mover_f > 0.0f);
+  const bool term = collided | (num_unreached == 0.0f);
+  const float new_steps = add(steps, 1.0f);
+  const bool trunc = new_steps >= c.max_episode_steps;
+  const bool done = term | trunc;
+
+  // restart: start sets (kept in rows 8-9), then goal sets (kept in the u
+  // rows, free after the cycles); an env that is not done reads none
+  const uint32_t d_starts = d_obs + 4 * M;
+  const uint32_t d_goals = d_starts + static_cast<uint32_t>(2 * M * ge.L.cand_k);
+  float s_trials = 0.0f, g_trials = 0.0f;
+  bool found = false;
+  if (done) {
+    const bool s_found = many_sample<kBox, false>(ge, dr, d_starts, s + 8 * M, s_trials);
+    const bool g_found = many_sample<kBox, true>(ge, dr, d_goals, s + 6 * M, g_trials);
+    found = s_found & g_found;
+  }
+  const bool do_reset = done & found;
+  const uint32_t d_post = d_goals + static_cast<uint32_t>(2 * M * ge.L.cand_k);
+  for (int i = ge.g.lane; i < M; i += G) {
+    float px = s[i], py = s[M + i], vx = s[2 * M + i], vy = s[3 * M + i], ax = s[4 * M + i], ay = s[5 * M + i];
+    float gx = st_in[(6 * M + 2 * i) * B + e], gy = st_in[(6 * M + 2 * i + 1) * B + e];
+    float svx, svy, sagx, sagy;
+    if (do_reset) {
+      px = s[8 * M + i];
+      py = s[9 * M + i];
+      vx = vy = ax = ay = 0.0f;
+      gx = s[6 * M + i];
+      gy = s[7 * M + i];
+      auto n = dr.at(e, d_post + 4 * i);
+      float m1, m2, m3, m4;
+      normal_pair(n, m1, m2);
+      normal_pair(n, m3, m4);
+      sagx = madd(px, m1, c.std_pos);
+      sagy = madd(py, m2, c.std_pos);
+      svx = madd(vx, m3, c.std_vel);
+      svy = madd(vy, m4, c.std_vel);
+    } else {  // the pre-reset observation this lane wrote above
+      svx = o[(4 * M + 2 * i) * B];
+      svy = o[(4 * M + 2 * i + 1) * B];
+      sagx = o[(6 * M + 2 * i) * B];
+      sagy = o[(6 * M + 2 * i + 1) * B];
+    }
+    o[(2 * i) * B] = svx;
+    o[(2 * i + 1) * B] = svy;
+    o[(2 * M + 2 * i) * B] = sagx;
+    o[(2 * M + 2 * i + 1) * B] = sagy;
+    out[(2 * i) * B + e] = px;
+    out[(2 * i + 1) * B + e] = py;
+    out[(2 * M + 2 * i) * B + e] = vx;
+    out[(2 * M + 2 * i + 1) * B + e] = vy;
+    out[(4 * M + 2 * i) * B + e] = ax;
+    out[(4 * M + 2 * i + 1) * B + e] = ay;
+    out[(6 * M + 2 * i) * B + e] = gx;
+    out[(6 * M + 2 * i + 1) * B + e] = gy;
+  }
+  if (ge.g.lane == 0) {
+    out[(8 * M) * B + e] = do_reset ? 0.0f : new_steps;
+    o[(10 * M + 0) * B] = wall_f;
+    o[(10 * M + 1) * B] = mover_f;
+    o[(10 * M + 2) * B] = num_unreached;
+    o[(10 * M + 3) * B] = (done & !found) ? 1.0f : 0.0f;
+    o[(10 * M + 4) * B] = done ? add(s_trials, g_trials) : 0.0f;
+  }
+}
+
+// One block of kThreads lanes, one env a warp.  The block copies the
+// per-mover constants (f32 and float64) into shared memory, then each warp
+// runs its env's step.
+template <bool kBox>
+__global__ void __launch_bounds__(kThreads)
+    planning_multi_many_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
+                               const float* __restrict__ noise, float* __restrict__ out, int64_t B,
+                               const PlanningLaunch Lc, const float* __restrict__ consts,
+                               const double* __restrict__ sizes64, int M, bool full, Seed seed) {
+  constexpr int G = 32;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  for (int k = threadIdx.x; k < kManyFields * M; k += blockDim.x) sm[k] = consts[k];
+  double* d64 = reinterpret_cast<double*>(sm + many_const_floats(M));
+  for (int k = threadIdx.x; k < kMany64Rows * M; k += blockDim.x) d64[k] = sizes64[k];
+  const int gib = threadIdx.x / G;
+  float* group = reinterpret_cast<float*>(d64 + kMany64Rows * M) + gib * many_group_floats(M, kBox);
+  __syncthreads();
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * (kThreads / G) + gib;
+  if (e >= B) return;
+  const ManyConsts mc{sm, d64, __ldg(consts + multi_const_floats(M) - 1), M};  // min_goal_dist: the vector's last
+  const ManyEnv ge{Lc, mc, group, group + 10 * M, e, M, full, Group(threadIdx.x % G, G)};
+  many_step<kBox>(ge, Draws{noise, B, noise == nullptr ? seed.get() : 0}, st_in, act, out, B);
+}
+
+// Host side: launch the many-mover variant with one collision shape.
+template <bool kBox>
+cudaError_t launch_planning_multi_many(const float* st, const float* act, const float* noise, float* out, int64_t B,
+                                       const PlanningLaunch& Lc, const float* consts, const double* sizes64, int M,
+                                       bool full, Seed seed, cudaStream_t s) {
+  const size_t smem = many_smem_bytes(M, kBox);
+  auto kernel = planning_multi_many_kernel<kBox>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t groups = kThreads / 32;
+  kernel<<<static_cast<unsigned int>((B + groups - 1) / groups), kThreads, smem, s>>>(st, act, noise, out, B, Lc,
+                                                                                     consts, sizes64, M, full, seed);
   return cudaGetLastError();
 }
 

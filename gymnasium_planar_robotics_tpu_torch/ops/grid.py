@@ -31,6 +31,19 @@ class TileGrid:
     corner_onehot: torch.Tensor  # [C, Tx, Ty] bool (C may be 0)
     corner_xy: torch.Tensor  # [C, 2]
 
+    @property
+    def max_xy(self) -> torch.Tensor:
+        """(x, y) upper corner of the grid's bounding box (the lower one is
+        (0, 0))."""
+        return torch.stack([self.tile_x[-1, -1] + self.tile_size[0], self.tile_y[-1, -1] + self.tile_size[1]])
+
+    @property
+    def workspace_max_xy(self) -> torch.Tensor:
+        """The reference's workspace bound, the last tile centre plus half
+        of the tile's half-extent (0.66 on a 3x3 table whose box ends at
+        0.72): the high of the goal spaces."""
+        return torch.stack([self.tile_x[-1, -1] + self.tile_size[0] / 2, self.tile_y[-1, -1] + self.tile_size[1] / 2])
+
 
 # order of the four diagonal directions of the corner checks
 CORNER_DIRS = ((1, -1), (1, 1), (-1, -1), (-1, 1))

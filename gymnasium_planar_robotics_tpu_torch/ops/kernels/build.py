@@ -148,11 +148,11 @@ def lib() -> ctypes.CDLL:
         handle.gprt_planning_rollout.restype = i32
         handle.gprt_planning_rollout.argtypes = [p, p, p, p, p, i64, i32, p, p, i32, i32, i32, i32, i32, i32, u64, p,
                                                  i32, p]
-        # (st, act, noise, out, B, consts, multi_consts, table, n_cells, m, lanes, slots, box, full, jerk,
-        #  num_cycles, cand_k, seed, seed_dev, stream); multi_consts in device memory
+        # (st, act, noise, out, B, consts, multi_consts, sizes64, table, n_cells, m, lanes, slots, box, full,
+        #  jerk, num_cycles, cand_k, seed, seed_dev, stream); multi_consts and sizes64 in device memory
         handle.gprt_planning_multi_autoreset.restype = i32
-        handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, i32, i32, i32, i32, i32, i32, i32,
-                                                         i32, i32, u64, p, p]
+        handle.gprt_planning_multi_autoreset.argtypes = [p, p, p, p, i64, p, p, p, p, i32, i32, i32, i32, i32, i32,
+                                                         i32, i32, i32, u64, p, p]
         # (x, out, n, k, transc, stream); chains per thread of each probe
         handle.gprt_peak.restype = i32
         handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]

@@ -16,7 +16,9 @@ goal, activation), wall, mover, unreached goals, stalled, trials.  The plain
 version does the kernel's arithmetic with the same operand order, one
 rounding per operation, in the same draw order over a given uniform tensor.
 Any M from 2 to ``MAX_MOVERS`` runs; on the card the wrapper lays each env
-over a group of G lanes with L mover slots each (``lane_layout``).
+over a group of G lanes with L mover slots each (``lane_layout``), or, above
+``SLOT_MOVERS``, over one warp whose lanes walk the movers kept in shared
+memory (the many-mover variant, L = ``SMEM_SLOTS``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,15 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import build, planning, to_
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain, scalar, sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
 
-MAX_MOVERS = 128  # kMaxMovers in csrc/planning_multi.cuh (32 lanes x 4 slots; a block's shared memory)
+SLOT_MOVERS = 128  # kMaxSlotMovers in csrc/planning_multi.cuh: 32 lanes x 4 register slots
+#: kMaxMovers in csrc/planning_multi.cuh: the most box movers whose
+#: many-mover block fits the 232,448 bytes of shared memory a block may take
+#: (``many_smem_bytes``)
+MAX_MOVERS = 735
+MAX_BLOCK_SMEM = 232448
+#: the L of the many-mover variant: no register slots, the movers' state in
+#: the group's shared memory, walked by its 32 lanes
+SMEM_SLOTS = 0
 
 #: (name, length rule) of the constants vector in ``csrc/planning_multi.cuh``
 #: (``GPRT_MULTI_FIELDS``): ``m`` one value per mover, ``pairs`` one per pair
@@ -44,7 +54,7 @@ MULTI_FIELDS = (
 
 LANES = (1, 2, 4, 8, 16, 32)  # the G a lane group may have
 #: the L the kernel is instantiated for; the last, 4, only above 64 movers
-#: (32 lanes x 2 slots), where 32 lanes x 4 hold MAX_MOVERS
+#: (32 lanes x 2 slots), where 32 lanes x 4 hold SLOT_MOVERS
 SLOTS = (1, 2, 4)
 
 #: Kernel H's lane layout, (G lanes an env, L mover slots a lane), by the
@@ -57,7 +67,11 @@ SLOTS = (1, 2, 4)
 #: 8192 envs the narrow layout was the faster of the two at 2, 4 and 8
 #: movers, at 16,384 the wide one (at 4 movers 1.4% slower: a tie) (PERF.md
 #: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed; 33-64
-#: movers take (32, 2) and 65-128 (32, 4), the only layouts there.
+#: movers take (32, 2), 65-128 (32, 4) and 129-735 the many-mover variant
+#: (32, SMEM_SLOTS), the only layouts there: above 128 a block of four
+#: one-warp envs is what the shared memory holds (at 16 lanes an env, eight
+#: envs' state would not fit a block above 367 box movers), so no width is
+#: measured for it.
 WIDE_BATCH = 8192
 LANE_TABLE = {
     2: ((8, 1), (1, 2)),
@@ -66,6 +80,7 @@ LANE_TABLE = {
     32: ((32, 1), (32, 1)),
     64: ((32, 2), (32, 2)),
     128: ((32, 4), (32, 4)),
+    MAX_MOVERS: ((32, SMEM_SLOTS), (32, SMEM_SLOTS)),
 }
 
 
@@ -75,18 +90,33 @@ def table_row(m: int) -> int:
     return min(k for k in LANE_TABLE if k >= m)
 
 
+def many_smem_bytes(m: int, box: bool) -> int:
+    """A many-mover block's shared memory (``many_smem_bytes`` in
+    ``csrc/planning_multi.cuh``): the nine per-mover f32 fields and
+    min_goal_dist (rounded up to 4 floats), three float64 sizes a mover, and
+    four one-warp groups of (10 + P) M + 1 floats (P = 6 box, 2 circle)."""
+    return 4 * ((9 * m + 1 + 3) & ~3) + 8 * 3 * m + 4 * 4 * ((10 + (6 if box else 2)) * m + 1)
+
+
 def check_movers(m: int) -> None:
     if not 2 <= m <= MAX_MOVERS:
-        raise NotImplementedError(f'kernel H takes 2 to {MAX_MOVERS} movers (32 lanes x 4 slots; at {MAX_MOVERS} box '
-                                  f'movers a block holds 156 KB of shared memory), got {m} (ROADMAP.md)')
+        need = f'; {m} would need {many_smem_bytes(m, True):,}' if m > MAX_MOVERS else ''
+        raise NotImplementedError(
+            f'kernel H takes 2 to {MAX_MOVERS} movers (above {SLOT_MOVERS} the movers live in shared memory: at '
+            f'{MAX_MOVERS} box movers a block holds {many_smem_bytes(MAX_MOVERS, True):,} bytes of shared memory '
+            f'of the {MAX_BLOCK_SMEM:,} a block may take{need}), got {m} (ROADMAP.md)')
 
 
 def layouts(m: int) -> tuple:
-    """Every (G, L) kernel H can run M movers on: for each G in ``LANES``
-    the fewest slots ``L`` in ``SLOTS`` with G * L >= M (where one exists);
-    with G > M the lanes beyond M own no mover but draw.  L = 4 only where
-    32 lanes of 2 slots cannot hold M (above 64 movers)."""
+    """Every (G, L) kernel H can run M movers on: up to ``SLOT_MOVERS``,
+    for each G in ``LANES`` the fewest slots ``L`` in ``SLOTS`` with G * L
+    >= M (where one exists); with G > M the lanes beyond M own no mover but
+    draw.  L = 4 only where 32 lanes of 2 slots cannot hold M (above 64
+    movers).  Above ``SLOT_MOVERS`` only the many-mover variant, (32,
+    ``SMEM_SLOTS``); it runs any M, so a test may force it below."""
     check_movers(m)
+    if m > SLOT_MOVERS:
+        return ((LANES[-1], SMEM_SLOTS),)
     slots = SLOTS if m > LANES[-1] * SLOTS[-2] else SLOTS[:-1]
     return tuple((g, min(n for n in slots if g * n >= m)) for g in LANES if g * slots[-1] >= m)
 
@@ -139,12 +169,16 @@ class MultiConsts:
     fields shared with kernels E-G (grid rule, dynamics, noise, sampling
     bounds), ``f`` each ``MULTI_FIELDS`` name's f32 values (Python floats,
     ``M``, ``M(M-1)/2`` or one), ``vector`` the same in field order, the
-    constants vector kernel H reads from device memory."""
+    constants vector kernel H reads from device memory, ``sizes64`` the
+    float64 per-mover sizes ``[3, M]`` the pair sums are formed from
+    (c_pair_x, c_sample_pair_x, c_sample_pair_y before their rounding to
+    f32), from which the many-mover variant forms each pair's sum."""
 
     base: planning.KernelConsts
     m: int
     f: dict
     vector: np.ndarray
+    sizes64: np.ndarray
     _vectors: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def vector_on(self, device: torch.device) -> torch.Tensor:
@@ -154,12 +188,20 @@ class MultiConsts:
             self._vectors[device] = torch.from_numpy(self.vector).to(device)
         return self._vectors[device]
 
+    def sizes64_on(self, device: torch.device) -> torch.Tensor:
+        """``sizes64`` on ``device``, made once as ``vector_on``."""
+        key = ('sizes64', device)
+        if key not in self._vectors:
+            self._vectors[key] = torch.from_numpy(self.sizes64).to(device)
+        return self._vectors[key]
+
 
 def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
     """The constants ``make_fused_planning_multi_autoreset_cycles`` binds
     into the Pallas kernel: per-mover sizes c_wall = c + offset_wall,
     c_sample = c + offset + offset_wall, c_sample_pair = c + offset, c_pair =
-    c and the per-pair sums, formed in float64 and rounded once to f32."""
+    c and the per-pair sums, formed in float64 and rounded once to f32
+    (with the float64 sizes they are formed from, ``sizes64``)."""
     m = config.num_movers
     check_movers(m)
     if config.collision_shape not in ('circle', 'box') or to_numpy(params.v_max).dtype != np.float32:
@@ -195,10 +237,14 @@ def make_multi_kernel_consts(config, params, cand_k: int = 16) -> MultiConsts:
     rows = [np.asarray(v[name], np.float32) for name, _ in MULTI_FIELDS]
     assert [len(r) for r in rows] == [field_length(rule, m) for _, rule in MULTI_FIELDS]
     f = {name: [float(x) for x in row] for (name, _), row in zip(MULTI_FIELDS, rows)}
-    mc = MultiConsts(base=planning.shared_consts(config, params, cand_k), m=m, f=f, vector=np.concatenate(rows))
+    sizes64 = np.array([[s[0] for s in c_pair], [s[0] for s in c_sample_pair], [s[1] for s in c_sample_pair]],
+                       np.float64).reshape(-1)
+    mc = MultiConsts(base=planning.shared_consts(config, params, cand_k), m=m, f=f, vector=np.concatenate(rows),
+                     sizes64=sizes64)
     device = params.v_max.device
     if device.type == 'cuda':  # the step's constants and wall table on its card, made now
         mc.vector_on(device)
+        mc.sizes64_on(device)
         mc.base.table_on(device)
     return mc
 
@@ -435,9 +481,16 @@ def _noise_planes(mc: MultiConsts) -> int:
     return multi_noise_planes(mc.base.num_cycles, mc.m, mc.base.cand_k, mc.base.box)
 
 
+def launch_name(slots: int) -> str:
+    """The launch counter of a layout's variant: the many-mover variant
+    counts on its own."""
+    return 'planning_multi_autoreset_many' if slots == SMEM_SLOTS else 'planning_multi_autoreset'
+
+
 def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None,
                                   seed: int | torch.Tensor = 0) -> torch.Tensor:
-    """Kernel H on the card, in the lane layout ``lane_layout(M, B)``."""
+    """Kernel H on the card, in the lane layout ``lane_layout(M, B)``
+    (above ``SLOT_MOVERS`` the many-mover variant)."""
     b, m = state.shape[1], mc.m
     kernels.check_plane(state, 'state', (n_multi_state(m), b))
     kernels.check_plane(action, 'action', (2 * m, b))
@@ -452,11 +505,11 @@ def planning_multi_autoreset_cuda(state, action, mc: MultiConsts, uniforms=None,
     with torch.cuda.device(state.device):
         err = build.lib().gprt_planning_multi_autoreset(
             state.data_ptr(), action.data_ptr(), noise_ptr, out.data_ptr(), b, args[0],
-            mc.vector_on(state.device).data_ptr(), args[1], args[2], m, lanes, slots, *args[3:], kc.cand_k,
-            *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
+            mc.vector_on(state.device).data_ptr(), mc.sizes64_on(state.device).data_ptr(), args[1], args[2], m,
+            lanes, slots, *args[3:], kc.cand_k, *kernels.seed_args(seed, state.device), kernels.stream_ptr(out),
         )
-    build.check(err, 'planning_multi_autoreset')
-    kernels.LAUNCHES['planning_multi_autoreset'] += 1
+    build.check(err, launch_name(slots))
+    kernels.LAUNCHES[launch_name(slots)] += 1
     return out
 
 

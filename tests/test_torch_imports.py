@@ -53,3 +53,39 @@ def test_every_module_imports_without_jax():
         'assert not bad, bad\n'
     )
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_runner_and_package_import_without_gym_pettingzoo_mujoco():
+    """The package, its lazy surface's registry and ``envs/runner`` import
+    with ``gymnasium``, ``pettingzoo`` and ``mujoco`` hidden (the card's
+    machine has none of them), and the runners step on the CPU there."""
+    code = (
+        'import sys\n'
+        "for name in ('gymnasium', 'pettingzoo', 'mujoco', 'matplotlib'):\n"
+        '    sys.modules[name] = None\n'
+        'import numpy as np\n'
+        'import gymnasium_planar_robotics_tpu_torch as pkg\n'
+        'from gymnasium_planar_robotics_tpu_torch import envs\n'
+        'from gymnasium_planar_robotics_tpu_torch.envs import registration, runner\n'
+        'from gymnasium_planar_robotics_tpu_torch.models import planning, pushing\n'
+        "cfg, prm = pushing.make_pushing_env(device='cpu', num_cycles=2)\n"
+        'r = runner.EnvRunner(cfg, prm)\n'
+        'r.seed(0)\n'
+        'obs, info = r.reset()\n'
+        'out = r.step(np.zeros(2))\n'
+        "assert out[0]['observation'].shape == (4,) and r.steps == 1\n"
+        "cfg, prm = planning.make_planning_env(np.ones((4, 4)), 2, device='cpu', num_cycles=2)\n"
+        'v = runner.VectorRunner(cfg, prm, 3)\n'
+        'v.reset()\n'
+        'out = v.step(np.zeros((3, 4)))\n'
+        "assert not v.using_fused and out[1].shape == (3,) and 'final_observation' in out[4]\n"
+        'try:\n'
+        '    envs.register_gymnasium_envs()\n'
+        'except ImportError:\n'
+        '    pass\n'
+        'else:\n'
+        "    raise AssertionError('registration needs gymnasium')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gymnasium_planar_robotics_tpu') and sys.modules[m]]\n"
+        'assert not bad, bad\n'
+    )
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)

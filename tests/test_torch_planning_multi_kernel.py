@@ -165,18 +165,27 @@ def test_multi_constants_match_pallas(name):
 
 @pytest.mark.parametrize('b', [1, 4096, kmulti.WIDE_BATCH, kmulti.WIDE_BATCH + 1, 65536])
 def test_lane_layout_covers_the_movers(b):
-    """The wrapper's (G, L) for every M it takes and width B: G lanes (a
-    power of two up to 32) with L slots each (an instantiated L) hold all M
-    movers, and it is one of the layouts the kernel is held to on the card;
-    beyond ``MAX_MOVERS`` (and below 2) it raises, naming the bound."""
+    """The wrapper's (G, L) for every M it takes and width B: up to
+    ``SLOT_MOVERS``, G lanes (a power of two up to 32) with L slots each (an
+    instantiated L) hold all M movers; above, one warp of the many-mover
+    variant (L = ``SMEM_SLOTS``), whose block fits the card's shared memory
+    up to ``MAX_MOVERS`` box movers and no further; it is one of the layouts
+    the kernel is held to on the card; beyond ``MAX_MOVERS`` (and below 2) it
+    raises, naming the bound and the bytes."""
     for m in range(2, kmulti.MAX_MOVERS + 1):
         g, n = kmulti.lane_layout(m, b)
-        assert g * n >= m and g in kmulti.LANES and n in kmulti.SLOTS, (m, g, n)
         assert (g, n) in kmulti.layouts(m)
+        if m > kmulti.SLOT_MOVERS:
+            assert (g, n) == (32, kmulti.SMEM_SLOTS) and kmulti.layouts(m) == ((32, kmulti.SMEM_SLOTS),), (m, g, n)
+            continue
+        assert g * n >= m and g in kmulti.LANES and n in kmulti.SLOTS, (m, g, n)
         assert all(lg * ln >= m and (ln == kmulti.SLOTS[0] or lg * kmulti.SLOTS[kmulti.SLOTS.index(ln) - 1] < m)
                    for lg, ln in kmulti.layouts(m))
+    assert kmulti.SLOT_MOVERS == kmulti.LANES[-1] * kmulti.SLOTS[-1]
+    assert kmulti.many_smem_bytes(kmulti.MAX_MOVERS, True) <= kmulti.MAX_BLOCK_SMEM
+    assert kmulti.many_smem_bytes(kmulti.MAX_MOVERS + 1, True) > kmulti.MAX_BLOCK_SMEM
     for m in (1, kmulti.MAX_MOVERS + 1, 4 * kmulti.MAX_MOVERS):
-        with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers'):
+        with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers .* bytes of shared memory'):
             kmulti.lane_layout(m, b)
 
 
@@ -195,6 +204,12 @@ def test_multi_fields_match_cuda_struct():
         assert [kmulti.field_length(rule, m) for _, rule in kmulti.MULTI_FIELDS] == [
             names[lens[rule]] for _, rule in kmulti.MULTI_FIELDS]
     assert f'kMaxMovers = {kmulti.MAX_MOVERS};' in src
+    assert f'kMaxSlotMovers = {kmulti.SLOT_MOVERS};' in src
+    # the many-mover variant copies the vector's leading per-mover fields and its last, min_goal_dist
+    assert [rule for _, rule in kmulti.MULTI_FIELDS[:9]] == ['m'] * 9 and kmulti.MULTI_FIELDS[-1] == (
+        'min_goal_dist', '1')
+    enum = re.search(r'enum ManyField \{([^}]*)\}', src).group(1)
+    assert len(enum.split(',')) == 9 and 'constexpr int kManyFields = 9;' in src
 
 
 if __name__ == '__main__':

@@ -13,8 +13,10 @@ configuration) at a batch with a masked tail block in the wrapper's own
 layout; M = 2, 3, 5, 8, 9, 12, 17 and 33, circle and box, on full and holed
 tables, at B = 1, 31, 33 and 4097, in every layout kernel H can take for M
 (forced through ``LANE_TABLE``); 65, 96 and 128 movers, circle and box, in
-L = 4 slots at B = 33 and 4097; the wrapper's layout above ``WIDE_BATCH``;
-and the public M-mover paths at 2 to 128 movers.  Both noise modes: injected
+L = 4 slots at B = 33 and 4097; the many-mover variant (one warp an env, the
+movers in shared memory) at 129, 192 and 256 movers, where the wrapper takes
+it, and forced at 2, 9 and 33; the wrapper's layout above ``WIDE_BATCH``;
+and the public M-mover paths at 2 to 256 movers.  Both noise modes: injected
 uniforms, and the kernel's own Philox stream against the plain version fed
 the host copy of that stream (``noise.philox_uniforms``), where the kernel
 passes over the sampling draws of envs that are not done.  The kernel
@@ -144,6 +146,47 @@ def test_kernel_h_above_64_movers(cuda, m, shape, mode):
 
 
 @pytest.mark.parametrize('mode', ['injected', 'philox'])
+@pytest.mark.parametrize('shape', ['circle', 'box'])
+@pytest.mark.parametrize('m', [129, 192, 256])
+def test_kernel_h_above_128_movers(cuda, m, shape, mode):
+    """Above 128 movers the wrapper takes the many-mover variant (its launch
+    counted under ``planning_multi_autoreset_many``), at one env a warp with
+    a tail block, at the depth of the 65-128 test: 40 cycles and 16
+    candidate sets."""
+    name = f'ladder_m{m}_{shape}_full'
+    assert kmulti.layouts(m) == ((32, kmulti.SMEM_SLOTS),)
+    for b in (33, 4097):
+        assert kmulti.lane_layout(m, b) == (32, kmulti.SMEM_SLOTS)
+        mc, st, act, u, seed = ladder_inputs(name, b, cuda, mode, cand_k=16, num_cycles=40)
+        before = dict(kernels.LAUNCHES)
+        got = kmulti.planning_multi_autoreset(st, act, mc, uniforms=u if seed is None else None, seed=seed)
+        assert kernels.LAUNCHES['planning_multi_autoreset_many'] == before['planning_multi_autoreset_many'] + 1
+        assert kernels.LAUNCHES['planning_multi_autoreset'] == before['planning_multi_autoreset']
+        want = kmulti.planning_multi_autoreset_plain(st, act, mc, u)
+        assert_matches_plain(got, want, m, f'{name} B={b}')
+        if b == 4097:
+            assert int((want[18 * m + 1] > 0).sum()) > 0 and int((want[18 * m + 2] > 0).sum()) > 0
+            assert int((want[18 * m + 5] > 0).sum()) > 0
+            if mode == 'injected':
+                assert int(((want[8 * m] == 0) & (st[8 * m] > 0)).sum()) > 0  # restarts accepted
+
+
+@pytest.mark.parametrize('mode', ['injected', 'philox'])
+@pytest.mark.parametrize('shape', ['circle', 'box'])
+@pytest.mark.parametrize('m', [2, 9, 33])
+def test_many_mover_variant_forced_below(cuda, monkeypatch, m, shape, mode):
+    """The many-mover variant runs any M: forced at 2, 9 and 33 movers
+    (fewer pairs than lanes at 2 and 9), at ragged widths."""
+    name = f'ladder_m{m}_{shape}_{"holed" if m == 9 else "full"}'
+    layout = (32, kmulti.SMEM_SLOTS)
+    monkeypatch.setitem(kmulti.LANE_TABLE, kmulti.table_row(m), (layout, layout))
+    for b in (1, 33, 4097):
+        mc, st, act, u, seed = ladder_inputs(name, b, cuda, mode)
+        got = kmulti.planning_multi_autoreset_cuda(st, act, mc, u if seed is None else None, seed or 0)
+        assert_matches_plain(got, kmulti.planning_multi_autoreset_plain(st, act, mc, u), m, f'{name} B={b}')
+
+
+@pytest.mark.parametrize('mode', ['injected', 'philox'])
 @pytest.mark.parametrize('m', [4, 12])
 def test_kernel_h_above_the_wide_batch(cuda, m, mode):
     """The wrapper's own layout above ``WIDE_BATCH`` envs."""
@@ -155,19 +198,21 @@ def test_kernel_h_above_the_wide_batch(cuda, m, mode):
     assert_matches_plain(got, kmulti.planning_multi_autoreset_plain(st, act, mc, u), m, name)
 
 
-@pytest.mark.parametrize('m', [2, 4, 9, 12, 33, 65, 128])
+@pytest.mark.parametrize('m', [2, 4, 9, 12, 33, 65, 128, 129, 256])
 def test_public_paths_run_kernel_h(cuda, m):
     """make_fused_step_autoreset, make_fused_rollout and the multi-agent
-    step at M movers launch kernel H once a step, with no eager fallback;
-    129 movers raise, naming the limit."""
+    step at M movers launch kernel H once a step (above 128 movers its
+    many-mover variant), with no eager fallback; more than ``MAX_MOVERS``
+    movers raise, naming the limit."""
     from gymnasium_planar_robotics_tpu_torch.models import multi_agent
 
-    side = {2: 3, 4: 4, 9: 6, 12: 8, 33: 16, 65: 17, 128: 22}[m]
-    if m == 128:
-        cfg129, prm129 = tplan.make_planning_env(np.ones((24, 24)), 129, device=cuda)
-        assert not multi_agent.fused_covers(cfg129, prm129)
-        with pytest.raises(NotImplementedError, match='2 to 128 movers'):
-            tplan.make_fused_step_autoreset(cfg129, prm129)
+    side = {2: 3, 4: 4, 9: 6, 12: 8, 33: 16, 65: 17, 128: 22, 129: 22, 256: 29}[m]
+    if m == 256:
+        over = kmulti.MAX_MOVERS + 1
+        cfg_over, prm_over = tplan.make_planning_env(np.ones((24, 24)), over, device=cuda)
+        assert not multi_agent.fused_covers(cfg_over, prm_over)
+        with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers'):
+            tplan.make_fused_step_autoreset(cfg_over, prm_over)
     cfg, prm = tplan.make_planning_env(np.ones((side, side)), m, num_cycles=8, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(6)
     b = 257
@@ -179,7 +224,8 @@ def test_public_paths_run_kernel_h(cuda, m):
         slots = case(f'ladder_m{m}_circle_full')[4]
         state = tplan.reset(cfg, prm, b, g, start_xy=slots, goals_xy=slots[::-1])[0]
     assert multi_agent.fused_covers(cfg, prm)
-    before = kernels.LAUNCHES['planning_multi_autoreset']
+    counter = kmulti.launch_name(kmulti.lane_layout(m, b)[1])
+    before = kernels.LAUNCHES[counter]
     step = tplan.make_fused_step_autoreset(cfg, prm)
     s = step(state, torch.zeros((b, m, 2), device=cuda), generator=g)[0]
     par = multi_agent.make_batched_parallel_step(cfg, prm)
@@ -187,5 +233,5 @@ def test_public_paths_run_kernel_h(cuda, m):
     s, batch = par(s, torch.zeros((b, m, 2), device=cuda), generator=g)
     assert batch.reward.shape == (b, m)
     fs, rew, term, trunc = tplan.make_fused_rollout(cfg, prm)(s, torch.zeros((3, b, m, 2), device=cuda), 7)
-    assert kernels.LAUNCHES['planning_multi_autoreset'] == before + 1 + 1 + 3
+    assert kernels.LAUNCHES[counter] == before + 1 + 1 + 3
     assert fs.pos.shape == (b, m, 2) and bool(torch.isfinite(fs.pos).all()) and rew.shape == (3, b)

@@ -27,6 +27,7 @@ from gymnasium_planar_robotics_tpu_torch.models import planning as tplan
 from gymnasium_planar_robotics_tpu_torch.models import pushing as tpush
 from gymnasium_planar_robotics_tpu_torch.ops.grid import make_tile_grid
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import walls
 
 PKG = Path(__file__).resolve().parents[1] / 'gymnasium_planar_robotics_tpu_torch'
@@ -246,17 +247,18 @@ def test_default_device_is_the_card():
 
 def test_not_ported_paths_raise():
     """What still raises: ``make_fused_step`` with M > 1 (the JAX package has
-    no such path either), more movers than kernel H takes (128) and f64 on the
+    no such path either), more movers than kernel H takes (735) and f64 on the
     fused paths (the eager step takes both), mesh movers; dense rewards on
     the fused rollout; and what the reactive rollout does not cover in the
     JAX package either (M > 1, jerk, f64)."""
     cfg2, prm2 = tplan.make_planning_env(FULL, 2, device='cpu')
     with pytest.raises(NotImplementedError, match='no M-mover make_fused_step'):
         tplan.make_fused_step(cfg2, prm2)
-    cfg129, prm129 = tplan.make_planning_env(np.ones((24, 24)), 129, device='cpu')
+    over = kmulti.MAX_MOVERS + 1
+    cfg_over, prm_over = tplan.make_planning_env(np.ones((24, 24)), over, device='cpu')
     for make in (tplan.make_fused_step_autoreset, tplan.make_fused_rollout):
-        with pytest.raises(NotImplementedError, match='2 to 128 movers .*shared memory'):
-            make(cfg129, prm129)
+        with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers .*shared memory'):
+            make(cfg_over, prm_over)
     for m in (1, 2):
         cfg64, prm64 = tplan.make_planning_env(FULL, m, dtype=torch.float64, device='cpu')
         makers = (tplan.make_fused_step_autoreset, tplan.make_fused_rollout) + ((tplan.make_fused_step,) if m == 1

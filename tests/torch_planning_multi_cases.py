@@ -61,9 +61,11 @@ def ladder_case(m: int, box: bool, holed: bool) -> tuple:
 
 
 #: ladder cases by name, ``ladder_m<M>_<circle|box>_<full|holed>``; 65, 96
-#: and 128 movers take kernel H's L = 4 slots
+#: and 128 movers take kernel H's L = 4 slots, 129, 192 and 256 its
+#: many-mover variant
 LADDER = {f'ladder_m{m}_{"box" if box else "circle"}_{"holed" if holed else "full"}': ladder_case(m, box, holed)
-          for m in (2, 3, 4, 5, 8, 9, 12, 17, 33, 65, 96, 128) for box in (False, True) for holed in (False, True)}
+          for m in (2, 3, 4, 5, 8, 9, 12, 17, 33, 65, 96, 128, 129, 192, 256) for box in (False, True)
+          for holed in (False, True)}
 
 
 def case(name: str) -> tuple:
