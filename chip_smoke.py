@@ -160,7 +160,27 @@ phase:
    planning and 129 movers: the fused step (C, C box, F, H, H's many-mover
    variant) at one launch and one host synchronisation a step, each step's
    outputs bit-equal to the fused step called directly, ms a step and
-   env-steps/s through the numpy boundary.
+   env-steps/s through the numpy boundary;
+28. the sharded paths (``parallel/sharding.py``) on a world-size-1 NCCL
+   group (a ``FileStore``, no network) at 4096 envs: the sharded fused step
+   of pushing (C), 1-mover planning (F) and 4-mover planning (H), the
+   sharded rollouts at K=1 and K=32 (C/D, F/G) and the sharded reactive
+   rollout (C-feat), counters set to 0 before and read after; each bit for
+   bit against its unsharded twin from the same generator state or seed (a
+   card seed tensor too), no host synchronisation in a sharded step,
+   ``metrics_summary`` through NCCL equal to the local means, and ms a
+   step and env-steps/s of the sharded steps and their twins alternating;
+29. PPO over the sharded paths: the port's ``examples/train_sharded.py``,
+   fused (kernel F) and ``--reactive``, at 4096 envs, rollout 32, 3
+   iterations: ms an iteration, env-steps/s, all-reduces an iteration,
+   finite parameters;
+30. the trajectory store: the port's ``examples/collect_trajectories.py``
+   on the card (512 envs, 200 steps of kernel F), the ``g++`` build's
+   seconds, every frame read back bit for bit;
+31. the domain-core facade's ``qpos_is_valid`` on 2^20 poses on the card
+   against the CPU, the checked pushing fused step (``models/debug.py``)
+   clean and on a corrupted state, and the impedance wrench on 2^20 poses
+   against the CPU (float64, atol 1e-12).
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread (where the
@@ -169,7 +189,7 @@ rate: their phases, and B's, also give the profiler's device time a
 launch).  The line
 before the last is a JSON object with one entry per kernel (A-H, C-feat,
 I's two probes and the box variants of B, C, C-feat and D): its
-launches on its path, its largest error against the plain version (both
+launches on its path (and on the sharded path of phase 28), its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox; kernel A:
 the injected uniforms its path's generator draws), the plain version's
 time, and its bound in that mode:
@@ -2859,6 +2879,293 @@ def main() -> int:
 
     adapter_launches = report['phases']['adapters_main_path'].get('launches', {})
 
+    # -- 28. the sharded paths at world size 1 (parallel/sharding.py over NCCL) ---------------
+    import torch.distributed as torch_dist
+
+    from gymnasium_planar_robotics_tpu_torch.models import ppo
+    from gymnasium_planar_robotics_tpu_torch.parallel import sharding
+
+    def leaves_equal(a, b) -> bool:
+        """Every tensor of two outputs (states, dicts, tuples) equal, bit for bit."""
+        la = [x for x in env_runner.leaves(a, []) if isinstance(x, torch.Tensor)]
+        lb = [x for x in env_runner.leaves(b, []) if isinstance(x, torch.Tensor)]
+        return len(la) == len(lb) > 0 and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def as_tree(state):
+        return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+    def twin_gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
+
+    @phase('sharded_main_path')
+    def _():
+        """The sharded fused steps (pushing C, 1-mover planning F, 4-mover
+        planning H), the sharded rollouts at K=1 and K=32 (C/D, F/G) and the
+        sharded reactive rollout (C-feat) on a world-size-1 NCCL group at
+        4096 envs, counters set to 0 before and read after; then each held
+        bit for bit against its unsharded twin from the same generator state
+        or seed (a card seed tensor too), no host synchronisation in a
+        sharded step, ``metrics_summary`` through NCCL against the local
+        means, and ms a step of sharded and unsharded steps alternating."""
+        mesh = sharding.make_mesh(dev)
+        require(mesh.size() == 1 and torch_dist.get_backend() == 'nccl',
+                f'world {mesh.size()}, backend {torch_dist.get_backend()}')
+        cfg1, prm1 = PL.make_planning_env(np.ones((3, 3)), 1, device=dev)
+        cfg4, prm4 = PL.make_planning_env(np.ones((4, 4)), M_MAIN, device=dev)
+        g0 = torch.Generator(device=dev).manual_seed(28)
+        fams = {'pushing': (P, config, params, 2), 'planning_m1': (PL, cfg1, prm1, 2),
+                'planning_m4': (PL, cfg4, prm4, 2 * M_MAIN)}
+        starts = {k: m.init_batch(c, p, B_MAIN, g0)[0] for k, (m, c, p, _) in fams.items()}
+        acts = {k: 2.0 * torch.rand((B_MAIN, n), generator=g0, device=dev) - 1.0 for k, (_, _, _, n) in fams.items()}
+        steps = {k: sharding.make_sharded_fused_step(m, c, p, mesh) for k, (m, c, p, _) in fams.items()}
+        rolls = {(k, kk): sharding.make_sharded_fused_rollout(fams[k][0], fams[k][1], fams[k][2], mesh,
+                                                              steps_per_launch=kk)
+                 for k in ('pushing', 'planning_m1') for kk in (1, K_MAIN)}
+        roll_acts = {k: 2.0 * torch.rand((K_MAIN, B_MAIN, 2), generator=g0, device=dev) - 1.0
+                     for k in ('pushing', 'planning_m1')}
+        pcfg = ppo.PPOConfig(obs_dim=12, action_dim=2, hidden=(256, 256), rollout_steps=K_MAIN, action_scale=10.0)
+        pol = ppo.init_params(pcfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+
+        def policy_step(p, gen, obs_pm):
+            action, raw, logp, value = ppo.sample_action_pm(p, obs_pm, gen, pcfg.action_scale)
+            return action, (raw, logp, value)
+
+        react = sharding.make_sharded_reactive_rollout(P, config, params, policy_step, K_MAIN, mesh)
+        seed_t = torch.tensor([4321], dtype=torch.int64, device=dev)
+
+        # the drive: every sharded function once (generators cloned for the twins)
+        kernels.reset_launches()
+        out, gens = {}, {}
+        with torch.no_grad():
+            for k in fams:
+                gs, gens[k] = twin_gen(100 + len(out))
+                out[k] = steps[k](starts[k], acts[k], generator=gs)
+                out[k + '_seed'] = steps[k](starts[k], acts[k], seed=seed_t)
+            for (k, kk), roll in rolls.items():
+                out[('roll', k, kk)] = roll(starts[k], roll_acts[k], 77)
+                out[('roll_t', k, kk)] = roll(starts[k], roll_acts[k], seed_t)
+            gs, gens['react'] = twin_gen(29)
+            out['react'] = react(starts['pushing'], pol, gs, 500)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        path = ('pushing_autoreset', 'pushing_rollout', 'pushing_autoreset_features', 'planning_autoreset',
+                'planning_rollout', 'planning_multi_autoreset')
+        require(all(launches.get(k, 0) > 0 for k in path), f'kernels of the sharded path not launched: {launches}')
+
+        # the twins, after the count
+        with torch.no_grad():
+            def same(got, want) -> bool:
+                return leaves_equal((as_tree(got[0]), got[1:]), (as_tree(want[0]), want[1:]))
+
+            for k, (m, c, p, _) in fams.items():
+                un = m.make_fused_step_autoreset(c, p)
+                require(same(out[k], un(starts[k], acts[k], generator=gens[k])),
+                        f'{k}: the sharded step differs from the unsharded one')
+                require(same(out[k + '_seed'], un(starts[k], acts[k], seed=seed_t)),
+                        f'{k}: the sharded step under a card seed differs')
+            for (k, kk) in rolls:
+                un = fams[k][0].make_fused_rollout(fams[k][1], fams[k][2], steps_per_launch=kk)
+                for tag, sd in (('roll', 77), ('roll_t', seed_t)):
+                    require(same(out[(tag, k, kk)], un(starts[k], roll_acts[k], sd)),
+                            f'{k} K={kk}: the sharded rollout ({tag}) differs')
+            un = P.make_reactive_rollout(config, params, policy_step, K_MAIN)
+            require(same(out['react'], un(starts['pushing'], pol, gens['react'], 500)),
+                    'the sharded reactive rollout differs')
+
+        # no host synchronisation in a sharded step; metrics_summary through NCCL
+        syncs = {}
+        for k in fams:
+            g = torch.Generator(device=dev).manual_seed(5)
+            steps[k](starts[k], acts[k], generator=g)
+            torch.cuda.synchronize()
+            res, syncs[k] = syncs_in(lambda k=k, g=g: steps[k](starts[k], acts[k], generator=g))
+        require(not any(syncs.values()), f'sharded steps wait on the host: {syncs}')
+        _, _, rew, term, _, info = out['pushing']
+        summary, summary_syncs = syncs_in(lambda: sharding.metrics_summary(rew, term, info, mesh))
+        local = sharding.metrics_summary(rew, term, info)
+        require(summary_syncs == 0 and all(torch.equal(summary[k], local[k]) for k in local),
+                f'metrics_summary over NCCL: {summary} against {local}, {summary_syncs} host syncs')
+
+        # ms a step, sharded and unsharded alternating (five groups of 20 each)
+        timing = {}
+        for k, (m, c, p, _) in fams.items():
+            un, g = m.make_fused_step_autoreset(c, p), torch.Generator(device=dev).manual_seed(6)
+            sh_runs, un_runs = [], []
+            for _ in range(5):
+                sh_runs.append(time_ms(lambda k=k, g=g: steps[k](starts[k], acts[k], generator=g), 20))
+                un_runs.append(time_ms(lambda un=un, k=k, g=g: un(starts[k], acts[k], generator=g), 20))
+            sh_med, un_med = statistics.median(sh_runs), statistics.median(un_runs)
+            timing[k] = {'sharded_ms_runs': sh_runs, 'unsharded_ms_runs': un_runs, 'sharded_ms': sh_med,
+                         'unsharded_ms': un_med, 'sharded_env_steps_per_s': B_MAIN / (sh_med / 1e3),
+                         'unsharded_env_steps_per_s': B_MAIN / (un_med / 1e3)}
+        for k in ('pushing', 'planning_m1'):
+            sh, un = rolls[(k, K_MAIN)], fams[k][0].make_fused_rollout(fams[k][1], fams[k][2], steps_per_launch=K_MAIN)
+            sh_runs, un_runs = [], []
+            for rep in range(3):
+                sh_runs.append(time_ms(lambda: sh(starts[k], roll_acts[k], 9), 2))
+                un_runs.append(time_ms(lambda: un(starts[k], roll_acts[k], 9), 2))
+            timing[f'{k}_rollout_K{K_MAIN}'] = {
+                'sharded_ms_per_step': statistics.median(sh_runs) / K_MAIN,
+                'unsharded_ms_per_step': statistics.median(un_runs) / K_MAIN,
+                'sharded_env_steps_per_s': B_MAIN * K_MAIN / (statistics.median(sh_runs) / 1e3),
+                'unsharded_env_steps_per_s': B_MAIN * K_MAIN / (statistics.median(un_runs) / 1e3)}
+        return {'B': B_MAIN, 'world': 1, 'backend': 'nccl', 'card': card, 'launches': launches, 'bit_equal': True,
+                'host_syncs_per_step': syncs, 'metrics_summary': {k: float(v) for k, v in summary.items()},
+                'timing': timing}
+
+    sharded_launches = report['phases']['sharded_main_path'].get('launches', {})
+
+    # -- 29. PPO over the sharded paths: the port's examples/train_sharded.py ---------------
+    from gymnasium_planar_robotics_tpu_torch.examples import collect_trajectories, train_sharded
+
+    @phase('sharded_ppo')
+    def _():
+        """``examples/train_sharded.py`` at 4096 envs, rollout 32, 3
+        iterations after a warm-up, on the sharded fused step (kernel F) and
+        with ``--reactive`` on the sharded reactive rollout (F between the
+        policy's launches): ms an iteration, env-steps/s, the all-reduces an
+        iteration, kernel F's launches, finite parameters."""
+        res = {'card': card}
+        real = torch_dist.all_reduce
+        for mode, extra in (('fused', []), ('reactive', ['--reactive'])):
+            calls = [0]
+
+            def counting(*a, **kw):
+                calls[0] += 1
+                return real(*a, **kw)
+
+            kernels.reset_launches()
+            torch_dist.all_reduce = counting
+            try:
+                out = train_sharded.main(['--batch', str(B_MAIN), '--iters', '3', '--rollout', str(K_MAIN),
+                                          '--device', str(dev), *extra])
+            finally:
+                torch_dist.all_reduce = real
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            iters = out['iters'] + 1  # the warm-up iteration counts too
+            require(launches.get('planning_autoreset', 0) == iters * K_MAIN,
+                    f'{mode}: kernel F launched {launches}, expected {iters * K_MAIN}')
+            require(all(bool(p.isfinite().all()) for p in out['policy'].parameters()), f'{mode}: policy not finite')
+            require(all(math.isfinite(v) for v in out['metrics'].values()), f'{mode}: metrics {out["metrics"]}')
+            res[mode] = {'B': out['batch'], 'rollout': K_MAIN, 'iters': out['iters'], 'ranks': out['ranks'],
+                         'ms_per_iter': out['ms_per_iter'], 'env_steps_per_s': out['env_steps_per_s'],
+                         'all_reduces_per_iter': calls[0] / iters, 'launches': launches, 'metrics': out['metrics']}
+        return res
+
+    # -- 30. the trajectory store: the port's examples/collect_trajectories.py ------------
+    from gymnasium_planar_robotics_tpu_torch.utils import trajstore
+
+    @phase('trajstore_collect')
+    def _():
+        """``examples/collect_trajectories.py`` on the card at its defaults
+        (512 envs, 200 steps of kernel F through ``make_fused_rollout``): the
+        g++ build's seconds, the frames written, and every frame read back
+        bit for bit."""
+        import tempfile
+
+        t0 = time.perf_counter()
+        trajstore.lib()
+        build_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            kept = []
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            frames = collect_trajectories.collect(os.path.join(tmp, 'traj'), 512, 200, dev, keep=kept)
+            collect_s = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            with trajstore.TrajReader(os.path.join(tmp, 'traj')) as r:
+                n = len(r)
+                same = all(r.get(i) == kept[i] for i in range(n))
+                leaves = trajstore.unpack_arrays(r.get(0))
+        require(frames == n == 200 and same, f'{frames} written, {n} readable, read back equal {same}')
+        require(launches.get('planning_autoreset') == 200, f'launches {launches}')
+        return {'gxx_build_s': build_s, 'build': {k: v for k, v in trajstore.build_info.items() if k != 'path'},
+                'frames': frames, 'frame_bytes': len(kept[0]), 'leaves': [list(x.shape) for x in leaves],
+                'collect_s': collect_s, 'read_back_bit_equal': True, 'launches': launches}
+
+    # -- 31. the facade, the checked step, the impedance law -------------------------------
+    from gymnasium_planar_robotics_tpu_torch.core import PlanarRoboticsCore
+    from gymnasium_planar_robotics_tpu_torch.models import debug
+    from gymnasium_planar_robotics_tpu_torch.ops import rotations
+    from gymnasium_planar_robotics_tpu_torch.utils import impedance
+
+    @phase('core_debug_impedance')
+    def _():
+        """The facade's ``qpos_is_valid`` on 2^20 poses on the card against
+        the CPU (circle on a holed layout with offsets, and box); the checked
+        pushing fused step, clean and with a corrupted state; the impedance
+        wrench on 2^20 poses against the CPU (float64, atol 1e-12 where the
+        orientation error is away from half a turn, the conditioning's bound
+        there)."""
+        n = 1 << 20
+        rng = np.random.default_rng(31)
+        qpos = np.zeros((n, 7))
+        qpos[:, :2] = rng.uniform(-0.05, 0.77, (n, 2))
+        yaw = rng.uniform(-np.pi, np.pi, n)
+        qpos[:, 3], qpos[:, 6] = np.cos(yaw / 2), np.sin(yaw / 2)
+        holed = np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]])
+        facade = {}
+        for name, cp in (('circle', {'shape': 'circle', 'size': 0.1, 'offset': 0.01, 'offset_wall': 0.005}),
+                         ('box', {'shape': 'box', 'size': [0.09, 0.08]})):
+            card_core, cpu_core = PlanarRoboticsCore(holed, collision_params=cp, device=dev), \
+                PlanarRoboticsCore(holed, collision_params=cp, device='cpu')
+            t0 = time.perf_counter()
+            got = card_core.qpos_is_valid(qpos, add_safety_offset=True)
+            card_s = time.perf_counter() - t0
+            want = cpu_core.qpos_is_valid(qpos, add_safety_offset=True)
+            require(np.array_equal(got, want), f'{name}: {int((got != want).sum())} poses differ')
+            facade[name] = {'poses': n, 'valid_share': float(got.mean()), 'card_s': card_s, 'equal': True}
+
+        g = torch.Generator(device=dev).manual_seed(31)
+        fused = P.make_fused_step_autoreset(config, params)
+        checked = debug.make_checked_step(config, params, lambda c, p, s, a: fused(s, a, generator=g))
+        s0 = P.init_batch(config, params, B_MAIN, g)[0]
+        a0 = torch.zeros((B_MAIN, 2), device=dev)
+        (err, _), clean_syncs = syncs_in(lambda: checked(s0, a0))
+        clean = err.get()
+        bad = dataclasses.replace(s0, pos=torch.full_like(s0.pos, float('nan')))
+        err_bad, _ = checked(bad, a0)
+        corrupt = err_bad.get()
+        require(clean is None and clean_syncs == 0, f'clean step: {clean}, {clean_syncs} host syncs')
+        require(corrupt == 'non-finite mover position (`check` failed)', f'corrupted step: {corrupt}')
+
+        pos = rng.normal(0, 0.1, (n, 3))
+        quat = rng.normal(size=(n, 4))
+        quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+        quat_d = rng.normal(size=(n, 4))
+        quat_d /= np.linalg.norm(quat_d, axis=1, keepdims=True)
+        vel, pos_d = rng.normal(0, 0.2, (n, 6)), rng.normal(0, 0.1, (n, 3))
+        wrench, secs = {}, {}
+        for where in ('card', 'cpu'):
+            d = dev if where == 'card' else torch.device('cpu')
+            gains = impedance.make_gains(1.24, 2.0, 0.5, device=d)
+            t = [torch.as_tensor(x, device=d) for x in (pos, quat, vel, pos_d, quat_d)]
+            t0 = time.perf_counter()
+            wrench[where] = impedance.impedance_wrench(gains, *t).cpu()
+            secs[where] = time.perf_counter() - t0
+        err = (wrench['card'] - wrench['cpu']).abs().amax(-1)
+        # the orientation error's angle is 2 asin(s), s = |xyz| of the relative
+        # rotation's quaternion: near s = 1 (half a turn) an ulp of s moves it
+        # by 2 ulp / sqrt(1 - s^2), so there the bound is the conditioning's
+        m_cpu = rotations.quat2mat(torch.as_tensor(quat))
+        rel = m_cpu.transpose(-1, -2) @ rotations.quat2mat(torch.as_tensor(quat_d))
+        s = torch.linalg.vector_norm(rotations.mat2quat(rel)[:, 1:], dim=-1)
+        cond = 1.0 / torch.sqrt(torch.clamp(1.0 - s * s, min=1e-300))
+        tight = cond < 1e3  # the angle more than ~2e-3 rad from half a turn
+        w_err, w_err_tight = float(err.max()), float(err[tight].max())
+        bound = 1e-12 + 0.5 * 2 * 4.4e-16 * 8 * cond  # K_r x 2 x 8 ulp of 1 x the conditioning
+        require(w_err_tight <= 1e-12 and bool((err <= bound).all()),
+                f'impedance wrench: card against CPU {w_err_tight} (away from half a turn), {w_err} in all, '
+                f'{int((err > bound).sum())} poses beyond the conditioning bound')
+        return {'card': card, 'facade_qpos_is_valid': facade,
+                'checked_step': {'B': B_MAIN, 'clean': clean, 'corrupted': corrupt, 'host_syncs_clean': clean_syncs},
+                'impedance': {'poses': n, 'max_abs_err': w_err, 'max_abs_err_away_from_half_turn': w_err_tight,
+                              'poses_near_half_turn': int((~tight).sum()),
+                              'tol': 'atol 1e-12 (float64) where 1 / sqrt(1 - s^2) < 1e3; else 1e-12 + '
+                                     '3.5e-15 / sqrt(1 - s^2)',
+                              'card_s': secs['card'], 'cpu_s': secs['cpu']}}
+
     report['card'] = card
     kernel_rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -2874,7 +3181,9 @@ def main() -> int:
                          else measured.get('launches', {}) if name in PEAK_KERNELS else main_launches)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
-            'launches': int(path_launches.get(name, 0)), 'max_abs_err': st.get('max_abs_err'),
+            # plus its launches on the sharded path (phase 28), where it runs there
+            'launches': int(path_launches.get(name, 0)) + int(sharded_launches.get(name, 0)),
+            'max_abs_err': st.get('max_abs_err'),
             'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'), 'bound_ms': st.get('bound_ms'),
             'bound_by': st.get('bound_by'),
             # no single PyTorch call computes any of these functions

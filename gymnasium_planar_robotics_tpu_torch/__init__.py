@@ -5,8 +5,9 @@ with 1 to 735 movers (``models/planning``, ``models/multi_agent``) run on an
 NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``, built with
 ``nvcc`` at first use by ``ops/kernels/build``); on CPU tensors every kernel
 wrapper runs its plain PyTorch version instead.  The Gymnasium, vector and
-PettingZoo adapters (``envs/``) and the viewers (``utils/rendering``,
-``utils/mujoco_viewer``) are reached through the names below, which import
+PettingZoo adapters (``envs/``), the viewers (``utils/rendering``,
+``utils/mujoco_viewer``), the impedance controller (``utils/impedance``) and
+the domain core (``core``) are reached through the names below, which import
 them (and ``gymnasium``, ``matplotlib`` or ``mujoco``) only when asked for:
 importing the package imports ``torch`` and ``numpy`` only and registers no
 env id (``envs.register_gymnasium_envs`` does).
@@ -22,8 +23,12 @@ _SURFACE = {
     'PlanningParallelEnv': ('gymnasium_planar_robotics_tpu_torch.envs.pettingzoo_env', 'PlanningParallelEnv'),
     'Planar2DViewer': ('gymnasium_planar_robotics_tpu_torch.utils.rendering', 'Planar2DViewer'),
     'MujocoViewerCollection': ('gymnasium_planar_robotics_tpu_torch.utils.mujoco_viewer', 'MujocoViewerCollection'),
-    # the reference's name of the 2D viewer
+    'ImpedanceGains': ('gymnasium_planar_robotics_tpu_torch.utils.impedance', 'ImpedanceGains'),
+    'impedance_wrench': ('gymnasium_planar_robotics_tpu_torch.utils.impedance', 'impedance_wrench'),
+    'make_gains': ('gymnasium_planar_robotics_tpu_torch.utils.impedance', 'make_gains'),
+    # the reference's names of the 2D viewer and of the domain core
     'Matplotlib2DViewer': ('gymnasium_planar_robotics_tpu_torch.utils.rendering', 'Planar2DViewer'),
+    'BasicPlanarRoboticsEnv': ('gymnasium_planar_robotics_tpu_torch.core', 'PlanarRoboticsCore'),
 }
 
 

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from gymnasium_planar_robotics_tpu_torch.models import common
+from gymnasium_planar_robotics_tpu_torch.parallel import sharding
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 _HALF_LOG_2PIE = 0.5 * math.log(2 * math.pi * math.e)
@@ -209,14 +210,17 @@ def compute_gae(traj: Transition, last_value: torch.Tensor, gamma: float, lam: f
     return advantages, advantages + traj.value
 
 
-def ppo_loss(policy: ActorCritic, cfg: PPOConfig, batch) -> torch.Tensor:
+def ppo_loss(policy: ActorCritic, cfg: PPOConfig, batch, adv_moments=None) -> torch.Tensor:
     """Clipped-surrogate PPO loss (policy + value + entropy terms) over
     ``(obs, raw_action, old_logp, advantages, returns)``.  The advantages are
-    normalised by their population std (``correction=0``), as ``jnp.std``."""
+    normalised by their population std (``correction=0``), as ``jnp.std``,
+    or by ``adv_moments = (mean, std)`` when given (the global batch's, over
+    a mesh)."""
     obs, raw_action, old_logp, advantages, returns = batch
     mu, log_std, value = apply(policy, obs)
     ratio = torch.exp(_gaussian_logp(raw_action, mu, log_std) - old_logp)
-    adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    mean, std = (advantages.mean(), advantages.std(correction=0)) if adv_moments is None else adv_moments
+    adv = (advantages - mean) / (std + 1e-8)
     pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
     v_loss = ((value - returns) ** 2).mean()
     entropy = (log_std + _HALF_LOG_2PIE).sum()
@@ -229,12 +233,37 @@ def make_optimizer(cfg: PPOConfig) -> Callable[[ActorCritic], torch.optim.Adam]:
     return lambda policy: torch.optim.Adam(policy.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _update(policy: ActorCritic, optimizer, cfg: PPOConfig, flat) -> torch.Tensor:
-    """``update_epochs`` full-batch Adam steps on ``ppo_loss``; the last loss."""
+def _global_moments(advantages: torch.Tensor, mesh):
+    """The mean and population std of the advantages over every rank's
+    shard (equal shards), from one ``all_reduce`` of float64 sums."""
+    a = advantages.to(torch.float64)
+    mean, sq = sharding.all_reduce_mean(torch.stack([a.mean(), (a * a).mean()]), mesh).unbind()
+    std = torch.sqrt(torch.clamp(sq - mean * mean, min=0.0))
+    return mean.to(advantages.dtype), std.to(advantages.dtype)
+
+
+def _all_reduce_grads(policy: ActorCritic, mesh) -> None:
+    """Every parameter's gradient averaged over the ranks, in one
+    ``all_reduce`` of their concatenation: the gradient of the global batch's
+    loss, the same on every rank, so Adam keeps the parameters equal."""
+    grads = [p.grad for p in policy.parameters()]
+    flat = sharding.all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _update(policy: ActorCritic, optimizer, cfg: PPOConfig, flat, mesh=None) -> torch.Tensor:
+    """``update_epochs`` full-batch Adam steps on ``ppo_loss``; the last loss.
+    With ``mesh``, ``flat`` is this rank's shard: the advantages are
+    normalised by the global batch's moments and the gradients averaged over
+    the ranks after ``backward``, before Adam."""
+    moments = None if mesh is None else _global_moments(flat[3], mesh)
     for _ in range(cfg.update_epochs):
         optimizer.zero_grad(set_to_none=True)
-        loss = ppo_loss(policy, cfg, flat)
+        loss = ppo_loss(policy, cfg, flat, moments)
         loss.backward()
+        if mesh is not None:
+            _all_reduce_grads(policy, mesh)
         optimizer.step()
     return loss.detach()
 
@@ -244,12 +273,30 @@ def _flatten(traj: Transition, advantages, returns):
                                                                  returns))
 
 
-def _metrics(loss, traj: Transition) -> dict:
-    return {'loss': loss, 'reward_mean': traj.reward.mean(),
-            'done_rate': (traj.terminated | traj.truncated).to(torch.float32).mean()}
+def _metrics(loss, traj: Transition, mesh=None) -> dict:
+    """``loss``, ``reward_mean``, ``done_rate``; with ``mesh`` the global
+    means, in one ``all_reduce``."""
+    vals = torch.stack([loss, traj.reward.mean(), (traj.terminated | traj.truncated).to(torch.float32).mean()])
+    if mesh is not None:
+        vals = sharding.all_reduce_mean(vals, mesh)
+    return dict(zip(('loss', 'reward_mean', 'done_rate'), vals.unbind()))
 
 
-def make_train_step_reactive(cfg: PPOConfig, make_rollout):
+def _global_normals(shape: tuple, generator, device, mesh, dim: int, default_device=None) -> torch.Tensor:
+    """Standard normals ``shape`` on ``device`` for this rank's shard along
+    ``dim``: drawn for the global batch from ``generator`` (the same on every
+    rank; without one, from ``default_device``'s default generator, else
+    ``device``'s) and this rank's part taken, as the JAX package draws them
+    for the global batch and shards them; without a mesh, drawn as they are."""
+    n, r = (1, 0) if mesh is None else (mesh.size(), mesh.get_local_rank())
+    full = list(shape)
+    full[dim] *= n
+    gdev = generator.device if generator is not None else torch.device(default_device or device)
+    eps = torch.randn(full, generator=generator, device=gdev, dtype=torch.float32)
+    return eps.narrow(dim, r * shape[dim], shape[dim]).to(device)
+
+
+def make_train_step_reactive(cfg: PPOConfig, make_rollout, mesh=None):
     """PPO train step over a plane-form reactive rollout
     (``models/*.make_reactive_rollout``): the env state stays in the
     kernels' plane layout for the whole rollout, and the policy runs between
@@ -270,7 +317,13 @@ def make_train_step_reactive(cfg: PPOConfig, make_rollout):
     noise ``[T, A, B]`` is drawn from ``generator`` once per iteration, or
     given as ``train_step(runner, eps=...)``.  The policy and the optimizer
     are updated in place.  Metrics are 0-dim tensors: ``loss`` (last
-    epoch), ``reward_mean``, ``done_rate``."""
+    epoch), ``reward_mean``, ``done_rate``.
+
+    With ``mesh`` (``parallel/sharding.make_mesh``), ``make_rollout`` builds
+    a sharded rollout (``sharding.make_sharded_reactive_rollout``) and the
+    runner's state is this rank's shard: the noise is drawn for the global
+    batch and sliced, the gradients are averaged over the ranks before each
+    Adam step, and the metrics are the global means."""
 
     def policy_step(policy, noise_or_generator, obs_pm):
         # plane-major: features [F, B] in, actions [A, B] out
@@ -283,9 +336,8 @@ def make_train_step_reactive(cfg: PPOConfig, make_rollout):
         env_state, policy, optimizer, generator, seed = runner
         device = env_state.pos.device
         if eps is None:
-            gdev = generator.device if generator is not None else torch.device('cpu')
-            eps = torch.randn((cfg.rollout_steps, cfg.action_dim, env_state.pos.shape[0]), generator=generator,
-                              device=gdev, dtype=torch.float32).to(device)
+            eps = _global_normals((cfg.rollout_steps, cfg.action_dim, env_state.pos.shape[0]), generator, device,
+                                  mesh, 2, default_device='cpu')
         with torch.no_grad():
             env_state, traj_t, last_obs_vec = reactive_rollout(env_state, policy, generator, seed, policy_xs=eps)
             obs_vec, (raw, logp, value), reward, term, trunc, final_vec = traj_t
@@ -294,8 +346,8 @@ def make_train_step_reactive(cfg: PPOConfig, make_rollout):
             traj = Transition(obs=obs_vec, raw_action=raw, logp=logp, value=value, reward=reward.to(torch.float32),
                               terminated=term, truncated=trunc, final_value=final_value)
             advantages, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-        loss = _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
-        return (env_state, policy, optimizer, generator, seed + cfg.rollout_steps), _metrics(loss, traj)
+        loss = _update(policy, optimizer, cfg, _flatten(traj, advantages, returns), mesh)
+        return (env_state, policy, optimizer, generator, seed + cfg.rollout_steps), _metrics(loss, traj, mesh)
 
     train_step.policy_step = policy_step
     return train_step, make_optimizer(cfg)
@@ -308,6 +360,7 @@ def make_train_step(
     step_autoreset_fn: Callable | None = None,
     obs_to_vec: Callable | None = None,
     batched_step_fn: Callable | None = None,
+    mesh=None,
 ):
     """``train_step(runner, eps=None) -> (runner, metrics)``: one rollout of
     ``cfg.rollout_steps`` batched env steps, then the PPO updates.
@@ -322,7 +375,14 @@ def make_train_step(
     noise ``[T, B, A]`` is drawn from ``generator`` step by step, or given
     as ``eps``.  ``train_step.collect`` and ``train_step.update`` are its
     two parts, the rollout and the PPO epochs.  Returns ``(train_step,
-    make_optimizer)``."""
+    make_optimizer)``.
+
+    With ``mesh``, ``batched_step_fn`` is a sharded step
+    (``sharding.make_sharded_fused_step``) and the runner's state and
+    observations are this rank's shard: each step's noise is drawn for the
+    global batch and sliced, the gradients are averaged over the ranks
+    before each Adam step (the JAX package gets this all-reduce from the
+    shardings under ``jit``), and the metrics are the global means."""
     if batched_step_fn is None and step_autoreset_fn is None:
         raise ValueError('pass step_autoreset_fn or batched_step_fn')
 
@@ -341,7 +401,12 @@ def make_train_step(
         steps = []
         with torch.no_grad():
             for t in range(cfg.rollout_steps):
-                noise = generator if eps is None else eps[t]
+                if eps is not None:
+                    noise = eps[t]
+                elif mesh is not None:
+                    noise = _global_normals((obs_vec.shape[0], cfg.action_dim), generator, obs_vec.device, mesh, 0)
+                else:
+                    noise = generator
                 action, raw, logp, value = sample_action(policy, obs_vec, noise, cfg.action_scale)
                 env_state, obs, reward, terminated, truncated, info = env_step(env_state, action, generator)
                 _, _, final_value = apply(policy, obs_to_vec(info['final_observation']))
@@ -356,13 +421,13 @@ def make_train_step(
 
     def update(policy, optimizer, traj, advantages, returns):
         """The PPO epochs on one rollout; the last loss."""
-        return _update(policy, optimizer, cfg, _flatten(traj, advantages, returns))
+        return _update(policy, optimizer, cfg, _flatten(traj, advantages, returns), mesh)
 
     def train_step(runner, eps: torch.Tensor | None = None):
         env_state, obs_vec, policy, optimizer, generator = runner
         env_state, obs_vec, traj, advantages, returns = collect(env_state, obs_vec, policy, generator, eps)
         loss = update(policy, optimizer, traj, advantages, returns)
-        return (env_state, obs_vec, policy, optimizer, generator), _metrics(loss, traj)
+        return (env_state, obs_vec, policy, optimizer, generator), _metrics(loss, traj, mesh)
 
     train_step.collect, train_step.update = collect, update
     return train_step, make_optimizer(cfg)

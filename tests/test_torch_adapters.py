@@ -376,8 +376,11 @@ def test_package_surface():
     assert pkg.PlanningParallelEnv is tpz.PlanningParallelEnv and pkg.Planar2DViewer is rendering.Planar2DViewer
     assert pkg.Matplotlib2DViewer is rendering.Planar2DViewer
     assert pkg.MujocoViewerCollection is mujoco_viewer.MujocoViewerCollection
+    from gymnasium_planar_robotics_tpu_torch import core
+
+    assert pkg.BasicPlanarRoboticsEnv is core.PlanarRoboticsCore  # the facade, ported since
     with pytest.raises(AttributeError):
-        pkg.BasicPlanarRoboticsEnv
+        pkg.NoSuchEnv
 
 
 @pytest.mark.parametrize('name', ['planning_m3_box_jerk', 'pushing'])
