@@ -1,8 +1,10 @@
 // Kernel H: one M-mover planning autoreset env step, for any M from 2 to
 // kMaxMovers (735) (device functions and the launchers; the C interface is in
-// planning_multi_autoreset.cu).  Up to kMaxSlotMovers (128) the movers sit in
-// register slots (below); above, the many-mover variant keeps them in shared
-// memory (at the end of this file).
+// planning_multi_autoreset.cu).  The slot variants (below) keep the movers in
+// register slots, up to kMaxSlotMovers (128); the many-mover variant (at the
+// end of this file) keeps them in shared memory and runs any M.  The wrapper
+// picks by M and width (LANE_TABLE in ops/kernels/planning_multi.py): the
+// slots up to 87 movers, the many-mover variant from 88.
 //
 // Replaces: gymnasium_planar_robotics_tpu/ops/pallas_step.py
 // _planning_multi_autoreset_kernel, reached from
@@ -51,7 +53,7 @@
 // sampling draws unread, and a sampler stops at its first accepted set.  The
 // layout rule and the noise mode are run-time branches, uniform over the
 // launch: six instantiations (L in {1, 2, 4} x collision shape) keep the
-// build short; L = 4 is taken only above 64 movers, where 32 lanes of 2 slots
+// build short; L = 4 is taken only at 65-87 movers, where 32 lanes of 2 slots
 // no longer hold them.
 //
 // Every product and sum is rounded on its own (common.cuh), as the plain
@@ -68,8 +70,8 @@ namespace gprt {
 // at 128 a block's shared memory (the constants, 8,128 pairs, and its four
 // groups' poses and cycle normals) is 159,392 bytes for the box (132 KB
 // circle), one block an SM under the 227 KB a block may take.  The pair
-// list's i | j << 8 holds indices up to 255.  Above 128 the many-mover
-// variant runs, up to kMaxMovers (its block's shared memory, below).
+// list's i | j << 8 holds indices up to 255.  Above 128 only the many-mover
+// variant runs, up to kMaxMovers (below).
 constexpr int kMaxSlotMovers = 128;
 
 // The per-mover and per-pair constants, one f32 vector in device memory.
@@ -620,105 +622,263 @@ cudaError_t launch_planning_multi(const float* st, const float* act, const float
 // Above 128 movers the slot variants run out of room twice: 32 lanes of 4
 // register slots hold 128 movers (L = 4 already takes 168 registers, and the
 // box spills), and the per-pair arrays grow with M^2 (3 x 8,128 floats of a
-// block's 159,392 bytes at 128 box movers).  This variant keeps neither:
+// block's 159,392 bytes at 128 box movers).  This variant keeps neither, and
+// from 88 movers it is also the faster (measured at 33-128 movers):
 //
-// - An env is one warp (G = 32).  Lane l walks movers l, l + 32, ...; each
-//   mover's cycle state (position, velocity, acceleration, action: 8 floats)
-//   lives in the group's shared memory and only its own lane touches it.
+// - An env is one warp.  Lane l walks movers l, l + 32, ...; each mover's
+//   cycle state (position, velocity, acceleration, action: 8 floats) lives in
+//   the group's shared memory and only its own lane touches it.  The
+//   per-mover constants are read from device memory (L1), O(M) a cycle.
 // - A lane draws its own movers' cycle normals (DrawStream at the mover's
 //   absolute draw index), so the group keeps no buffer of the cycle's
 //   normals; a Philox block shared by two movers is computed twice, O(M) a
 //   cycle beside the O(M^2) pair tests.
-// - The pairs are walked in row order with a stride of G from the lane's own
-//   first pair (no pair list, so no bound on the mover index), and a pair's
-//   summed sizes are formed on the fly: the host's float64 per-mover sizes
-//   (c, and c + offset on each axis) are in shared memory, two of them are
-//   added in float64 and the sum rounded once, the same f32 the host rounds
-//   into its per-pair table (make_multi_kernel_consts).  The H100's FP64
-//   units make the addition cheap.
+// - What a pair test reads of a mover is one record: float4 a (x, y, then
+//   the test's sizes: the circle's float64 size as its two words, the box's
+//   f32 half-extents) and, for the box, float4 b (the cycle's rotation, or
+//   the start sets' two float64 sizes), written by the mover's lane; a
+//   pair's summed sizes are added in float64 and rounded once, the f32 the
+//   host rounds into its per-pair table (make_multi_kernel_consts).
+// - The pairs are walked in a folded order (walk_pairs): lanes own whole
+//   rows with the lower mover in registers, read their partners at
+//   consecutive records, and take counts that differ by at most one; every
+//   pair is still tested as (lower, higher).  A candidate set's walk ends at
+//   the first warp vote that sees a rejecting pair (and a set that a wall
+//   check rejects skips its walk): random sets of 33 or more movers are
+//   rejected within a few votes instead of walking all pairs of all 2 cand_k
+//   sets of every done env.  A cycle's walk votes once, at its end: it
+//   rarely hits, and a vote a pair cost more than it saved.
+// - A block holds 4 envs, or 2 or 1 where that lets an SM hold clearly more
+//   envs by shared memory and registers (many_envs_per_block).
 //
 // Draws, the cycle order, the latch, the restart and every rounding are the
-// slot variants', so this variant agrees with the plain version bit for bit.
-// Bound: as the slot variants; what limits a launch here is the block's
-// shared memory (bytes per mover, many_smem_bytes), which sets kMaxMovers and
-// the blocks an SM holds.
+// slot variants', so this variant agrees with the plain version bit for bit:
+// skipping a set's pairs shifts no draw (draws are indexed by set and mover),
+// trials counts sets, and the first set whose pairs all pass is the first
+// accepted one.  Bound: as the slot variants; what limits a launch here is
+// the instructions a pair takes (a shared load and the test; in a set's walk
+// a vote) and the envs an SM holds.
 
 // The slot variants' constants vector begins with its nine per-mover fields
-// (GPRT_MULTI_FIELDS) and ends with min_goal_dist; the block copies those.
+// (GPRT_MULTI_FIELDS) and ends with min_goal_dist; this variant reads those.
 enum ManyField { kWallX, kWallY, kSampleX, kSampleY, kSamplePairX, kSamplePairY, kPairX, kPairY, kAccelScale };
 constexpr int kManyFields = 9;
 // [3, M] float64 per-mover sizes, rows: c_pair_x (the circle's cycle pair
 // test), c_sample_pair_x, c_sample_pair_y (the start sets' pair test)
 constexpr int kMany64Rows = 3;
 
-// a group's floats: the state [10, M] (x, y, vx, vy, ax, ay, ux, uy, then the
-// accepted start set sx, sy; after the cycles the u rows hold the accepted
-// goal set) and the poses (x, y, for the box also R's four entries), plus one
-// float of padding
-__host__ __device__ constexpr int many_group_floats(int m, bool box) { return (10 + (box ? 6 : 2)) * m + 1; }
-__host__ __device__ constexpr int many_const_floats(int m) { return (kManyFields * m + 1 + 3) & ~3; }
-__host__ __device__ constexpr size_t many_smem_bytes(int m, bool box) {
-  return sizeof(float) * static_cast<size_t>(many_const_floats(m)) +
-         sizeof(double) * static_cast<size_t>(kMany64Rows * m) +
-         sizeof(float) * static_cast<size_t>(kThreads / 32) * static_cast<size_t>(many_group_floats(m, box));
+// a group's float4s: the records a [M] (and b [M], box), then the state
+// [8, M] floats (x, y, vx, vy, ax, ay, ux, uy; after the cycles the u rows
+// hold the accepted start set, the records the accepted goal set)
+__host__ __device__ constexpr int many_group_float4s(int m, bool box) { return (box ? 2 : 1) * m + 2 * m; }
+__host__ __device__ constexpr size_t many_group_bytes(int m, bool box) {
+  return 16 * static_cast<size_t>(many_group_float4s(m, box));
 }
 
-// The most movers a launch takes: the largest M whose many-mover block (the
-// box, the larger) fits the 227 KB (232,448 bytes) a block may take.
+// Envs a block holds: 4, or 2 or 1 where that lets an SM hold more than a
+// sixteenth more envs, by shared memory (233,472 bytes an SM, 1,024 of them
+// reserved a block) and by registers (65,536 an SM, ``regs`` a thread
+// allocated 256 a warp), at most 32 blocks and 64 warps an SM.  (Measured
+// at 129 and 256 movers: one-env blocks that gained one warp an SM were 7%
+// slower than four-env blocks; smaller blocks that gained a sixteenth or
+// more were 2-8% faster.)
+constexpr size_t kSmemPerSM = 233472;
+__host__ __device__ constexpr int many_envs_per_block(int m, bool box, int regs) {
+  const int warp_regs = (regs * 32 + 255) / 256 * 256;
+  int best = 4, best_envs = 0;
+  for (int envs = 4; envs >= 1; envs /= 2) {
+    int blocks = static_cast<int>(kSmemPerSM / (envs * many_group_bytes(m, box) + 1024));
+    blocks = blocks < 65536 / (envs * warp_regs) ? blocks : 65536 / (envs * warp_regs);
+    blocks = blocks < 32 ? blocks : 32;
+    blocks = blocks < 64 / envs ? blocks : 64 / envs;
+    if (16 * envs * blocks > 17 * best_envs) {
+      best = envs;
+      best_envs = envs * blocks;
+    }
+  }
+  return best;
+}
+// the shared memory of a block of ``envs`` envs
+__host__ __device__ constexpr size_t many_smem_bytes(int m, bool box, int envs = 4) {
+  return envs * many_group_bytes(m, box);
+}
+
+// The most movers a launch takes (the port's contract; a block of four
+// envs holds 64 bytes a box mover, so shared memory is not what sets it).
 constexpr size_t kMaxBlockSmem = 232448;
 constexpr int kMaxMovers = 735;
-static_assert(many_smem_bytes(kMaxMovers, true) <= kMaxBlockSmem &&
-                  many_smem_bytes(kMaxMovers + 1, true) > kMaxBlockSmem,
-              "kMaxMovers is the most box movers whose block fits");
+static_assert(many_smem_bytes(kMaxMovers, true) <= kMaxBlockSmem, "a block of kMaxMovers box movers fits");
 
 struct ManyConsts {
-  const float* f;     // [kManyFields, M]
-  const double* d64;  // [kMany64Rows, M]
+  const float* f;     // [kManyFields, M] in device memory
+  const double* d64;  // [kMany64Rows, M] in device memory
   float min_goal_dist;
   int M;
-  __device__ __forceinline__ float at(ManyField k, int i) const { return f[k * M + i]; }
-  // row r's sizes of movers i and j added in float64, rounded once
-  __device__ __forceinline__ float sum(int r, int i, int j) const {
-    return __double2float_rn(__dadd_rn(d64[r * M + i], d64[r * M + j]));
+  __device__ __forceinline__ float at(ManyField k, int i) const { return __ldg(f + k * M + i); }
+  __device__ __forceinline__ double size64(int r, int i) const { return __ldg(d64 + r * M + i); }
+};
+
+// a group's pair records (see above)
+struct ManyRecs {
+  float4* a;
+  float4* b;  // box only
+  __device__ __forceinline__ void set_xy(int i, float x, float y) const {
+    reinterpret_cast<float2*>(a)[2 * i] = make_float2(x, y);
+  }
+  __device__ __forceinline__ void set_zw(int i, float z, float w) const {
+    reinterpret_cast<float2*>(a)[2 * i + 1] = make_float2(z, w);
   }
 };
+
+__device__ __forceinline__ double words_to_double(float lo, float hi) {
+  return __hiloint2double(__float_as_int(hi), __float_as_int(lo));
+}
+__device__ __forceinline__ float4 doubles_to_words(double x, double y) {
+  return make_float4(__int_as_float(__double2loint(x)), __int_as_float(__double2hiint(x)),
+                     __int_as_float(__double2loint(y)), __int_as_float(__double2hiint(y)));
+}
+// the summed float64 sizes of two movers, rounded once
+__device__ __forceinline__ float sum64(double a, double b) { return __double2float_rn(__dadd_rn(a, b)); }
+
+// The pair tests: each loads a mover's record and flags a pair (p the lower
+// mover, q the higher) as the slot variants test pair (i, j), i < j.
+// A cycle's pair hits (circle: centre distance against the summed radii).
+struct CircleHit {
+  struct Rec {
+    float x, y;
+    double s;
+  };
+  __device__ __forceinline__ Rec load(const ManyRecs& r, int i) const {
+    const float4 v = r.a[i];
+    return {v.x, v.y, words_to_double(v.z, v.w)};
+  }
+  __device__ __forceinline__ bool operator()(const Rec& p, const Rec& q) const {
+    return sqrtf(sq2(sub(p.x, q.x), sub(p.y, q.y))) <= sum64(p.s, q.s);
+  }
+};
+// A start set's circle pair is too close at the summed sizes with the safety
+// offset: the same test on the records' sampling sizes.
+using CircleStartReject = CircleHit;
+
+// A cycle's box pair hits: the SAT test on the quaternion-noised rotations.
+struct BoxHit {
+  struct Rec {
+    float4 a, b;
+  };
+  __device__ __forceinline__ Rec load(const ManyRecs& r, int i) const { return {r.a[i], r.b[i]}; }
+  __device__ __forceinline__ bool operator()(const Rec& p, const Rec& q) const {
+    return rects_intersect_sat(sub(q.a.x, p.a.x), sub(q.a.y, p.a.y), Rot2{p.b.x, p.b.y, p.b.z, p.b.w}, p.a.z, p.a.w,
+                               Rot2{q.b.x, q.b.y, q.b.z, q.b.w}, q.a.z, q.a.w);
+  }
+};
+
+// A start set's box pair collides at the identity orientation.
+struct BoxStartReject {
+  struct Rec {
+    float4 a;
+    double sx, sy;
+  };
+  __device__ __forceinline__ Rec load(const ManyRecs& r, int i) const {
+    const float4 b = r.b[i];
+    return {r.a[i], words_to_double(b.x, b.y), words_to_double(b.z, b.w)};
+  }
+  __device__ __forceinline__ bool operator()(const Rec& p, const Rec& q) const {
+    return rects_intersect_ident(sub(q.a.x, p.a.x), sub(q.a.y, p.a.y), p.a.z, p.a.w, q.a.z, q.a.w, sum64(p.sx, q.sx),
+                                 sum64(p.sy, q.sy));
+  }
+};
+
+// A goal set's pair is closer than min_goal_dist.
+struct GoalReject {
+  float min_goal_dist;
+  using Rec = float2;
+  __device__ __forceinline__ Rec load(const ManyRecs& r, int i) const {
+    return reinterpret_cast<const float2*>(r.a)[2 * i];
+  }
+  __device__ __forceinline__ bool operator()(const Rec& p, const Rec& q) const {
+    return !(sqrtf(sq2(sub(p.x, q.x), sub(p.y, q.y))) >= min_goal_dist);
+  }
+};
+
+// Whether the test flags any pair (i, j), i < j, of the M movers' records
+// (every lane returns the same).  kFirst: the walk ends at the first warp
+// vote that sees a flag, one vote a pair (a candidate set, rejected by its
+// first few pairs at many movers); else the lanes OR their flags and vote
+// once at the end (a cycle, which rarely hits: a vote a pair took 23% more
+// time there).  The order (mirrored by pair_schedule in
+// ops/kernels/planning_multi.py): row i holds the pairs (i, i + 1 ... M - 1),
+// and rows v and M - 2 - v together hold M pairs, a folded row; the
+// V = (M - 1) / 2 folded rows, then (even M) row M / 2 - 1 alone, are pairs
+// 0 ... M (M - 1) / 2 - 1, pair v M + s being (v, v + 1 + s) for
+// s < M - 1 - v and (M - 2 - v, s) after.  In each of the first V / 32
+// rounds lane l walks folded row 32 round + l alone, its lower mover in
+// registers (M pairs, every lane alike); the pairs after those are dealt
+// round-robin (lane l: l, l + 32, ...).  No loop carries across rows.
+template <bool kFirst, class Test>
+__device__ __forceinline__ bool walk_pairs(const ManyRecs& r, int M, int lane, const Test& test) {
+  const int V = (M - 1) / 2, rounds = V / 32, n_pairs = num_pairs(M);
+  bool flag = false;
+  for (int t = 0; t < rounds; ++t) {
+    const int a = 32 * t + lane;
+    typename Test::Rec lo = test.load(r, a);
+    int j = a;
+    for (int s = 0; s < M; ++s) {
+      if (j == M - 1) {  // row a is done: row M - 2 - a, from its first pair
+        j = M - 1 - a;
+        lo = test.load(r, M - 2 - a);
+      } else {
+        ++j;
+      }
+      flag |= test(lo, test.load(r, j));
+      if (kFirst && __any_sync(0xffffffffu, flag)) return true;
+    }
+  }
+  const int q0 = 32 * rounds * M;
+  int v = (q0 + lane) / M, s = (q0 + lane) % M;
+  for (int q = q0; q < n_pairs; q += 32) {
+    if (q + lane < n_pairs) {
+      const bool first = s < M - 1 - v;
+      flag |= test(test.load(r, first ? v : M - 2 - v), test.load(r, first ? v + 1 + s : s));
+    }
+    if (kFirst && __any_sync(0xffffffffu, flag)) return true;
+    for (s += 32; s >= M; s -= M) ++v;
+  }
+  return !kFirst && __any_sync(0xffffffffu, flag);
+}
 
 struct ManyEnv {
   const PlanningLaunch& L;
   const ManyConsts& mc;
-  float* s;     // this env's state [10, M]
-  float* pose;  // this env's poses
+  ManyRecs recs;
+  float* s;  // this env's state [8, M]
   int64_t e;
   int M;
   bool full;
-  Group g;
+  int lane;
 };
-
-// The lane's next pair in row order, G pairs on from (i, j): while j runs
-// past the row's end, carry into the next row, whose pairs start at i + 1.
-// i == M - 1 ends the walk.
-__device__ __forceinline__ void next_pair(int M, int step, int& i, int& j) {
-  j += step;
-  while (j >= M && i < M - 1) {
-    ++i;
-    j += i + 1 - M;
-  }
-}
 
 template <bool kBox>
 __device__ __forceinline__ void many_cycles(const ManyEnv& ge, const Draws& dr, float& wall_f, float& mover_f) {
   const PlanningConsts& c = ge.L.c;
   const ManyConsts& mc = ge.mc;
-  const int M = ge.M, G = ge.g.G, p_w = kBox ? 3 : 1, n_draws = cycle_draws(M, kBox);
+  const int M = ge.M, p_w = kBox ? 3 : 1, n_draws = cycle_draws(M, kBox);
   const Rot2 ident = {1.0f, 0.0f, 0.0f, 1.0f};
   float* s = ge.s;
-  float* pose = ge.pose;
+  // the cycle pair test's sizes, once
+  for (int i = ge.lane; i < M; i += 32) {
+    if (kBox) {
+      ge.recs.set_zw(i, mc.at(kPairX, i), mc.at(kPairY, i));
+    } else {
+      const double d = mc.size64(0, i);
+      ge.recs.set_zw(i, __int_as_float(__double2loint(d)), __int_as_float(__double2hiint(d)));
+    }
+  }
   wall_f = 0.0f;
   mover_f = 0.0f;
   for (int cyc = 0; cyc < ge.L.num_cycles; ++cyc) {
     const uint32_t d0 = static_cast<uint32_t>(cyc * n_draws);
     bool wall = false;
-    for (int i = ge.g.lane; i < M; i += G) {
+    for (int i = ge.lane; i < M; i += 32) {
       float px = s[i], py = s[M + i], vx = s[2 * M + i], vy = s[3 * M + i], ax = s[4 * M + i], ay = s[5 * M + i];
       const float ux = s[6 * M + i], uy = s[7 * M + i];
       float nvx, nvy;
@@ -755,81 +915,76 @@ __device__ __forceinline__ void many_cycles(const ManyEnv& ge, const Draws& dr, 
       auto nq = dr.at(ge.e, d0 + static_cast<uint32_t>(2 * M + 2 * p_w * M + 2 * p_w * i));
 #pragma unroll
       for (int k = 0; k < 2 * p_w; k += 2) normal_pair(nq, q[k], q[k + 1]);
-      pose[i] = madd(px, q[0], c.std_pos);
-      pose[M + i] = madd(py, q[1], c.std_pos);
+      ge.recs.set_xy(i, madd(px, q[0], c.std_pos), madd(py, q[1], c.std_pos));
       if (kBox) {
         const Rot2 Rq = rotation_of(q[2], q[3], q[4], q[5], c.std_pos);
-        pose[2 * M + i] = Rq.r00;
-        pose[3 * M + i] = Rq.r01;
-        pose[4 * M + i] = Rq.r10;
-        pose[5 * M + i] = Rq.r11;
+        ge.recs.b[i] = make_float4(Rq.r00, Rq.r01, Rq.r10, Rq.r11);
       }
     }
-    ge.g.sync();
-    bool hit = false;
-    int i = 0, j = 0;
-    next_pair(M, ge.g.lane + 1, i, j);  // the lane's first pair: pair index lane
-    for (; i < M - 1; next_pair(M, G, i, j)) {
-      if (kBox) {
-        const Rot2 Ri = {pose[2 * M + i], pose[3 * M + i], pose[4 * M + i], pose[5 * M + i]};
-        const Rot2 Rj = {pose[2 * M + j], pose[3 * M + j], pose[4 * M + j], pose[5 * M + j]};
-        hit |= rects_intersect_sat(sub(pose[j], pose[i]), sub(pose[M + j], pose[M + i]), Ri, mc.at(kPairX, i),
-                                   mc.at(kPairY, i), Rj, mc.at(kPairX, j), mc.at(kPairY, j));
-      } else {
-        hit |= sqrtf(sq2(sub(pose[i], pose[j]), sub(pose[M + i], pose[M + j]))) <= mc.sum(0, i, j);
-      }
-    }
-    const unsigned flags = ge.g.any((wall ? 1u : 0u) | (hit ? 2u : 0u));
-    ge.g.sync();  // this cycle's pose reads before the next cycle's writes
-    if (flags != 0u) {
-      wall_f = (flags & 1u) ? 1.0f : 0.0f;
-      mover_f = (flags & 2u) ? 1.0f : 0.0f;
+    __syncwarp();
+    const bool hit = kBox ? walk_pairs<false>(ge.recs, M, ge.lane, BoxHit{})
+                          : walk_pairs<false>(ge.recs, M, ge.lane, CircleHit{});
+    const bool any_wall = __any_sync(0xffffffffu, wall);
+    __syncwarp();  // this cycle's record reads before the next cycle's writes
+    if (any_wall | hit) {  // latched: the state is frozen for the remaining cycles
+      wall_f = any_wall ? 1.0f : 0.0f;
+      mover_f = hit ? 1.0f : 0.0f;
       break;
     }
   }
 }
 
-// group_sample of the slot variants with the movers walked by the lanes; an
-// accepted set goes to keep [2, M] (x row, then y row), each mover by its lane.
+// group_sample of the slot variants with the movers walked by the lanes: the
+// set's positions go to the records' x, y, the pair tests' sizes once to
+// the rest; an accepted start set is kept in keep [2, M] (x row, then y row),
+// an accepted goal set stays in the records.
 template <bool kBox, bool kGoal>
 __device__ __forceinline__ bool many_sample(const ManyEnv& ge, const Draws& dr, uint32_t d_set, float* keep,
                                             float& trials) {
   const PlanningConsts& c = ge.L.c;
   const ManyConsts& mc = ge.mc;
-  const int M = ge.M, G = ge.g.G;
+  const int M = ge.M;
   const Rot2 ident = {1.0f, 0.0f, 0.0f, 1.0f};
-  float* pose = ge.pose;
+  if (!kGoal) {
+    for (int i = ge.lane; i < M; i += 32) {
+      if (kBox) {
+        ge.recs.set_zw(i, mc.at(kSamplePairX, i), mc.at(kSamplePairY, i));
+        ge.recs.b[i] = doubles_to_words(mc.size64(1, i), mc.size64(2, i));
+      } else {
+        const double d = mc.size64(1, i);
+        ge.recs.set_zw(i, __int_as_float(__double2loint(d)), __int_as_float(__double2hiint(d)));
+      }
+    }
+  }
   for (int k = 0; k < ge.L.cand_k; ++k) {
     bool ok = true;
-    for (int i = ge.g.lane; i < M; i += G) {
+    for (int i = ge.lane; i < M; i += 32) {
       auto n = dr.at(ge.e, d_set + static_cast<uint32_t>(2 * M * k + 2 * i));
       const float cx = uniform_in(n, c.min_x, c.span_x);
       const float cy = uniform_in(n, c.min_y, c.span_y);
       ok &= multi_shape_valid<kBox>(ge.L, ge.full, cx, cy, ident, mc.at(kSampleX, i), mc.at(kSampleY, i));
-      pose[i] = cx;
-      pose[M + i] = cy;
+      ge.recs.set_xy(i, cx, cy);
     }
-    ge.g.sync();
-    int i = 0, j = 0;
-    next_pair(M, ge.g.lane + 1, i, j);
-    for (; i < M - 1; next_pair(M, G, i, j)) {
-      const float dx = sub(pose[i], pose[j]), dy = sub(pose[M + i], pose[M + j]);
+    __syncwarp();
+    // a set some mover's wall check rejects skips its pair walk
+    bool rejected = __any_sync(0xffffffffu, !ok);
+    if (!rejected) {
       if (kGoal) {
-        ok &= sqrtf(sq2(dx, dy)) >= mc.min_goal_dist;
+        rejected = walk_pairs<true>(ge.recs, M, ge.lane, GoalReject{mc.min_goal_dist});
       } else if (kBox) {
-        ok &= !rects_intersect_ident(sub(pose[j], pose[i]), sub(pose[M + j], pose[M + i]), mc.at(kSamplePairX, i),
-                                     mc.at(kSamplePairY, i), mc.at(kSamplePairX, j), mc.at(kSamplePairY, j),
-                                     mc.sum(1, i, j), mc.sum(2, i, j));
+        rejected = walk_pairs<true>(ge.recs, M, ge.lane, BoxStartReject{});
       } else {
-        ok &= !(sqrtf(sq2(dx, dy)) <= mc.sum(1, i, j));
+        rejected = walk_pairs<true>(ge.recs, M, ge.lane, CircleStartReject{});
       }
     }
-    const bool accepted = ge.g.all(ok);
-    ge.g.sync();  // this set's reads before the next writes
-    if (accepted) {
-      for (int i2 = ge.g.lane; i2 < M; i2 += G) {
-        keep[i2] = pose[i2];
-        keep[M + i2] = pose[M + i2];
+    __syncwarp();  // this set's reads before the next writes
+    if (!rejected) {
+      if (!kGoal) {
+        for (int i = ge.lane; i < M; i += 32) {
+          const float2 p = GoalReject{}.load(ge.recs, i);
+          keep[i] = p.x;
+          keep[M + i] = p.y;
+        }
       }
       trials = static_cast<float>(k + 1);
       return true;
@@ -846,10 +1001,10 @@ template <bool kBox>
 __device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, const float* __restrict__ st_in,
                                           const float* __restrict__ act, float* __restrict__ out, int64_t B) {
   const PlanningConsts& c = ge.L.c;
-  const int M = ge.M, G = ge.g.G;
+  const int M = ge.M;
   const int64_t e = ge.e;
   float* s = ge.s;
-  for (int i = ge.g.lane; i < M; i += G) {
+  for (int i = ge.lane; i < M; i += 32) {
 #pragma unroll
     for (int k = 0; k < 6; ++k) {  // x, y, vx, vy, ax, ay
       s[k * M + i] = st_in[(2 * (k / 2) * M + 2 * i + (k & 1)) * B + e];
@@ -865,7 +1020,7 @@ __device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, co
   const uint32_t d_obs = static_cast<uint32_t>(ge.L.num_cycles * cycle_draws(M, kBox));
   float* o = out + (8 * M + 1) * B + e;
   unsigned unreached = 0;
-  for (int i = ge.g.lane; i < M; i += G) {
+  for (int i = ge.lane; i < M; i += 32) {
     auto n = dr.at(e, d_obs + 4 * i);
     float n1, n2, n3, n4;
     normal_pair(n, n1, n2);
@@ -881,36 +1036,37 @@ __device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, co
     o[(8 * M + 2 * i) * B] = s[4 * M + i];  // pre-reset act (jerk-mode final observation)
     o[(8 * M + 2 * i + 1) * B] = s[5 * M + i];
   }
-  const float num_unreached = static_cast<float>(ge.g.sum(unreached));
+  const float num_unreached = static_cast<float>(__reduce_add_sync(0xffffffffu, unreached));
   const bool collided = (wall_f > 0.0f) | (mover_f > 0.0f);
   const bool term = collided | (num_unreached == 0.0f);
   const float new_steps = add(steps, 1.0f);
   const bool trunc = new_steps >= c.max_episode_steps;
   const bool done = term | trunc;
 
-  // restart: start sets (kept in rows 8-9), then goal sets (kept in the u
-  // rows, free after the cycles); an env that is not done reads none
+  // restart: start sets (kept in the u rows, free after the cycles), then
+  // goal sets (kept in the records); an env that is not done reads none
   const uint32_t d_starts = d_obs + 4 * M;
   const uint32_t d_goals = d_starts + static_cast<uint32_t>(2 * M * ge.L.cand_k);
   float s_trials = 0.0f, g_trials = 0.0f;
   bool found = false;
   if (done) {
-    const bool s_found = many_sample<kBox, false>(ge, dr, d_starts, s + 8 * M, s_trials);
-    const bool g_found = many_sample<kBox, true>(ge, dr, d_goals, s + 6 * M, g_trials);
+    const bool s_found = many_sample<kBox, false>(ge, dr, d_starts, s + 6 * M, s_trials);
+    const bool g_found = many_sample<kBox, true>(ge, dr, d_goals, nullptr, g_trials);
     found = s_found & g_found;
   }
   const bool do_reset = done & found;
   const uint32_t d_post = d_goals + static_cast<uint32_t>(2 * M * ge.L.cand_k);
-  for (int i = ge.g.lane; i < M; i += G) {
+  for (int i = ge.lane; i < M; i += 32) {
     float px = s[i], py = s[M + i], vx = s[2 * M + i], vy = s[3 * M + i], ax = s[4 * M + i], ay = s[5 * M + i];
     float gx = st_in[(6 * M + 2 * i) * B + e], gy = st_in[(6 * M + 2 * i + 1) * B + e];
     float svx, svy, sagx, sagy;
     if (do_reset) {
-      px = s[8 * M + i];
-      py = s[9 * M + i];
+      px = s[6 * M + i];
+      py = s[7 * M + i];
       vx = vy = ax = ay = 0.0f;
-      gx = s[6 * M + i];
-      gy = s[7 * M + i];
+      const float2 g = GoalReject{}.load(ge.recs, i);
+      gx = g.x;
+      gy = g.y;
       auto n = dr.at(e, d_post + 4 * i);
       float m1, m2, m3, m4;
       normal_pair(n, m1, m2);
@@ -938,7 +1094,7 @@ __device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, co
     out[(6 * M + 2 * i) * B + e] = gx;
     out[(6 * M + 2 * i + 1) * B + e] = gy;
   }
-  if (ge.g.lane == 0) {
+  if (ge.lane == 0) {
     out[(8 * M) * B + e] = do_reset ? 0.0f : new_steps;
     o[(10 * M + 0) * B] = wall_f;
     o[(10 * M + 1) * B] = mover_f;
@@ -948,28 +1104,23 @@ __device__ __forceinline__ void many_step(const ManyEnv& ge, const Draws& dr, co
   }
 }
 
-// One block of kThreads lanes, one env a warp.  The block copies the
-// per-mover constants (f32 and float64) into shared memory, then each warp
-// runs its env's step.
+// One block of many_envs_per_block(M) warps, one env a warp: each warp runs
+// its env's step on its part of the block's shared memory.
 template <bool kBox>
 __global__ void __launch_bounds__(kThreads)
     planning_multi_many_kernel(const float* __restrict__ st_in, const float* __restrict__ act,
                                const float* __restrict__ noise, float* __restrict__ out, int64_t B,
                                const PlanningLaunch Lc, const float* __restrict__ consts,
                                const double* __restrict__ sizes64, int M, bool full, Seed seed) {
-  constexpr int G = 32;
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  for (int k = threadIdx.x; k < kManyFields * M; k += blockDim.x) sm[k] = consts[k];
-  double* d64 = reinterpret_cast<double*>(sm + many_const_floats(M));
-  for (int k = threadIdx.x; k < kMany64Rows * M; k += blockDim.x) d64[k] = sizes64[k];
-  const int gib = threadIdx.x / G;
-  float* group = reinterpret_cast<float*>(d64 + kMany64Rows * M) + gib * many_group_floats(M, kBox);
-  __syncthreads();
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * (kThreads / G) + gib;
-  if (e >= B) return;
-  const ManyConsts mc{sm, d64, __ldg(consts + multi_const_floats(M) - 1), M};  // min_goal_dist: the vector's last
-  const ManyEnv ge{Lc, mc, group, group + 10 * M, e, M, full, Group(threadIdx.x % G, G)};
+  const int gib = threadIdx.x / 32;  // the env's warp in the block
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + gib;
+  if (e >= B) return;  // a whole warp
+  float4* group = smem4 + gib * many_group_float4s(M, kBox);
+  const ManyConsts mc{consts, sizes64, __ldg(consts + multi_const_floats(M) - 1), M};  // min_goal_dist: the last
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  const ManyEnv ge{Lc, mc, ManyRecs{group, kBox ? group + M : nullptr},
+                   reinterpret_cast<float*>(group + (kBox ? 2 : 1) * M), e, M, full, lane};
   many_step<kBox>(ge, Draws{noise, B, noise == nullptr ? seed.get() : 0}, st_in, act, out, B);
 }
 
@@ -978,16 +1129,20 @@ template <bool kBox>
 cudaError_t launch_planning_multi_many(const float* st, const float* act, const float* noise, float* out, int64_t B,
                                        const PlanningLaunch& Lc, const float* consts, const double* sizes64, int M,
                                        bool full, Seed seed, cudaStream_t s) {
-  const size_t smem = many_smem_bytes(M, kBox);
   auto kernel = planning_multi_many_kernel<kBox>;
+  static const int regs = [&] {  // the instantiation's registers a thread, read once
+    cudaFuncAttributes attr{};
+    return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : 255;
+  }();
+  const int envs = many_envs_per_block(M, kBox, regs);
+  const size_t smem = many_smem_bytes(M, kBox, envs);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int64_t groups = kThreads / 32;
-  kernel<<<static_cast<unsigned int>((B + groups - 1) / groups), kThreads, smem, s>>>(st, act, noise, out, B, Lc,
-                                                                                     consts, sizes64, M, full, seed);
+  kernel<<<static_cast<unsigned int>((B + envs - 1) / envs), 32 * envs, smem, s>>>(st, act, noise, out, B, Lc, consts,
+                                                                                 sizes64, M, full, seed);
   return cudaGetLastError();
 }
 

@@ -3,10 +3,10 @@
 // Replaces: gymnasium_planar_robotics_tpu/ops/pallas_step.py
 // _planning_multi_autoreset_kernel, reached from
 // make_fused_planning_multi_autoreset_cycles.  The device code, its bound
-// and its design (lane groups: G lanes an env, L mover slots a lane; above
-// 128 movers one warp an env with the movers in shared memory) are in
+// and its design (lane groups: G lanes an env, L mover slots a lane; from 88
+// movers one warp an env with the movers in shared memory) are in
 // planning_multi.cuh.  Eight instantiations: L in {1, 2, 4} x the collision
-// shape, L = 4 only above 64 movers, and the many-mover variant x the shape
+// shape, L = 4 only at 65-87 movers, and the many-mover variant x the shape
 // (M, G, the layout rule and the noise mode are run-time values).
 
 #include "planning_multi.cuh"

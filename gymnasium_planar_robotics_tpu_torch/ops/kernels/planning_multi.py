@@ -16,9 +16,9 @@ goal, activation), wall, mover, unreached goals, stalled, trials.  The plain
 version does the kernel's arithmetic with the same operand order, one
 rounding per operation, in the same draw order over a given uniform tensor.
 Any M from 2 to ``MAX_MOVERS`` runs; on the card the wrapper lays each env
-over a group of G lanes with L mover slots each (``lane_layout``), or, above
-``SLOT_MOVERS``, over one warp whose lanes walk the movers kept in shared
-memory (the many-mover variant, L = ``SMEM_SLOTS``).
+over a group of G lanes with L mover slots each (``lane_layout``), or over
+one warp whose lanes walk the movers kept in shared memory (the many-mover
+variant, L = ``SMEM_SLOTS``; above ``SLOT_MOVERS`` the only layout).
 """
 
 from __future__ import annotations
@@ -34,9 +34,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import clamp_chain
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import UniformStream
 
 SLOT_MOVERS = 128  # kMaxSlotMovers in csrc/planning_multi.cuh: 32 lanes x 4 register slots
-#: kMaxMovers in csrc/planning_multi.cuh: the most box movers whose
-#: many-mover block fits the 232,448 bytes of shared memory a block may take
-#: (``many_smem_bytes``)
+#: kMaxMovers in csrc/planning_multi.cuh: the most movers a launch takes
 MAX_MOVERS = 735
 MAX_BLOCK_SMEM = 232448
 #: the L of the many-mover variant: no register slots, the movers' state in
@@ -54,7 +52,8 @@ MULTI_FIELDS = (
 
 LANES = (1, 2, 4, 8, 16, 32)  # the G a lane group may have
 #: the L the kernel is instantiated for; the last, 4, only above 64 movers
-#: (32 lanes x 2 slots), where 32 lanes x 4 hold SLOT_MOVERS
+#: (32 lanes x 2 slots), where 32 lanes x 4 hold SLOT_MOVERS (the wrapper
+#: takes it at 65-87, ``LANE_TABLE``)
 SLOTS = (1, 2, 4)
 
 #: Kernel H's lane layout, (G lanes an env, L mover slots a lane), by the
@@ -66,12 +65,16 @@ SLOTS = (1, 2, 4)
 #: 65,536 few lanes up to 8 movers and all 32 at 12.  ``WIDE_BATCH``: at
 #: 8192 envs the narrow layout was the faster of the two at 2, 4 and 8
 #: movers, at 16,384 the wide one (at 4 movers 1.4% slower: a tie) (PERF.md
-#: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed; 33-64
-#: movers take (32, 2), 65-128 (32, 4) and 129-735 the many-mover variant
-#: (32, SMEM_SLOTS), the only layouts there: above 128 a block of four
-#: one-warp envs is what the shared memory holds (at 16 lanes an env, eight
-#: envs' state would not fit a block above 367 box movers), so no width is
-#: measured for it.
+#: section 6).  Row 32 (13-32 movers) follows 12 movers, untimed.  From 33
+#: movers up the slot layouts were timed against the many-mover variant
+#: (32, SMEM_SLOTS) (``tools/rollout_rates.py --family many
+#: --every-layout``: 33-128 movers, circle and box, 4096 and 65,536 envs, on
+#: planted, cycles-only and sets-only states; PERF.md section 6): 33-64
+#: movers take (32, 2), where the variant lost every cycles-only state;
+#: 65-87 (32, 4), where it lost the box's cycles-only states (by 4-14% at
+#: 65, 72 and 80); from 88 the variant, which was faster in every
+#: configuration at 88, 96 and 128 (by 17-95%), and above 128 the only
+#: layout.  No width is measured for it.
 WIDE_BATCH = 8192
 LANE_TABLE = {
     2: ((8, 1), (1, 2)),
@@ -79,7 +82,7 @@ LANE_TABLE = {
     8: ((16, 1), (4, 2)),
     32: ((32, 1), (32, 1)),
     64: ((32, 2), (32, 2)),
-    128: ((32, 4), (32, 4)),
+    87: ((32, 4), (32, 4)),
     MAX_MOVERS: ((32, SMEM_SLOTS), (32, SMEM_SLOTS)),
 }
 
@@ -90,35 +93,84 @@ def table_row(m: int) -> int:
     return min(k for k in LANE_TABLE if k >= m)
 
 
+def many_group_bytes(m: int, box: bool) -> int:
+    """A many-mover env's shared memory (``many_group_bytes`` in
+    ``csrc/planning_multi.cuh``): its pair records (16 bytes a mover, 32 for
+    the box) and its state [8, M] floats."""
+    return 16 * ((2 if box else 1) * m + 2 * m)
+
+
 def many_smem_bytes(m: int, box: bool) -> int:
-    """A many-mover block's shared memory (``many_smem_bytes`` in
-    ``csrc/planning_multi.cuh``): the nine per-mover f32 fields and
-    min_goal_dist (rounded up to 4 floats), three float64 sizes a mover, and
-    four one-warp groups of (10 + P) M + 1 floats (P = 6 box, 2 circle)."""
-    return 4 * ((9 * m + 1 + 3) & ~3) + 8 * 3 * m + 4 * 4 * ((10 + (6 if box else 2)) * m + 1)
+    """The shared memory of the largest many-mover block, four envs
+    (``many_smem_bytes``; the launcher takes 4, 2 or 1 envs a block,
+    whichever lets an SM hold the most by shared memory and registers,
+    ``many_envs_per_block``)."""
+    return 4 * many_group_bytes(m, box)
 
 
 def check_movers(m: int) -> None:
     if not 2 <= m <= MAX_MOVERS:
-        need = f'; {m} would need {many_smem_bytes(m, True):,}' if m > MAX_MOVERS else ''
         raise NotImplementedError(
-            f'kernel H takes 2 to {MAX_MOVERS} movers (above {SLOT_MOVERS} the movers live in shared memory: at '
-            f'{MAX_MOVERS} box movers a block holds {many_smem_bytes(MAX_MOVERS, True):,} bytes of shared memory '
-            f'of the {MAX_BLOCK_SMEM:,} a block may take{need}), got {m} (ROADMAP.md)')
+            f'kernel H takes 2 to {MAX_MOVERS} movers (above {SLOT_MOVERS}, or where LANE_TABLE says so, the movers '
+            f'live in shared memory: at {MAX_MOVERS} box movers a block of four envs holds '
+            f'{many_smem_bytes(MAX_MOVERS, True):,} bytes of shared memory of the {MAX_BLOCK_SMEM:,} a block may '
+            f'take), got {m} (ROADMAP.md)')
 
 
 def layouts(m: int) -> tuple:
     """Every (G, L) kernel H can run M movers on: up to ``SLOT_MOVERS``,
     for each G in ``LANES`` the fewest slots ``L`` in ``SLOTS`` with G * L
-    >= M (where one exists); with G > M the lanes beyond M own no mover but
-    draw.  L = 4 only where 32 lanes of 2 slots cannot hold M (above 64
-    movers).  Above ``SLOT_MOVERS`` only the many-mover variant, (32,
-    ``SMEM_SLOTS``); it runs any M, so a test may force it below."""
+    >= M (where one exists; with G > M the lanes beyond M own no mover but
+    draw; L = 4 only where 32 lanes of 2 slots cannot hold M, above 64
+    movers), then the many-mover variant, (32, ``SMEM_SLOTS``), which runs
+    any M; above ``SLOT_MOVERS`` only that."""
     check_movers(m)
+    many = ((LANES[-1], SMEM_SLOTS),)
     if m > SLOT_MOVERS:
-        return ((LANES[-1], SMEM_SLOTS),)
+        return many
     slots = SLOTS if m > LANES[-1] * SLOTS[-2] else SLOTS[:-1]
-    return tuple((g, min(n for n in slots if g * n >= m)) for g in LANES if g * slots[-1] >= m)
+    return tuple((g, min(n for n in slots if g * n >= m)) for g in LANES if g * slots[-1] >= m) + many
+
+
+def pair_schedule(m: int) -> list:
+    """The pairs (i, j), i < j, each lane of the many-mover variant's
+    ``walk_pairs`` (``csrc/planning_multi.cuh``) tests, in its order: a
+    mirror of the kernel's index arithmetic (the CPU tests hold it to every
+    pair once, as (lower, higher), with the lanes' counts at most one
+    apart); nothing on the card's path uses it.  Rows v and M - 2 - v fold
+    into M pairs; in each of the first ``(M - 1) // 2 // 32`` rounds lane l
+    walks folded row ``32 * round + l``, its partner index stepping on and,
+    past M - 1, on to row M - 2 - v's first; the pairs after those go
+    round-robin, pair q = v M + s decoded from (v, s) stepped by 32."""
+    lanes = 32  # a warp: one env
+    n_pairs = m * (m - 1) // 2
+    rounds = (m - 1) // 2 // lanes
+    out = []
+    for lane in range(lanes):
+        own, part = [], []
+        for t in range(rounds):
+            a = lanes * t + lane
+            lo, j = a, a
+            for _ in range(m):
+                if j == m - 1:
+                    j, lo = m - 1 - a, m - 2 - a
+                else:
+                    j += 1
+                own.append(lo)
+                part.append(j)
+        q0 = lanes * rounds * m
+        v, s = divmod(q0 + lane, m)
+        for q in range(q0, n_pairs, lanes):
+            if q + lane < n_pairs:
+                first = s < m - 1 - v
+                own.append(v if first else m - 2 - v)
+                part.append(v + 1 + s if first else s)
+            s += lanes
+            while s >= m:
+                s -= m
+                v += 1
+        out.append(np.stack([np.asarray(own, np.int64), np.asarray(part, np.int64)], 1).reshape(-1, 2))
+    return out
 
 
 def lane_layout(m: int, b: int) -> tuple:
@@ -406,13 +458,13 @@ def _sample_set_plain(mc: MultiConsts, noise: UniformStream, goal: bool):
 
 def _autoreset_step_plain(mc: MultiConsts, noise: UniformStream, st, U):
     """One step: ``8M + 1`` state planes in, the ``18M + 6`` output planes
-    (as a list) out."""
+    (as a list) and the cycles each env ran up to its latch out."""
     kc, m = mc.base, mc.m
     f = kc.f
     std_pos, std_vel = f['std_pos'], f['std_vel']
     P, V, A, G = (list(st[k * 2 * m:(k + 1) * 2 * m]) for k in range(4))
     steps = st[8 * m]
-    P, V, A, wall_f, mover_f, _ = _cycles_plain(mc, noise, P, V, A, U)
+    P, V, A, wall_f, mover_f, ran = _cycles_plain(mc, noise, P, V, A, U)
     f_A = list(A)
 
     f_ag, f_v = [], []
@@ -450,26 +502,19 @@ def _autoreset_step_plain(mc: MultiConsts, noise: UniformStream, st, U):
         s_v += [torch.where(do_reset, V[2 * i] + n3 * std_vel, f_v[2 * i]),
                 torch.where(do_reset, V[2 * i + 1] + n4 * std_vel, f_v[2 * i + 1])]
     return (P + V + A + G + [steps] + s_v + s_ag + f_v + f_ag + f_A
-            + [wall_f, mover_f, num_unreached, stalled_f, torch.where(done, s_trials + g_trials, 0.0)])
+            + [wall_f, mover_f, num_unreached, stalled_f, torch.where(done, s_trials + g_trials, 0.0)]), ran
 
 
 def planning_multi_autoreset_plain(state: torch.Tensor, action: torch.Tensor, mc: MultiConsts,
-                                   uniforms: torch.Tensor) -> torch.Tensor:
+                                   uniforms: torch.Tensor, cycles_run: bool = False):
     """Plain version of kernel H: ``[8M + 1, B]`` state + ``[2M, B]`` action
-    -> ``[18M + 6, B]`` over ``[multi_noise_planes, B]`` uniforms."""
+    -> ``[18M + 6, B]`` over ``[multi_noise_planes, B]`` uniforms.  With
+    ``cycles_run``, (those planes, ``[B]``: the control cycles each env ran,
+    up to and including the one that latches it, the work its data needs)."""
     noise = UniformStream(uniforms)
-    out = _autoreset_step_plain(mc, noise, list(state), list(action))
+    out, ran = _autoreset_step_plain(mc, noise, list(state), list(action))
     noise.finalize()
-    return torch.stack(out)
-
-
-def cycles_run_plain(state: torch.Tensor, action: torch.Tensor, mc: MultiConsts,
-                     uniforms: torch.Tensor) -> torch.Tensor:
-    """``[B]``: the control cycles each env of a kernel H step runs, up to
-    and including the one that latches it (the work its data needs)."""
-    m = mc.m
-    P, V, A = (list(state[k * 2 * m:(k + 1) * 2 * m]) for k in range(3))
-    return _cycles_plain(mc, UniformStream(uniforms), P, V, A, list(action))[5]
+    return (torch.stack(out), ran) if cycles_run else torch.stack(out)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,14 @@ not take M movers reports the error), and at 4 movers also without the
 control cycles.  ``--family layouts``: the same launches in every lane
 layout (G, L) kernel H takes, the table the wrapper's ``LANE_TABLE`` is
 read from (``--movers`` and ``--widths`` narrow it, e.g. to the widths
-around ``WIDE_BATCH``).
+around ``WIDE_BATCH``).  ``--family many``: kernel H's device ms per launch
+(the profiler's, median of 5) at 40 cycles and ``cand_k`` 16
+on ``ladder_state``'s planted, cycles-only and sets-only states of
+``--movers`` (default 129 and 256) on a ladder of slots, circle and box, at
+``--widths`` (default 4096), in the wrapper's layout or, with
+``--every-layout``, in each slot layout with the many-mover variant forced
+beside them (random start sets stall from about 33 movers, so these states
+are planted).
 
 Single-mover planning (``--family planning``): ``planning.make_fused_rollout``
 of the default configuration (3x3 table, circle r=0.11, acc, 40 cycles;
@@ -109,18 +116,45 @@ def device_profile(fn) -> dict:
             'kernels': {name[:60]: {'launches': n, 'ms_per_launch': us / n / 1e3} for name, (n, us) in top}}
 
 
-def launch_device_ms(fn, launches: int) -> float:
-    """The card's median ms per launch of ``fn()`` (one kernel a call) over
-    ``launches`` calls back to back, from the profiler's kernel records: the
-    device's time whatever the host's rate of enqueueing them."""
+#: takes of ``launch_device_runs`` in which the profiler handed back fewer
+#: kernel records than launches ('retaken'), and calls that then fell back
+#: to CUDA events ('timed_by_events'); ``chip_smoke.py`` reports them
+PROFILER_MISSES = {'retaken': 0, 'timed_by_events': 0}
+
+
+def launch_device_runs(fn, launches: int, takes: int = 3) -> list:
+    """The card's ms of each of ``launches`` calls of ``fn()`` (one kernel a
+    call) back to back, from the profiler's kernel records: the device's
+    time whatever the host's rate of enqueueing them.  The profiler now and
+    then hands back no kernel records at all; such a take is profiled again,
+    and after ``takes`` takes short of records each call is timed between
+    two CUDA events instead (the kernel and the gap before it), counted in
+    ``PROFILER_MISSES``."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    return statistics.median(evt.time_range.elapsed_us() / 1e3 for evt in prof.events()
-                             if evt.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(takes):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        runs = [evt.time_range.elapsed_us() / 1e3 for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if len(runs) >= launches:
+            return runs
+        PROFILER_MISSES['retaken'] += 1
+    PROFILER_MISSES['timed_by_events'] += 1
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(launches)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def launch_device_ms(fn, launches: int) -> float:
+    """The median of ``launch_device_runs``."""
+    return statistics.median(launch_device_runs(fn, launches))
 
 
 def launch_cost(b: int, device: str = 'cuda:0', groups: int = 20, per_group: int = 16) -> dict:
@@ -291,6 +325,113 @@ def kernel_h_layouts(movers=tuple(MULTI_TABLES), widths=WIDTHS, device: str = 'c
             picked = 'G={},L={}'.format(*kmulti.lane_layout(m, b))
             out[f'M={m},B={b}'] = {'ms': times, 'fastest': min(times, key=times.get), 'wrapper': picked,
                                    'wrapper_over_fastest': times[picked] / min(times.values())}
+    return out
+
+
+#: the box kernel H's many-mover timings use (half-extents; chip_smoke.py's box planning configurations)
+LADDER_BOX = {'shape': 'box', 'size': [0.09, 0.08]}
+#: the states of ``ladder_state``: 'planted' (a quarter of the envs at a wall, a quarter head-on, every 8th
+#: about to truncate), 'cycles' (no env done: every env runs all its cycles, none samples), 'sets' (every
+#: env latched by a wall in cycle 0: one cycle, then the restart's 2 x cand_k candidate sets)
+LADDER_STATES = ('planted', 'cycles', 'sets')
+
+
+def ladder_state(m: int, box: bool, b: int, num_cycles: int, kind: str = 'planted', device: str = 'cuda:0'):
+    """(config, params, state planes, action planes) of M movers on a square
+    grid of slots 0.42 m apart on the smallest full table that holds them
+    with 0.3 m margins (circle r = 0.11, or ``LADDER_BOX``), at
+    ``num_cycles`` cycles, in one of ``LADDER_STATES``.  'planted': envs
+    [0, b/4) with mover 0 at the -x wall moving out at 1 m/s, envs
+    [b/4, b/2) with movers 0 and 1 1 mm apart head-on; random velocities,
+    accelerations and actions, every 8th env about to truncate.  'cycles':
+    the movers at rest on their slots, actions in [-0.5, 0.5] (a mover moves
+    under 4 cm in 40 cycles), no env about to truncate.  'sets': the planted
+    state with mover 0 1 cm into the -x wall in every env.  Goals are random
+    in every state (random sets of this many movers are never apart, so
+    ``init_batch`` has no part here)."""
+    import math
+
+    import numpy as np
+
+    from gymnasium_planar_robotics_tpu_torch.models import planning
+
+    nx = math.ceil(math.sqrt(m))
+    side = math.ceil((0.6 + 0.42 * (nx - 1)) / 0.24)
+    cfg, prm = planning.make_planning_env(np.ones((side, side)), m, collision_params=LADDER_BOX if box else {},
+                                          num_cycles=num_cycles, std_noise=[2e-3, 5e-2, 1e-5], device=device)
+    g = torch.Generator(device=device).manual_seed(40 + m)
+    slots = torch.tensor([(0.3 + 0.42 * i, 0.3 + 0.42 * j) for i in range(nx) for j in range(nx)][:m],
+                         device=device)
+    pos = slots[None] + (torch.rand((b, m, 2), generator=g, device=device) - 0.5) * 0.01
+    vel = (torch.rand((b, m, 2), generator=g, device=device) - 0.5) * 0.6
+    hx = prm.c_size.reshape(m, -1)[:, 0]
+    q = b // 4
+    pos[:q, 0, 0] = torch.linspace(float(hx[0]) - 0.01, float(hx[0]) + 0.02, q, device=device)
+    vel[:q, 0] = torch.tensor([-1.0, 0.1], device=device)
+    pos[q:2 * q, 1] = pos[q:2 * q, 0] + torch.stack([hx[0] + hx[1] + 1e-3, torch.zeros_like(hx[0])])
+    vel[q:2 * q, 0] = torch.tensor([1.0, 0.0], device=device)
+    vel[q:2 * q, 1] = torch.tensor([-1.0, 0.0], device=device)
+    acc = (torch.rand((b, m, 2), generator=g, device=device) - 0.5) * 10.0
+    goals = prm.min_xy + torch.rand((b, m, 2), generator=g, device=device) * (prm.max_xy - prm.min_xy)
+    steps = torch.randint(0, cfg.max_episode_steps - 5, (b,), generator=g, device=device, dtype=torch.int32)
+    act = ((torch.rand((2 * m, b), generator=g, device=device) * 2 - 1) * 8.0).contiguous()
+    if kind == 'cycles':
+        pos = slots[None] + (pos - slots[None]).clamp(-0.005, 0.005)
+        vel.zero_()
+        acc.zero_()
+        act = act / 16.0
+    else:
+        steps[::8] = cfg.max_episode_steps - 1
+        if kind == 'sets':
+            pos[:, 0] = slots[0]
+            pos[:, 0, 0] = float(hx[0]) - 0.01
+            vel[:, 0] = torch.tensor([-1.0, 0.1], device=device)
+    state = planning.PlanningState(pos=pos, vel=vel, acc=acc, act=acc.clone(), goals=goals, steps=steps)
+    return cfg, prm, planning.state_to_planes(cfg, state), act
+
+
+def kernel_h_many_ms(movers, widths=(4096,), every_layout=False, launches: int = 5, device: str = 'cuda:0') -> dict:
+    """Kernel H's device ms per launch (Philox, seed 7; the profiler's
+    kernel records, median of ``launches``) at 40 cycles and ``cand_k`` 16
+    on each of ``LADDER_STATES`` at each M, circle and box, and width: in
+    the wrapper's layout, or with
+    ``every_layout`` in each layout ``planning_multi.layouts(M)`` lists and
+    the many-mover variant (32, ``SMEM_SLOTS``) forced, each launch's
+    planes checked equal to the first layout's; with each median its
+    launches' spread ((max - min) / median).  Beside the times, what the
+    state made the launch do: the envs done, the candidate sets tested, the
+    wall and mover latches."""
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
+
+    out = {}
+    for m in movers:
+        for shape in ('circle', 'box'):
+            for b in widths:
+                for kind in LADDER_STATES:
+                    cfg, prm, st, act = ladder_state(m, shape == 'box', b, 40, kind, device)
+                    mc = kmulti.make_multi_kernel_consts(cfg, prm, 16)
+                    lays = [tuple(kmulti.lane_layout(m, b))]
+                    if every_layout:
+                        lays = sorted({*kmulti.layouts(m), (32, kmulti.SMEM_SLOTS)}, key=lambda lay: -lay[1])
+                    ms, spreads, first, equal = {}, {}, None, True
+                    for lay in lays:
+                        with forced_layout(m, lay):
+                            def fn():
+                                return kmulti.planning_multi_autoreset_cuda(st, act, mc, None, 7)
+
+                            got = fn()
+                            runs = launch_device_runs(fn, launches)
+                        key = 'G={},L={}'.format(*lay)
+                        ms[key] = statistics.median(runs)
+                        spreads[key] = (max(runs) - min(runs)) / ms[key]
+                        first = got if first is None else first
+                        equal = equal and torch.equal(got, first)
+                    trials = first[18 * m + 5]
+                    out[f'M={m},{shape},B={b},{kind}'] = {
+                        'device_ms': ms, 'spread': spreads, 'wrapper': 'G={},L={}'.format(*kmulti.lane_layout(m, b)),
+                        'layouts_equal': equal, 'done': int((trials > 0).sum()), 'sets_tested': float(trials.sum()),
+                        'wall_hits': int((first[18 * m + 1] > 0).sum()),
+                        'mover_hits': int((first[18 * m + 2] > 0).sum())}
     return out
 
 
@@ -494,17 +635,22 @@ def main() -> int:
     ap.add_argument('--label', default='')
     ap.add_argument('--repeats', type=int, default=5)
     ap.add_argument('--profile', action='store_true', help='also trace one rollout per cell')
-    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'planning', 'cycles', 'all'), default='all',
-                    help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them); 'cycles': "
-                         "kernels A, B and E, and the public fused steps")
-    ap.add_argument('--movers', default=','.join(map(str, MULTI_TABLES)),
-                    help="'layouts': comma-separated mover counts (keys of MULTI_TABLES)")
+    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'many', 'planning', 'cycles', 'all'),
+                    default='all',
+                    help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them); 'many': "
+                         "kernel H on the ladder states (ladder_state) at --movers and --widths, in the wrapper's "
+                         "layout or (--every-layout) in each; 'cycles': kernels A, B and E, and "
+                         "the public fused steps")
+    ap.add_argument('--movers', default=None,
+                    help="'layouts': comma-separated mover counts (keys of MULTI_TABLES, the default); 'many': any "
+                         "(default 129,256)")
+    ap.add_argument('--every-layout', action='store_true', help="'many': every layout, the many-mover variant forced")
     ap.add_argument('--configs', default=','.join(PLAN_CONFIGS),
                     help="'planning', 'cycles': comma-separated configurations of the kernel timings (keys of "
                          "PLAN_CONFIGS)")
     ap.add_argument('--widths', default=None,
-                    help="'layouts', 'planning', 'cycles': comma-separated env counts of the kernel timings (default "
-                         f"{','.join(map(str, WIDTHS))} and {','.join(map(str, PLAN_WIDTHS))})")
+                    help="'layouts', 'many', 'planning', 'cycles': comma-separated env counts of the kernel timings "
+                         f"(default {','.join(map(str, WIDTHS))}, 4096 and {','.join(map(str, PLAN_WIDTHS))})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device')
@@ -520,7 +666,11 @@ def main() -> int:
         out['multi'] = multi_rates(args.repeats, args.profile)
     widths = tuple(int(b) for b in args.widths.split(',')) if args.widths else None
     if args.family in ('layouts', 'all'):
-        out['layouts'] = kernel_h_layouts(tuple(int(m) for m in args.movers.split(',')), widths or WIDTHS)
+        movers = args.movers or ','.join(map(str, MULTI_TABLES))
+        out['layouts'] = kernel_h_layouts(tuple(int(m) for m in movers.split(',')), widths or WIDTHS)
+    if args.family == 'many':
+        out['many'] = kernel_h_many_ms(tuple(int(m) for m in (args.movers or '129,256').split(',')), widths or (4096,),
+                                       args.every_layout)
     if args.family in ('planning', 'all'):
         out['planning'] = planning_rates(args.repeats, args.profile)
         out['planning_kernels'] = planning_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))

@@ -13,6 +13,16 @@ from, disassembles it with ``cuobjdump -sass`` and prints one JSON line:
   among them;
 - ``ptxas -v``'s registers and spills of kernels B and E.
 
+With ``--kernel-h`` it prints instead the loops of kernel H's many-mover
+variant (``planning_multi_many_kernel``, circle and box) with their
+registers and spills: every loop (a backward branch and its target) in
+address order, its static instruction count, how deep it nests, and the
+opcodes that tell the walks apart (``DADD``: a pair's summed float64 sizes,
+``MUFU.RSQ``: a square root, ``VOTE``: a warp vote, ``LDS``: shared loads;
+``STL``/``LDL``: spills),
+so the instructions a pair of the cycles' and of the candidate sets' walks
+take can be read off.
+
 The loop helpers are ``chip_smoke.py``'s (``--smoke``, by default the one
 at the root of the checkout), so two trees can be read by one rule: run
 this file by its path with each tree on ``PYTHONPATH`` and the same
@@ -30,6 +40,7 @@ import argparse
 import collections
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 #: label -> (kernel instantiation, values a cycle pops, normal pairs a cycle draws, family)
@@ -94,18 +105,36 @@ def consumer_mix(cs, lib: str, kernel: str, q: int) -> dict:
             'reconvergence': sum(n for o, n in ops.items() if o.startswith('BSSY')), 'top': ops.most_common(12)}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--smoke', default=str(Path(__file__).resolve().parents[2] / 'chip_smoke.py'),
-                    help="the chip_smoke.py whose loop helpers to use")
-    args = ap.parse_args()
-    cs = load_smoke(Path(args.smoke))
-    from gymnasium_planar_robotics_tpu_torch.ops.kernels import build
+def loop_table(cs, lib: str, kernel: str) -> list:
+    """Every loop of ``kernel`` (a substring of its mangled name) in address
+    order: [first, last] address, instructions, nesting depth and marker
+    opcode counts."""
+    body, inside = [], False
+    for ln in cs.sass_text(lib).splitlines():
+        if 'Function : ' in ln:
+            inside = kernel in ln
+            continue
+        m = re.search(r'/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);', ln)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    spans = []
+    for addr, op, args in body:
+        t = re.match(r'\s*(0x[0-9a-f]+|\d+)', args) if op.startswith('BRA') else None
+        if t and int(t.group(1), 0) < addr:
+            spans.append((int(t.group(1), 0), addr))
+    out = []
+    for lo, hi in sorted(set(spans)):
+        ops = [o for a, o, _ in body if lo <= a <= hi]
+        out.append({'span': [hex(lo), hex(hi)], 'instructions': len(ops),
+                    'depth': sum(a <= lo and hi <= b and (a, b) != (lo, hi) for a, b in set(spans)),
+                    **{k: sum(o.startswith(p) for o in ops) for k, p in (
+                        ('DADD', 'DADD'), ('MUFU_RSQ', 'MUFU.RSQ'), ('VOTE', 'VOTE'), ('LDS', 'LDS'), ('STS', 'STS'),
+                        ('FMUL', 'FMUL'), ('BRA', 'BRA'), ('STL', 'STL'), ('LDL', 'LDL'))}})
+    return out
 
-    build.lib()
-    lib = build.build_info['path']
-    out = {'lib': lib, 'per_cycle': {name: counts(cs, lib, *spec) for name, spec in KERNELS.items()},
-           'consumer_mix': {name: consumer_mix(cs, lib, KERNELS[name][0], KERNELS[name][1]) for name in ('B', 'B_box')}}
+
+def ptxas_lines(build) -> dict:
+    """``ptxas -v``'s registers and spills of each kernel in the build log."""
     regs, cur = {}, None
     for ln in build.build_info.get('log', '').splitlines():
         if 'Function properties for' in ln:
@@ -115,7 +144,28 @@ def main() -> int:
         elif cur and 'Used' in ln and 'registers' in ln:
             regs[cur] = ln.split('Used')[1].split(',')[0].strip() + '; ' + regs.get(cur, '')
             cur = None
-    out['ptxas'] = {k: v for k, v in regs.items() if 'cycles_kernel' in k}
+    return regs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--smoke', default=str(Path(__file__).resolve().parents[2] / 'chip_smoke.py'),
+                    help="the chip_smoke.py whose loop helpers to use")
+    ap.add_argument('--kernel-h', action='store_true', help="the loops of kernel H's many-mover variant instead")
+    args = ap.parse_args()
+    cs = load_smoke(Path(args.smoke))
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import build
+
+    build.lib()
+    lib = build.build_info['path']
+    if args.kernel_h:
+        print(json.dumps({'lib': lib, 'loops': {shape: loop_table(cs, lib, f'planning_multi_many_kernelILb{box}E')
+                                                for shape, box in (('circle', 0), ('box', 1))},
+                          'ptxas': {k: v for k, v in ptxas_lines(build).items() if 'many' in k}}))
+        return 0
+    out = {'lib': lib, 'per_cycle': {name: counts(cs, lib, *spec) for name, spec in KERNELS.items()},
+           'consumer_mix': {name: consumer_mix(cs, lib, KERNELS[name][0], KERNELS[name][1]) for name in ('B', 'B_box')}}
+    out['ptxas'] = {k: v for k, v in ptxas_lines(build).items() if 'cycles_kernel' in k}
     print(json.dumps(out))
     return 0
 

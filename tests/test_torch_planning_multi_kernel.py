@@ -165,25 +165,28 @@ def test_multi_constants_match_pallas(name):
 
 @pytest.mark.parametrize('b', [1, 4096, kmulti.WIDE_BATCH, kmulti.WIDE_BATCH + 1, 65536])
 def test_lane_layout_covers_the_movers(b):
-    """The wrapper's (G, L) for every M it takes and width B: up to
-    ``SLOT_MOVERS``, G lanes (a power of two up to 32) with L slots each (an
-    instantiated L) hold all M movers; above, one warp of the many-mover
-    variant (L = ``SMEM_SLOTS``), whose block fits the card's shared memory
-    up to ``MAX_MOVERS`` box movers and no further; it is one of the layouts
-    the kernel is held to on the card; beyond ``MAX_MOVERS`` (and below 2) it
-    raises, naming the bound and the bytes."""
+    """The wrapper's (G, L) for every M it takes and width B is one of the
+    layouts the kernel is held to on the card: up to ``SLOT_MOVERS``, G
+    lanes (a power of two up to 32) with the fewest L slots each (an
+    instantiated L) that hold all M movers, then the many-mover variant (one
+    warp, L = ``SMEM_SLOTS``), which runs any M and is the only layout above
+    ``SLOT_MOVERS``; its largest block (four envs) fits the card's shared
+    memory at every M up to ``MAX_MOVERS``; beyond
+    ``MAX_MOVERS`` (and below 2) it raises, naming the bound and the
+    bytes."""
+    many = (32, kmulti.SMEM_SLOTS)
     for m in range(2, kmulti.MAX_MOVERS + 1):
         g, n = kmulti.lane_layout(m, b)
-        assert (g, n) in kmulti.layouts(m)
+        assert (g, n) in kmulti.layouts(m) and kmulti.layouts(m)[-1] == many
         if m > kmulti.SLOT_MOVERS:
-            assert (g, n) == (32, kmulti.SMEM_SLOTS) and kmulti.layouts(m) == ((32, kmulti.SMEM_SLOTS),), (m, g, n)
-            continue
-        assert g * n >= m and g in kmulti.LANES and n in kmulti.SLOTS, (m, g, n)
-        assert all(lg * ln >= m and (ln == kmulti.SLOTS[0] or lg * kmulti.SLOTS[kmulti.SLOTS.index(ln) - 1] < m)
-                   for lg, ln in kmulti.layouts(m))
+            assert kmulti.layouts(m) == (many,), m
+        slots = [lay for lay in kmulti.layouts(m) if lay != many]
+        assert (g, n) == many or (g, n) in slots, (m, g, n)
+        assert all(lg * ln >= m and lg in kmulti.LANES and ln in kmulti.SLOTS and (
+            ln == kmulti.SLOTS[0] or lg * kmulti.SLOTS[kmulti.SLOTS.index(ln) - 1] < m) for lg, ln in slots)
+        for box in (False, True):
+            assert kmulti.many_smem_bytes(m, box) == 4 * kmulti.many_group_bytes(m, box) <= kmulti.MAX_BLOCK_SMEM
     assert kmulti.SLOT_MOVERS == kmulti.LANES[-1] * kmulti.SLOTS[-1]
-    assert kmulti.many_smem_bytes(kmulti.MAX_MOVERS, True) <= kmulti.MAX_BLOCK_SMEM
-    assert kmulti.many_smem_bytes(kmulti.MAX_MOVERS + 1, True) > kmulti.MAX_BLOCK_SMEM
     for m in (1, kmulti.MAX_MOVERS + 1, 4 * kmulti.MAX_MOVERS):
         with pytest.raises(NotImplementedError, match=f'2 to {kmulti.MAX_MOVERS} movers .* bytes of shared memory'):
             kmulti.lane_layout(m, b)
