@@ -11,8 +11,14 @@ phase:
    build time and the compiler's register report;
 2. kernel A (noise probe) against its plain PyTorch version on injected
    uniforms and on the host copy of its Philox stream, plus the moments of
-   262,144 Philox normals, and the profiler's device time a launch at the
-   main path's shape, beside an empty kernel's on the same grid;
+   262,144 Philox normals, at the shapes the paths launch it at
+   (``A_SHAPES``: 3 pairs x 4096 and 65,536 envs, 3 and 8 pairs x 1 env, 258
+   and 774 pairs x 4096 envs) and at ragged widths (1, 33, 4097 envs; 1-774
+   pairs); the eager paths' call ``noise_probe(..., generator=gen)``: one
+   launch in the Philox mode keyed by the card seed ``draw_seed`` draws, no
+   uniforms, no host synchronisation; and the profiler's device time a
+   launch in both modes at each of ``A_SHAPES``, beside an empty kernel's on
+   the same grid, the bound and ``torch.randn`` of the same count;
 3. kernels B, C and D against their plain versions at 4096 envs, from
    states with the mover planted at the object, in both noise modes:
    injected uniforms, and the kernel's own Philox stream (seed 7, the mode
@@ -194,8 +200,9 @@ before the last is a JSON object with one entry per kernel (A-H, C-feat,
 I's two probes and the box variants of B, C, C-feat and D): its
 launches on its path (and on the sharded path of phase 28), its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox; kernel A:
-the injected uniforms its path's generator draws), the plain version's
-time, and its bound in that mode:
+the profiler's device time at 3 pairs x 4096 envs), the plain version's
+time, its bound in that mode and, for kernel A, ``torch.randn`` of the same
+count (``library_ms``):
 the larger of its bytes (state, action and output planes; the Philox mode
 reads no uniforms) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 counted from this run's inputs (Philox's integer work is not counted, so
@@ -267,6 +274,10 @@ ADAPTER_KERNELS = ('planning_multi_autoreset_many',)  # counted on the adapters'
 TRAIN_KERNELS = ('pushing_autoreset_features',)
 PEAK_KERNELS = ('peak_fma', 'peak_transc')
 BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_box', 'pushing_autoreset_features_box')
+# kernel A's (pairs, envs) on the paths: the main path's observation, the
+# wide batch, the single-env runner's observation and reset, a 129-mover
+# observation and a 129-mover box reset's noisy checks
+A_SHAPES = ((3, 4096), (3, 65536), (3, 1), (8, 1), (258, 4096), (774, 4096))
 M_MAIN = 4  # movers of the M-mover main configuration (bench.py:401)
 M_WIDE = 12  # movers of the wide M-mover configuration: full 8x8 table, cand_k=128
 H_LAYOUT_MOVERS = (2, 4, 8, 12)  # movers at which kernel H is timed in every lane layout
@@ -538,6 +549,11 @@ def main() -> int:
         """The uniforms a kernel launched with ``seed`` draws, on the card."""
         return noise.philox_uniforms(seed, n, b).to(dev)
 
+    def philox_normals(seed, d, b):
+        """Kernel A's plain version over the host copy of the Philox stream
+        of ``seed`` (``d`` pairs of ``b`` envs), on the card."""
+        return noise.noise_probe_plain(philox(seed, 2 * d, b))
+
     # -- 2. kernel A ---------------------------------------------------------
     @phase('kernel_A_noise_probe')
     def _():
@@ -558,33 +574,73 @@ def main() -> int:
         require(ok_ph, f'Philox stream disagrees with its host copy: {err_ph}')
         require(abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(tail - 0.0455) < 0.003,
                 f'Philox normal moments off: mean {mean} std {std} P(|z|>2) {tail}')
-        # at the main path's shape (observation noise: 3 pairs per env), in
-        # the Philox mode the path launches
-        got_m = noise.noise_probe_cuda(3, B_MAIN, dev, seed=7)
-        err_m, ok_m = compare(got_m, noise.noise_probe_plain(noise.philox_uniforms(7, 6, B_MAIN).to(dev)), 2e-6, 2e-6)
-        require(ok_m, f'Philox stream at the main shape disagrees with its host copy: {err_m}')
-        u3 = torch.rand((6, B_MAIN), generator=gen, device=dev)
+        # both modes at the paths' shapes (A_SHAPES) and at ragged widths,
+        # odd and even pair counts (a thread's Philox block with one pair or two)
+        checks, errs = {}, {'injected': 0.0, 'philox': 0.0}
+        for d, b in sorted(set(A_SHAPES) | {(d, b) for d in (1, 3, 4, 8, 258, 774) for b in (1, 33, 4097)}):
+            u_db = torch.rand((2 * d, b), generator=gen, device=dev)
+            for mode, got_db, ref_db in (
+                    ('injected', noise.noise_probe_cuda(d, b, dev, uniforms=u_db), noise.noise_probe_plain(u_db)),
+                    ('philox', noise.noise_probe_cuda(d, b, dev, seed=7 + d), philox_normals(7 + d, d, b))):
+                err_db, ok_db = compare(got_db, ref_db, 2e-6, 2e-6)
+                require(ok_db, f'{mode} at {d} pairs x {b} envs disagrees: {err_db}')
+                errs[mode] = max(errs[mode], err_db)
+            checks[f'{d}x{b}'] = 'ok'
+        # the eager paths' call: A's Philox mode keyed by draw_seed(gen) (a
+        # card tensor), one launch, no uniforms drawn, no host synchronisation
+        twin = torch.Generator(device=dev)
+        twin.set_state(gen.get_state())
+        seed_t = kernels.draw_seed(twin)
+        draw_uniforms, kernels.draw_uniforms = kernels.draw_uniforms, None  # a call of it raises
+        before = kernels.LAUNCHES['noise_probe']
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    got_g = noise.noise_probe(258, B_MAIN, dev, generator=gen)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        finally:
+            kernels.draw_uniforms = draw_uniforms
+        syncs = sum('called a synchronizing' in str(w.message) for w in caught)
+        require(kernels.LAUNCHES['noise_probe'] == before + 1 and syncs == 0,
+                f'the paths\' call: {kernels.LAUNCHES["noise_probe"] - before} launches, {syncs} host syncs')
+        err_g, ok_g = compare(got_g, philox_normals(int(seed_t), 258, B_MAIN), 2e-6, 2e-6)
+        require(ok_g, f'the paths\' call disagrees with its seed\'s stream: {err_g}')
+        # device ms a launch (the profiler's) of both modes at each shape, an
+        # empty kernel on the same grid (the floor of a launch of that
+        # shape), the bound, and torch.randn of the same count (a yardstick:
+        # another stream, which the port never calls)
+        shapes = {}
+        for d, b in A_SHAPES:
+            u_db = torch.rand((2 * d, b), generator=gen, device=dev)
+            ops = ops_total((d * b, 'normal_pair'))
+            cell = {'library_ms': launch_device_ms(lambda: torch.randn((2 * d, b), device=dev), 100)}
+            for mode, kw, nbytes in (('philox', {'seed': 7}, 8 * d * b), ('injected', {'uniforms': u_db}, 16 * d * b)):
+                bound_ms, bound_by = bound(nbytes, ops)
+                cell[mode] = {
+                    'device_ms': launch_device_ms(lambda: noise.noise_probe_cuda(d, b, dev, **kw), 100),
+                    'empty_ms': launch_device_ms(lambda: noise.empty_launch_cuda(b, dev, d, mode == 'injected'), 100),
+                    'bound_ms': bound_ms, 'bound_by': bound_by}
+            shapes[f'{d}x{b}'] = cell
+        main = shapes[f'3x{B_MAIN}']
         ms, ms_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7))
-        injected_ms, injected_groups = time_groups(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3))
-        # the profiler's kernel records: a launch of A is shorter than the host's enqueue of it; an empty
-        # kernel on A's grid beside it is the floor of a launch of that shape
-        device_ms = {'philox': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, seed=7), 100),
-                     'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, B_MAIN, dev, uniforms=u3), 100),
-                     'empty_kernel_same_grid': launch_device_ms(lambda: noise.empty_launch_cuda(B_MAIN, dev), 100)}
+        u3 = philox(7, 6, B_MAIN)
         plain_ms = time_ms(lambda: noise.noise_probe_plain(u3), 50)
-        ops = ops_total((3 * B_MAIN, 'normal_pair'))
-        bound_ms, bound_by = bound(6 * 4 * B_MAIN, ops)
-        # the path draws A's uniforms from its generator (no seed to fetch
-        # from the card): the kernels line reports the injected mode
-        injected_bound_ms, injected_bound_by = bound(12 * 4 * B_MAIN, ops)
-        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph, err_m), ms=injected_ms, plain_ms=plain_ms,
-                                     bound_ms=injected_bound_ms, bound_by=injected_bound_by)
-        return {'max_abs_err_injected': err_inj, 'max_abs_err_philox': max(err_ph, err_m),
-                'tol': 'atol 2e-6 + rtol 2e-6', 'philox_samples': 2 * n_env, 'mean': mean, 'std': std,
-                'p_abs_gt_2': tail, 'ms': ms, 'ms_groups': ms_groups, 'ms_spread': spread(ms_groups),
-                'bound_ms': bound_ms, 'bound_by': bound_by, 'plain_ms': plain_ms,
-                'injected_ms': injected_ms, 'injected_groups': injected_groups, 'injected_bound_ms': injected_bound_ms,
-                'device_ms': device_ms}
+        # the kernels line: the Philox mode the paths launch, at the main
+        # path's shape (3 pairs x 4096 envs), by the profiler's device time
+        # (the events' time of a launch this short is the host's enqueue)
+        kstats['noise_probe'].update(max_abs_err=max(err_inj, err_ph, err_g, *errs.values()),
+                                     ms=main['philox']['device_ms'], plain_ms=plain_ms,
+                                     bound_ms=main['philox']['bound_ms'], bound_by=main['philox']['bound_by'],
+                                     library_ms=main['library_ms'])
+        return {'max_abs_err_injected': max(err_inj, errs['injected']),
+                'max_abs_err_philox': max(err_ph, err_g, errs['philox']), 'tol': 'atol 2e-6 + rtol 2e-6',
+                'checked': checks, 'philox_samples': 2 * n_env, 'mean': mean, 'std': std, 'p_abs_gt_2': tail,
+                'paths_call': {'launches': 1, 'host_syncs': syncs, 'max_abs_err': err_g},
+                'ms_events': ms, 'ms_groups': ms_groups, 'ms_spread': spread(ms_groups), 'plain_ms': plain_ms,
+                'shapes': shapes, 'threads': noise.A_THREADS, 'waves': noise.A_WAVES}
 
     # -- 3. kernels B, C, D ---------------------------------------------------
     config, params = P.make_pushing_env(device=dev)
@@ -3194,8 +3250,9 @@ def main() -> int:
             'max_abs_err': st.get('max_abs_err'),
             'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'), 'bound_ms': st.get('bound_ms'),
             'bound_by': st.get('bound_by'),
-            # no single PyTorch call computes any of these functions
-            'library_ms': None,
+            # torch.randn beside kernel A (another stream, never called by
+            # the port); no single PyTorch call computes any of the others
+            'library_ms': st.get('library_ms'),
         })
     report['kernels'] = kernel_rows
     out_dir = ROOT / 'chiprun_out'

@@ -4,7 +4,8 @@
 // of one mover's control cycle.
 //
 // Layout: one thread per env (pushing's autoreset kernels C and D: one
-// consumer lane per env, pushing.cuh); every input and output is an f32
+// consumer lane per env, pushing.cuh; kernel A: a thread per env and
+// Philox block, noise_probe.cu); every input and output is an f32
 // plane of B envs stored structure-of-arrays as [planes, B], so
 // neighbouring threads read neighbouring addresses.  The tail block masks
 // envs >= B.

@@ -118,14 +118,16 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        p, i64, i32, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64
+        p, i64, i32, u64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint
         for names in ('gprt_const_names', 'gprt_planning_const_names'):
             getattr(handle, names).restype = ctypes.c_char_p
             getattr(handle, names).argtypes = []
         handle.gprt_noise_probe.restype = i32
-        handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, p]
+        # (noise, out, B, draws, seed, seed_dev, grid_x, grid_y, threads, stream)
+        handle.gprt_noise_probe.argtypes = [p, p, i64, i32, u64, p, u32, u32, i32, p]
         handle.gprt_empty_launch.restype = i32
-        handle.gprt_empty_launch.argtypes = [i64, p]
+        # (grid_x, grid_y, threads, stream)
+        handle.gprt_empty_launch.argtypes = [u32, u32, i32, p]
         # (in, noise, out, B, consts, num_cycles, jerk, box, seed, seed_dev, producer, stream)
         handle.gprt_pushing_cycles.restype = i32
         handle.gprt_pushing_cycles.argtypes = [p, p, p, i64, p, i32, i32, i32, u64, p, i32, p]

@@ -120,6 +120,58 @@ def philox_uniforms(seed: int, n_draws: int, batch: int, envs=None) -> torch.Ten
 # kernel A: the noise probe
 # ---------------------------------------------------------------------------
 
+#: kernel A's block size, and the cap on its grid's rows of units in waves
+#: of the card's resident threads (``probe_grid``; ``csrc/noise_probe.cu``)
+A_THREADS = 128
+A_WAVES = 1
+#: the resident threads of an H100 SXM (132 SMs x 2048): the mirror's
+#: default; a launch reads its card's
+H100_RESIDENT = 132 * 2048
+
+
+def probe_grid(draws: int, batch: int, inject: bool, resident: int = H100_RESIDENT):
+    """(grid_x, grid_y, threads) of kernel A for ``draws`` pairs of ``batch``
+    envs: ``grid_x`` blocks of ``A_THREADS`` cover the envs; ``grid_y`` rows
+    of blocks walk the units (Philox blocks, or pairs in the injected mode),
+    as many as there are up to ``A_WAVES`` waves of ``resident`` threads
+    (and the card's 65,535 rows)."""
+    units = draws if inject else -(-draws // 2)
+    gx = -(-batch // A_THREADS)
+    rows = max(1, -(-A_WAVES * resident // (gx * A_THREADS)))
+    return gx, min(units, rows, 65535), A_THREADS
+
+
+def probe_writes(draws: int, batch: int, inject: bool, resident: int = H100_RESIDENT):
+    """A mirror of kernel A's map from thread to work on ``probe_grid``'s
+    grid: for every normal it writes, arrays ``(thread, row, env, block,
+    word)``: thread ``thread`` (numbered ``(by * gx + bx) * threads + tid``)
+    writes output row ``row`` of env ``env`` from word ``word`` of the Philox
+    block at counter ``(block, env, 0, 0)`` (in the injected mode, from
+    uniform row ``row``).  The CPU tests hold it to every ``(row, env)``
+    written once, from the word ``philox_bits`` puts there; nothing on the
+    card's path uses it."""
+    gx, gy, threads = probe_grid(draws, batch, inject, resident)
+    units = draws if inject else -(-draws // 2)
+    by, bx, tid = np.meshgrid(np.arange(gy), np.arange(gx), np.arange(threads), indexing='ij')
+    thread, env, first = ((by * gx + bx) * threads + tid).ravel(), (bx * threads + tid).ravel(), by.ravel()
+    live = env < batch
+    thread, env, first = thread[live], env[live], first[live]
+    parts = []
+    for unit0 in range(0, units, gy):  # the loop's trips: unit first + unit0
+        unit = first + unit0
+        on = unit < units
+        if inject:
+            halves = [(0, on)]  # rows 2p, 2p + 1
+            base = 2 * unit
+        else:
+            halves = [(0, on), (2, on & (2 * unit + 1 < draws))]  # pairs 2k and, if it exists, 2k + 1
+            base = 4 * unit
+        for off, keep in halves:
+            for r in (off, off + 1):
+                parts.append((thread[keep], (base + r)[keep], env[keep]))
+    thread, row, env = (np.concatenate(x) for x in zip(*parts))
+    return thread, row, env, row // 4, row % 4
+
 
 def noise_probe_plain(uniforms: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel A: ``[2*draws, B]`` uniforms -> ``[2*draws, B]``
@@ -132,38 +184,49 @@ def noise_probe_plain(uniforms: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | None = None,
-                     seed: int | torch.Tensor = 0) -> torch.Tensor:
-    """Kernel A on the card: injected ``uniforms`` or the Philox stream of ``seed``."""
+def _cuda_device(device, what: str) -> torch.device:
     device = torch.device(device)
     if device.type != 'cuda':
-        raise ValueError(f'noise_probe_cuda needs a CUDA device, got {device}')
-    if device.index is None:
-        device = torch.device('cuda', torch.cuda.current_device())
+        raise ValueError(f'{what} needs a CUDA device, got {device}')
+    return torch.device('cuda', torch.cuda.current_device()) if device.index is None else device
+
+
+def resident_threads(device: torch.device) -> int:
+    """Threads the card holds at once: its SMs times threads an SM."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def noise_probe_cuda(draws: int, batch: int, device, uniforms: torch.Tensor | None = None,
+                     seed: int | torch.Tensor = 0) -> torch.Tensor:
+    """Kernel A on the card: injected ``uniforms`` or the Philox stream of
+    ``seed`` (an int, or a one-element int64 tensor on the card)."""
+    device = _cuda_device(device, 'noise_probe_cuda')
     if uniforms is not None:
         kernels.check_plane(uniforms, 'uniforms', (2 * draws, batch))
         if uniforms.device != device:
             raise ValueError(f'uniforms lie on {uniforms.device}, expected {device}')
     out = torch.empty((2 * draws, batch), dtype=torch.float32, device=device)
+    grid = probe_grid(draws, batch, uniforms is not None, resident_threads(device))
     with torch.cuda.device(device):
         err = build.lib().gprt_noise_probe(
             uniforms.data_ptr() if uniforms is not None else None, out.data_ptr(), batch, draws,
-            *kernels.seed_args(seed, device), kernels.stream_ptr(out),
+            *kernels.seed_args(seed, device), *grid, kernels.stream_ptr(out),
         )
     build.check(err, 'noise_probe')
     kernels.LAUNCHES['noise_probe'] += 1
     return out
 
 
-def empty_launch_cuda(batch: int, device) -> None:
-    """An empty kernel on kernel A's grid for ``batch`` envs: the floor of a
-    launch of A's shape, timed beside it (no plain version: it computes
-    nothing; not counted in ``LAUNCHES``, as no path launches it)."""
-    device = torch.device(device)
-    if device.type != 'cuda':
-        raise ValueError(f'empty_launch_cuda needs a CUDA device, got {device}')
+def empty_launch_cuda(batch: int, device, draws: int, inject: bool) -> None:
+    """An empty kernel on kernel A's grid for ``draws`` pairs of ``batch``
+    envs in the given mode: the floor of a launch of A's shape, timed beside
+    it (no plain version: it computes nothing; not counted in ``LAUNCHES``,
+    as no path launches it)."""
+    device = _cuda_device(device, 'empty_launch_cuda')
+    grid = probe_grid(draws, batch, inject, resident_threads(device))
     with torch.cuda.device(device):
-        build.check(build.lib().gprt_empty_launch(batch, torch.cuda.current_stream(device).cuda_stream),
+        build.check(build.lib().gprt_empty_launch(*grid, torch.cuda.current_stream(device).cuda_stream),
                     'empty_launch')
 
 
@@ -172,14 +235,17 @@ def noise_probe(draws: int, batch: int, device, *, uniforms: torch.Tensor | None
     """``[2*draws, batch]`` standard normals on ``device`` by Box-Muller.
 
     CPU: the plain version over ``uniforms`` (or ones drawn from
-    ``generator``).  CUDA: kernel A over its Philox stream keyed by
-    ``seed``, else over ``uniforms``, drawn from ``generator`` (on the card,
-    so no step waits on the host for a seed) when not given."""
+    ``generator``).  CUDA: kernel A over ``uniforms`` when given, else over
+    its Philox stream keyed by ``seed``, which is drawn from ``generator``
+    when not given (``kernels.draw_seed``: a card tensor from a generator on
+    the card, so no call waits on the host; an int from a CPU generator)."""
     device = torch.device(device)
-    if uniforms is None and (seed is None or device.type == 'cpu'):
-        uniforms = kernels.draw_uniforms(2 * draws, batch, device, generator)
     if device.type == 'cpu':
+        if uniforms is None:
+            uniforms = kernels.draw_uniforms(2 * draws, batch, device, generator)
         return noise_probe_plain(uniforms)
     if device.type != 'cuda':
         raise ValueError(f'unsupported device {device}')
+    if uniforms is None and seed is None:
+        seed = kernels.draw_seed(generator)
     return noise_probe_cuda(draws, batch, device, uniforms, 0 if seed is None else seed)

@@ -42,10 +42,8 @@ is read from.  The producer-warp count is compiled in
 (``kPlanningProducers``, ``csrc/planning.cuh``): to time another, change it
 there and run again.
 
-The cycles kernels (``--family cycles``): kernel A's device ms per launch at
-the main path's shape (3 normal pairs at 4096 envs, the injected uniforms
-its path draws, and its Philox mode); kernel B's (circle and box, acc) and
-kernel E's (the four ``PLAN_CONFIGS``) at each of ``--widths`` (default
+The cycles kernels (``--family cycles``): kernel B's device ms per launch
+(circle and box, acc) and kernel E's (the four ``PLAN_CONFIGS``) at each of ``--widths`` (default
 4096-65,536) on a state eight random steps into a rollout, in both block
 shapes where the tree's wrapper switches B and E
 (``uses_producer(b, kc, 'cycles')``), else in the wrapper's: the tables
@@ -53,6 +51,13 @@ shapes where the tree's wrapper switches B and E
 from.  Beside them, the ms a step of each family's public
 ``make_fused_step`` (kernel B, kernel E) at 4096 envs, with the host's time
 to enqueue a step.
+
+Kernel A (``--family noise``): the profiler's device ms a launch at each of
+``NOISE_SHAPES`` (the shapes the eager paths launch it at) in its Philox and
+injected modes, beside an empty kernel on the same grid, its bound and
+``torch.randn`` of the same count; with ``--a-layouts`` also on forced grids
+(block size, and the cap on its rows in waves); and the ms of the eager paths' call
+``noise.noise_probe(..., generator=g)`` with a card and a CPU generator.
 
 Every cell runs ``--repeats`` times and reports every repeat, their median
 and their spread ((max - min) / median), and the host's time to enqueue each
@@ -577,20 +582,17 @@ def step_ms(step, state, b: int, device: str, iters: int = 50) -> dict:
 
 def cycles_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: str = 'cuda:0',
                      launches: int = 100) -> dict:
-    """Kernel A's device ms per launch at the main path's shape, kernels B
-    (circle and box) and E (``configs``) at each width in both block shapes
-    where the tree's wrapper switches them (``switches_cycles``), else in the
-    wrapper's (Philox, seed 7; ``launch_device_ms``), and the public fused
-    steps of both families at 4096 envs (``step_ms``)."""
+    """Kernels B (circle and box) and E (``configs``) at each width in both
+    block shapes where the tree's wrapper switches them
+    (``switches_cycles``), else in the wrapper's (Philox, seed 7;
+    ``launch_device_ms``), and the public fused steps of both families at
+    4096 envs (``step_ms``)."""
     from gymnasium_planar_robotics_tpu_torch.models import planning, pushing
-    from gymnasium_planar_robotics_tpu_torch.ops.kernels import noise
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
     from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 
     b_main = WIDTHS[0]
-    u = torch.rand((6, b_main), generator=torch.Generator(device=device).manual_seed(42), device=device)
-    out = {'A': {'injected': launch_device_ms(lambda: noise.noise_probe_cuda(3, b_main, device, uniforms=u), launches),
-                 'philox': launch_device_ms(lambda: noise.noise_probe_cuda(3, b_main, device, seed=7), launches)}}
+    out = {}
 
     def both_shapes(module, launch) -> dict:
         if not switches_cycles(module):
@@ -630,21 +632,100 @@ def cycles_kernel_ms(widths=PLAN_WIDTHS, configs=tuple(PLAN_CONFIGS), device: st
     return out
 
 
+#: kernel A's shapes, (normal pairs, envs): the main path's observation
+#: (3 x 4096), the wide batch, the single-env runner's observation and reset
+#: (3 and 8 x 1), a 129-mover observation (258 x 4096) and a 129-mover box
+#: reset's noisy checks (774 x 4096)
+NOISE_SHAPES = ((3, 4096), (3, 65536), (3, 1), (8, 1), (258, 4096), (774, 4096))
+
+
+def path_device_ms(fn, calls: int = 20) -> float:
+    """The card's busy ms a call of ``fn()`` (every kernel of the call
+    summed; the profiler's records over ``calls`` calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(evt.time_range.elapsed_us() for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
+def noise_kernel_ms(shapes=NOISE_SHAPES, layouts=((None, None),), device: str = 'cuda:0',
+                    launches: int = 100) -> dict:
+    """Kernel A at each (pairs, envs) of ``shapes`` in both modes: the
+    profiler's device ms a launch (``launch_device_ms``), an empty kernel's
+    on the same grid, the bound (bytes: the output, and the uniforms in the
+    injected mode, over 3.35 TB/s; or ``OPS['normal_pair']`` over 67
+    TFLOP/s, whichever is longer) and ``torch.randn`` of the same count (a
+    yardstick: another stream, which the port never calls).  ``layouts``:
+    (block size, waves) pairs to force where the tree's wrapper has them
+    (``noise.A_THREADS``, ``A_WAVES``: ``noise.probe_grid``; (None, None) is
+    the wrapper's own).  Beside them, the ms of the call the eager paths make,
+    ``noise.noise_probe(pairs, envs, device, generator=g)``, with a card
+    generator and with a CPU one: the card's busy ms a call (every kernel),
+    and the events' and the host's ms a call back to back."""
+    import inspect
+
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import noise
+    from gymnasium_planar_robotics_tpu_torch.utils.roofline import OPS
+
+    grid_args = 'inject' in inspect.signature(noise.empty_launch_cuda).parameters
+    out = {}
+    for draws, b in shapes:
+        u = torch.rand((2 * draws, b), generator=torch.Generator(device=device).manual_seed(42), device=device)
+        cell = {'library_randn': launch_device_ms(lambda: torch.randn((2 * draws, b), device=device), launches)}
+        for threads, waves in layouts:
+            saved = {k: getattr(noise, k) for k in ('A_THREADS', 'A_WAVES') if hasattr(noise, k)}
+            if threads is not None and not saved:
+                continue  # a tree whose kernel A has one layout
+            if threads is not None:
+                noise.A_THREADS, noise.A_WAVES = threads, waves
+            try:
+                key = 'wrapper' if threads is None else f'{threads}x{waves}'
+                for mode, kw in (('philox', {'seed': 7}), ('injected', {'uniforms': u})):
+                    empty = ((lambda m=mode: noise.empty_launch_cuda(b, device, draws, m == 'injected')) if grid_args
+                             else (lambda: noise.empty_launch_cuda(b, device)))
+                    cell[f'{key},{mode}'] = {
+                        'ms': launch_device_ms(lambda kw=kw: noise.noise_probe_cuda(draws, b, device, **kw), launches),
+                        'empty_ms': launch_device_ms(empty, launches)}
+            finally:
+                for k, v in saved.items():
+                    setattr(noise, k, v)
+        for mode in ('philox', 'injected'):
+            nbytes = 4 * 2 * draws * b * (2 if mode == 'injected' else 1)
+            t_bytes, t_ops = nbytes / 3.35e12, draws * b * sum(OPS['normal_pair']) / 67e12
+            cell[f'bound,{mode}'] = {'ms': max(t_bytes, t_ops) * 1e3, 'by': 'bytes' if t_bytes >= t_ops else
+                                     'operations'}
+        for gname, gen in (('card_generator', torch.Generator(device=device).manual_seed(3)),
+                           ('cpu_generator', torch.Generator().manual_seed(3))):
+            def call(gen=gen):
+                return noise.noise_probe(draws, b, device, generator=gen)
+            events_ms, host_ms = time_ms(call, 50)
+            cell[f'path,{gname}'] = {'busy_ms': path_device_ms(call), 'events_ms': events_ms, 'host_ms': host_ms}
+        out[f'{draws}x{b}'] = cell
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--label', default='')
     ap.add_argument('--repeats', type=int, default=5)
     ap.add_argument('--profile', action='store_true', help='also trace one rollout per cell')
-    ap.add_argument('--family', choices=('pushing', 'multi', 'layouts', 'many', 'planning', 'cycles', 'all'),
-                    default='all',
+    ap.add_argument('--family', default='all',
+                    choices=('pushing', 'multi', 'layouts', 'many', 'planning', 'cycles', 'noise', 'all'),
                     help="'layouts': kernel H in every lane layout (a tree whose kernel H takes them); 'many': "
                          "kernel H on the ladder states (ladder_state) at --movers and --widths, in the wrapper's "
-                         "layout or (--every-layout) in each; 'cycles': kernels A, B and E, and "
-                         "the public fused steps")
+                         "layout or (--every-layout) in each; 'cycles': kernels B and E, and "
+                         "the public fused steps; 'noise': kernel A at NOISE_SHAPES and the eager paths' call")
     ap.add_argument('--movers', default=None,
                     help="'layouts': comma-separated mover counts (keys of MULTI_TABLES, the default); 'many': any "
                          "(default 129,256)")
     ap.add_argument('--every-layout', action='store_true', help="'many': every layout, the many-mover variant forced")
+    ap.add_argument('--a-layouts', default=None,
+                    help="'noise': comma-separated THREADSxWAVES grids of kernel A to force besides the wrapper's "
+                         "(e.g. 256x1,128x2), where the tree's wrapper has them")
     ap.add_argument('--configs', default=','.join(PLAN_CONFIGS),
                     help="'planning', 'cycles': comma-separated configurations of the kernel timings (keys of "
                          "PLAN_CONFIGS)")
@@ -674,6 +755,11 @@ def main() -> int:
     if args.family in ('planning', 'all'):
         out['planning'] = planning_rates(args.repeats, args.profile)
         out['planning_kernels'] = planning_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))
+    if args.family == 'noise':
+        layouts = [(None, None)] + [tuple(int(x) for x in lay.split('x')) for lay in (args.a_layouts or '').split(',')
+                                    if lay]
+        out['noise'] = noise_kernel_ms(layouts=tuple(layouts))
+        out['profiler_misses'] = PROFILER_MISSES
     if args.family in ('cycles', 'all'):
         out['cycles_kernels'] = cycles_kernel_ms(widths or PLAN_WIDTHS, tuple(args.configs.split(',')))
     print(json.dumps(out))

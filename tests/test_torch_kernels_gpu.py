@@ -77,6 +77,59 @@ def test_kernel_a_matches_plain(cuda):
     torch.testing.assert_close(got_p, noise.noise_probe_plain(noise.philox_uniforms(99, 2, B).to(cuda)), **TOL)
 
 
+# -- kernel A at the shapes the eager paths launch it at ------------------------------
+A_TOL = dict(rtol=2e-6, atol=2e-6)  # chip_smoke.py phase 2's: the kernel's sincosf against torch.cos and torch.sin
+
+
+def philox_normals_plain(seed, draws, b, device, chunk=8192):
+    """The plain version over the host copy of the Philox stream of
+    ``seed``, ``chunk`` envs at a time (the host copy of 774 pairs x 65,536
+    envs at once would take gigabytes)."""
+    return torch.cat([noise.noise_probe_plain(noise.philox_uniforms(seed, 2 * draws, min(chunk, b - e0),
+                                                                    range(e0, min(e0 + chunk, b))).to(device))
+                      for e0 in range(0, b, chunk)], dim=1)
+
+
+@pytest.mark.parametrize('b', [1, 33, 4097, 65536])
+@pytest.mark.parametrize('draws', [1, 3, 4, 258, 774])
+def test_kernel_a_matches_plain_at_the_paths_shapes(cuda, draws, b):
+    """Kernel A at odd and even pair counts (a thread's Philox block with
+    one pair or two) and ragged widths, both modes: injected uniforms, and
+    its Philox stream against the host copy of that stream; one launch a
+    call."""
+    u = torch.rand((2 * draws, b), device=cuda)
+    before = kernels.LAUNCHES['noise_probe']
+    got = noise.noise_probe(draws, b, cuda, uniforms=u)
+    got_p = noise.noise_probe(draws, b, cuda, seed=1234 + draws)
+    assert kernels.LAUNCHES['noise_probe'] == before + 2
+    torch.testing.assert_close(got, noise.noise_probe_plain(u), **A_TOL)
+    torch.testing.assert_close(got_p, philox_normals_plain(1234 + draws, draws, b, cuda), **A_TOL)
+
+
+@pytest.mark.parametrize('gen_device', ['cuda', 'cpu'])
+def test_noise_probe_from_a_generator_launches_the_philox_mode(cuda, monkeypatch, gen_device):
+    """The eager paths' call, ``noise_probe(..., generator=g)``: one launch
+    of A in its Philox mode, keyed by ``draw_seed(g)`` (a card tensor from a
+    card generator, read by the kernel; an int from a CPU generator), and no
+    uniforms drawn; its normals are the plain version's over the host copy
+    of that seed's stream."""
+    def no_uniforms(*a, **k):
+        raise AssertionError('the card path drew uniforms')
+
+    monkeypatch.setattr(kernels, 'draw_uniforms', no_uniforms)
+    draws, b = 258, 4097
+    g = torch.Generator(device=cuda if gen_device == 'cuda' else 'cpu').manual_seed(5)
+    twin = torch.Generator(device=g.device).manual_seed(5)
+    seed = kernels.draw_seed(twin)
+    assert isinstance(seed, torch.Tensor) == (gen_device == 'cuda')
+    before = kernels.LAUNCHES['noise_probe']
+    got = noise.noise_probe(draws, b, cuda, generator=g)
+    assert kernels.LAUNCHES['noise_probe'] == before + 1
+    torch.testing.assert_close(got, philox_normals_plain(int(seed), draws, b, cuda), **A_TOL)
+    # the generator moved on: the next call keys another stream
+    assert not torch.equal(noise.noise_probe(draws, b, cuda, generator=g), got)
+
+
 @pytest.mark.parametrize('learn_jerk', [False, True])
 def test_kernel_b_matches_plain(cuda, learn_jerk):
     cfg, prm = tpush.make_pushing_env(learn_jerk=learn_jerk, device=cuda)
@@ -278,6 +331,33 @@ def test_split_kernels_above_the_wide_batch(cuda, learn_jerk):
             tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
             env_ok &= (got_st[i] - want_st[i]).abs() <= 10 * (tol['atol'] + tol['rtol'] * want_st[i].abs())
         assert float(env_ok.double().mean()) >= 0.99, (mode, float(env_ok.double().mean()))
+
+
+@pytest.mark.parametrize('producer', [0, 1])
+def test_kernel_b_jerk_at_the_wide_batch(cuda, monkeypatch, producer):
+    """Kernel B's jerk mode at 65,536 envs in both block shapes and both
+    noise modes, under the rule B's and C's acc mode keep there: the wall
+    flags equal for every env, the planes at their class tolerances but on
+    at most 0.1% of the envs, which hit the wall in both and latch it one
+    control cycle apart."""
+    use_producer(monkeypatch, producer)
+    cfg, prm = split_env(cuda, True)
+    kc = kpush.make_kernel_consts(cfg, prm)
+    b = 65536
+    state = episode_state(cfg, prm, b, cuda, seed=8)
+    act = (torch.rand((2, b), device=cuda) * 2 - 1) * 80.0
+    planes = torch.cat([tpush.state_to_planes(state)[:16], act]).contiguous()
+    for mode, u, seed, u_plain in split_modes(kpush.cycles_noise_planes(cfg.num_cycles, kc.box), b, cuda):
+        got = kpush.pushing_cycles_cuda(planes, kc, u, seed)
+        want = kpush.pushing_cycles_plain(planes, kc, u_plain)
+        assert torch.equal(got[16], want[16]), mode
+        assert int((got[16] > 0).sum()) > 0, mode
+        ok = torch.ones(b, dtype=torch.bool, device=cuda)
+        for i in range(16):
+            tol = TOL_ACC if i in ACC_PLANES else TOL_VEL if i in VEL_PLANES else TOL
+            ok &= (got[i] - want[i]).abs() <= tol['atol'] + tol['rtol'] * want[i].abs()
+        assert bool((got[16][~ok] > 0).all()), (mode, 'an env that hit no wall disagrees')
+        assert int((~ok).sum()) <= 1e-3 * b, (mode, int((~ok).sum()))
 
 
 # -- kernel B at ragged widths, in both block shapes ----------------------------------

@@ -137,3 +137,62 @@ def test_dispatch_hands_the_kernel_the_drawn_seed(monkeypatch):
     kernels.dispatch((x,), 2, u, None, None, None, lambda u, s: seen.append((u, s)))
     assert seen[0] == (None, kernels.draw_seed(torch.Generator().manual_seed(5)))
     assert seen[1] == (None, 11) and seen[2][0] is u and seen[2][1] == 0
+
+
+@pytest.mark.parametrize('inject', [False, True], ids=['philox', 'injected'])
+@pytest.mark.parametrize('b', [1, 33, 4097])
+@pytest.mark.parametrize('draws', [1, 3, 4, 258, 774])
+def test_kernel_a_grid_writes_every_draw_once(draws, b, inject):
+    """The mirror of kernel A's map from thread to work (``probe_writes``)
+    on the wrapper's grid (``probe_grid``): at odd and even pair counts and
+    ragged widths, every normal ``(row, env)`` is written exactly once, from
+    word ``row % 4`` of the Philox block ``row // 4`` of its env (the layout
+    ``philox_bits`` gives the stream), both rows of a pair by one thread,
+    and neighbouring lanes take neighbouring envs."""
+    thread, row, env, block, word = noise.probe_writes(draws, b, inject)
+    gx, gy, threads = noise.probe_grid(draws, b, inject)
+    assert gx * threads >= b > (gx - 1) * threads and 1 <= gy <= 65535
+    assert row.min() >= 0 and row.max() < 2 * draws and env.min() >= 0 and env.max() < b
+    np.testing.assert_array_equal(np.bincount(row * b + env, minlength=2 * draws * b), 1)
+    np.testing.assert_array_equal(block * 4 + word, row)
+    by_cell = np.empty(2 * draws * b, np.int64)
+    by_cell[row * b + env] = thread
+    pairs = by_cell.reshape(draws, 2, b)
+    np.testing.assert_array_equal(pairs[:, 0], pairs[:, 1])  # a pair's two normals: one thread
+    assert ((thread // threads) % gx * threads + thread % threads == env).all()  # env = blockIdx.x * T + tid
+
+
+@pytest.mark.parametrize('draws, b, rows', [(3, 4096, 2), (3, 65536, 2), (8, 1, 4), (258, 4096, 66),
+                                             (774, 4096, 66), (774, 65536, 5)])
+def test_kernel_a_grid_caps_its_rows_at_a_wave(draws, b, rows):
+    """The Philox mode's rows of blocks: one a Philox block while the launch
+    fits a wave of the card's resident threads, then capped there, so a
+    thread walks its env's blocks (the round keys formed once)."""
+    gx, gy, threads = noise.probe_grid(draws, b, False)
+    assert (gx, gy) == (-(-b // threads), rows)
+    assert gy == -(-draws // 2) or gx * gy * threads >= noise.A_WAVES * noise.H100_RESIDENT
+
+
+def test_noise_probe_on_the_cpu_is_the_plain_version_over_the_generators_uniforms():
+    """On the CPU ``noise_probe(..., generator=g)`` is unchanged: the plain
+    version over ``torch.rand`` of ``g``, bit for bit."""
+    got = noise.noise_probe(5, 33, 'cpu', generator=torch.Generator().manual_seed(9))
+    u = torch.rand((10, 33), generator=torch.Generator().manual_seed(9))
+    assert torch.equal(got, noise.noise_probe_plain(u))
+
+
+def test_noise_probe_on_the_card_keys_the_philox_mode_by_the_generators_seed(monkeypatch):
+    """On a CUDA device ``noise_probe(..., generator=g)`` hands kernel A
+    ``draw_seed(g)`` and no uniforms (no ``torch.rand``, no host copy);
+    given uniforms or a seed, it passes them on as before."""
+    seen = []
+    monkeypatch.setattr(noise, 'noise_probe_cuda', lambda *a: seen.append(a))
+    monkeypatch.setattr(kernels, 'draw_uniforms', lambda *a, **k: pytest.fail('drew uniforms for the card'))
+    noise.noise_probe(258, 16, 'cuda', generator=torch.Generator().manual_seed(5))
+    noise.noise_probe(3, 16, 'cuda', seed=11)
+    u = torch.zeros((6, 16))
+    noise.noise_probe(3, 16, 'cuda', uniforms=u)
+    dev = torch.device('cuda')
+    assert seen[0] == (258, 16, dev, None, kernels.draw_seed(torch.Generator().manual_seed(5)))
+    assert seen[1] == (3, 16, dev, None, 11)
+    assert seen[2][3] is u and seen[2][4] == 0
