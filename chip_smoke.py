@@ -189,7 +189,20 @@ phase:
 31. the domain-core facade's ``qpos_is_valid`` on 2^20 poses on the card
    against the CPU, the checked pushing fused step (``models/debug.py``)
    clean and on a corrupted state, and the impedance wrench on 2^20 poses
-   against the CPU (float64, atol 1e-12).
+   against the CPU (float64, atol 1e-12);
+32. planning's reset in bounded chunks: ``init_batch`` at 24 movers (circle
+   r=0.11, full 16x16 table) at 4096 and 65,536 envs, its chunks of
+   sets and envs, peak memory (held to a bound from the chunk), stall
+   share and ms, bit-equal at 4096 envs to the one-chunk reset from the
+   same generator state;
+33. the vector runner over a world-size-1 NCCL mesh at 4096 envs (pushing,
+   box pushing, 1- and 4-mover planning; the sharded fused step, C, C box,
+   F, H), 20 steps after a reset: ms a step, collectives a step, launches,
+   every output and the final state bit-equal to the unsharded runner's;
+34. the transfer protocol's in-engine half (``tools/transfer_eval.py``):
+   the scripted pursuit policy's eval at 512 episodes, success and
+   success_any; ``train_planning`` and ``train_pushing_ppo``, 2 iterations
+   at 256 envs each, ms an iteration.
 
 Times are CUDA-event times; a short launch (A, E, F, H) is timed as the
 median of five groups of 20 launches, with the groups' spread (where the
@@ -198,7 +211,8 @@ rate: their phases, and B's, also give the profiler's device time a
 launch).  The line
 before the last is a JSON object with one entry per kernel (A-H, C-feat,
 I's two probes and the box variants of B, C, C-feat and D): its
-launches on its path (and on the sharded path of phase 28), its largest error against the plain version (both
+launches on its own path (``launches``) and, by phase, on its path, the
+sharded path of phase 28 and phases 32-34 (``launches_by_phase``), its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox; kernel A:
 the profiler's device time at 3 pairs x 4096 envs), the plain version's
 time, its bound in that mode and, for kernel A, ``torch.randn`` of the same
@@ -294,6 +308,12 @@ B_EAGER, T_EAGER = 2048, 32  # the eager step_autoreset's run
 EAGER_ITERS = 2  # iterations of the PPO recipe on the eager step
 K_G_CHECK = 4  # kernel G's (and box D's) steps held against its plain version (but the timed run's K_MAIN)
 T_BOX_EAGER = 3  # steps of the box's eager step_autoreset
+M_RESET = 24  # movers of the reset-memory phase: full 16x16 table, circle r=0.11
+# the most f32 temporaries of one test's entries (pairs + movers x table cells a (set, env)) the
+# reset may hold at once beside two draws of uniforms; the test is a chunk of candidate sets
+# (``planning.reset_chunks``) or the noisy re-check of the whole batch, whichever is larger
+RESET_TEMPS = 4
+T_MESH = 20  # timed steps of the vector runner over a mesh
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -3089,11 +3109,13 @@ def main() -> int:
         res = {'card': card}
         real = torch_dist.all_reduce
         for mode, extra in (('fused', []), ('reactive', ['--reactive'])):
-            calls = [0]
+            calls, coll_ms = [0], []
 
-            def counting(*a, **kw):
+            def counting(*a, **kw):  # and the collective's host time
                 calls[0] += 1
-                return real(*a, **kw)
+                t0 = time.perf_counter()
+                real(*a, **kw)
+                coll_ms.append((time.perf_counter() - t0) * 1e3)
 
             kernels.reset_launches()
             torch_dist.all_reduce = counting
@@ -3227,6 +3249,183 @@ def main() -> int:
                                      '3.5e-15 / sqrt(1 - s^2)',
                               'card_s': secs['card'], 'cpu_s': secs['cpu']}}
 
+    # -- 32. planning's reset in bounded chunks: 24 movers at 4096 and 65,536 envs ------------
+    @phase('planning_reset_memory')
+    def _():
+        """``init_batch`` at ``M_RESET`` movers (circle r=0.11, full 16x16
+        table) at 4096 and 65,536 envs: the chunks of sets and envs, the
+        peak memory (the peak reset before the call; above the memory
+        before it, at most ``RESET_TEMPS`` f32 temporaries of the larger test
+        plus two draws of uniforms), the stall share and ms;
+        at 4096 envs the result bit-equal to a one-chunk reset
+        (``RESET_CHUNK_ENTRIES`` raised) from the same generator state;
+        counters set to 0 before the timed calls and read after."""
+        cfg, prm = PL.make_planning_env(np.ones((16, 16)), M_RESET, device=dev)
+        k = 8 * -(-cfg.max_reset_trials // 8)
+        g = torch.Generator(device=dev).manual_seed(32)
+        start = g.get_state()
+        chunked = PL.init_batch(cfg, prm, B_MAIN, g)
+        saved = PL.RESET_CHUNK_ENTRIES
+        PL.RESET_CHUNK_ENTRIES = 1 << 62
+        try:
+            g.set_state(start)
+            whole = PL.init_batch(cfg, prm, B_MAIN, g)
+        finally:
+            PL.RESET_CHUNK_ENTRIES = saved
+        require(leaves_equal((as_tree(chunked[0]), chunked[1:]), (as_tree(whole[0]), whole[1:])),
+                'the chunked reset differs from the one-chunk reset')
+        del chunked, whole
+        res = {'card': card, 'movers': M_RESET, 'table': '16x16', 'chunk_entries': saved, 'sets': k,
+               'bit_equal_to_one_chunk_at': B_MAIN}
+        kernels.reset_launches()
+        for b in (B_MAIN, B_LARGE):
+            sets, envs = PL.reset_chunks(M_RESET, prm.grid.tile_x.numel(), b, k, 8)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            state, obs, info = PL.init_batch(cfg, prm, b, g)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            require(bool(torch.isfinite(state.pos).all() & torch.isfinite(obs['observation']).all()),
+                    f'B={b}: reset not finite')
+            peak = torch.cuda.max_memory_allocated(dev)
+            # the bound: the starts' and the goals' uniforms, and RESET_TEMPS f32 temporaries of the
+            # larger test, a chunk of sets or the re-check of the batch (one set of every env)
+            per = M_RESET * (M_RESET - 1) // 2 + M_RESET * prm.grid.tile_x.numel()
+            uniforms = 2 * M_RESET * k * b * prm.min_xy.element_size()
+            limit = 2 * uniforms + RESET_TEMPS * 4 * per * max(sets * envs, b)
+            require(peak - base <= limit, f'B={b}: the reset took {peak - base} bytes, above its bound {limit}')
+            res[f'B={b}'] = {'chunk_sets': sets, 'chunk_envs': envs, 'chunks': -(-k // sets) * -(-b // envs), 'ms': ms,
+                             'peak_bytes': peak, 'base_bytes': base, 'bound_bytes': limit,
+                             'stall_share': float(info['reset_stalled'].double().mean()),
+                             'trials_mean': float(info['reset_trials'].double().mean())}
+            del state, obs, info
+        res['launches'] = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+        return res
+
+    reset_launches = report['phases']['planning_reset_memory'].get('launches', {})
+
+    # -- 33. the vector runner over a world-size-1 NCCL mesh ----------------------------------
+    @phase('vector_env_mesh')
+    def _():
+        """``envs/runner.VectorRunner`` (the vector envs' runner) over a
+        world-size-1 NCCL mesh at 4096 envs for pushing, box pushing, 1- and
+        4-mover planning, ``T_MESH`` steps after a reset: the sharded fused
+        step (C, C box, F, H), counters set to 0 before and read after, the
+        collectives a step (``runner.all_gather_flat``: one) and their host ms, ms a
+        step through the numpy boundary and the gather's host ms in it; then the
+        unsharded runner from the same seed (its ms a step beside), every
+        output of the reset and the steps, and the final state, bit-equal."""
+        mesh = sharding.make_mesh(dev)
+        real = env_runner.all_gather_flat
+        res = {'card': card, 'B': B_MAIN, 'steps': T_MESH, 'world': mesh.size(), 'backend': torch_dist.get_backend()}
+        launches = {}
+        for name in ('pushing', 'pushing_box', 'planning_m1', 'planning_m4'):
+            cfg, prm = adapter_envs[name]()
+            mv = env_runner.VectorRunner(cfg, prm, B_MAIN, mesh)
+            require(mv.using_fused, f'{name}: the mesh runner would step eagerly')
+            rng = np.random.default_rng(33)
+            limit = float(prm.j_max if cfg.learn_jerk else prm.a_max)
+            acts = [rng.uniform(-limit, limit, (B_MAIN, 2 * getattr(cfg, 'num_movers', 1))).astype(np.float32)
+                    for _ in range(T_MESH + 1)]
+            calls, coll_ms = [0], []
+
+            def counting(*a, **kw):  # and the collective's host time
+                calls[0] += 1
+                t0 = time.perf_counter()
+                real(*a, **kw)
+                coll_ms.append((time.perf_counter() - t0) * 1e3)
+
+            gather, gather_ms = mv._gather, []
+
+            def timed_gather(tree):  # the gather's host time within a step (its enqueue)
+                t0 = time.perf_counter()
+                out = gather(tree)
+                gather_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            mv._gather = timed_gather
+            mv.seed(33)
+            outs = [mv.reset()]
+            outs.append(mv.step(acts[0]))  # warm-up
+            del gather_ms[:]
+            env_runner.all_gather_flat = counting
+            kernels.reset_launches()
+            ms = []
+            try:
+                for a in acts[1:]:
+                    t0 = time.perf_counter()
+                    outs.append(mv.step(a))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                env_runner.all_gather_flat = real
+            torch.cuda.synchronize()
+            launched = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+            require(launched == {adapter_kernel[name]: T_MESH}, f'{name}: launches {launched}')
+            require(calls[0] == T_MESH, f'{name}: {calls[0]} collectives in {T_MESH} steps, expected one a step')
+            for k_, v in launched.items():
+                launches[k_] = launches.get(k_, 0) + v
+            # the unsharded twin, after the count
+            uv = env_runner.VectorRunner(cfg, prm, B_MAIN)
+            uv.seed(33)
+            want, un_ms = [uv.reset(), uv.step(acts[0])], []
+            for a in acts[1:]:
+                t0 = time.perf_counter()
+                want.append(uv.step(a))
+                un_ms.append((time.perf_counter() - t0) * 1e3)
+            got_l = [x for x in env_runner.leaves(outs, []) if isinstance(x, np.ndarray)]
+            want_l = [x for x in env_runner.leaves(want, []) if isinstance(x, np.ndarray)]
+            require(len(got_l) == len(want_l) and all(np.array_equal(x, y) for x, y in zip(got_l, want_l)),
+                    f'{name}: the mesh runner differs from the unsharded runner')
+            require(leaves_equal(as_tree(mv.device_state), as_tree(uv.device_state)), f'{name}: states differ')
+            med = statistics.median(ms)
+            res[name] = {'using_fused': mv.using_fused, 'ms_median': med, 'ms_min': min(ms), 'ms_max': max(ms),
+                         'unsharded_ms_median': statistics.median(un_ms), 'unsharded_ms_min': min(un_ms),
+                         'gather_host_ms_median': statistics.median(gather_ms),
+                         'collective_host_ms_median': statistics.median(coll_ms),
+                         'env_steps_per_s': B_MAIN / (med / 1e3), 'collectives_per_step': calls[0] / T_MESH,
+                         'launches_per_step': {k_: v / T_MESH for k_, v in launched.items()}, 'bit_equal': True}
+        res['launches'] = launches
+        return res
+
+    mesh_launches = report['phases']['vector_env_mesh'].get('launches', {})
+
+    # -- 34. the transfer protocol's in-engine half: tools/transfer_eval.py ----------------------
+    from gymnasium_planar_robotics_tpu_torch.tools import transfer_eval
+
+    @phase('transfer_engine')
+    def _():
+        """``tools/transfer_eval.py`` on the card: the scripted pursuit
+        policy's in-engine eval at 512 episodes (the eager
+        ``step_autoreset``, kernel A), success and success_any; then
+        ``train_planning`` and ``train_pushing_ppo`` for 2 iterations at 256
+        envs each, ms an iteration, finite actions of the trained policies;
+        counters set to 0 before and read after."""
+        kernels.reset_launches()
+        policy, (cfg, prm) = transfer_eval.scripted_pursuit_policy(dev)
+        t0 = time.perf_counter()
+        ev = transfer_eval.eval_in_engine(P, cfg, prm, policy, 512, seed=100)
+        eval_s = time.perf_counter() - t0
+        # it pushes: well above the ~3% of episodes whose object starts at its goal (tests/test_transfer.py:75-77;
+        # both packages read 0.13-0.16 at 512 episodes on the CPU)
+        require(ev['success_any'] > 0.08, f'the scripted policy never pushes: {ev}')
+        res = {'card': card, 'scripted_eval': dict(ev, seconds=eval_s)}
+        for name, fn, dim in (('train_planning', transfer_eval.train_planning, 6),
+                              ('train_pushing_ppo', transfer_eval.train_pushing_ppo, 8)):
+            timings = {}
+            t0 = time.perf_counter()
+            pol, (c, p) = fn(iters=2, batch=256, seed=0, log=None, device=dev, timings=timings)
+            act = pol(torch.rand((64, dim), device=dev))
+            require(bool(torch.isfinite(act).all()) and c.reward_mode == 'sparse', f'{name}: actions {act[:2]}')
+            res[name] = {'iters': 2, 'batch': 256, 'iter_ms': timings['iter_ms'], 'seconds': time.perf_counter() - t0}
+        torch.cuda.synchronize()
+        res['launches'] = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+        require(res['launches'].get('noise_probe', 0) > 0, f'kernel A never launched: {res["launches"]}')
+        return res
+
+    transfer_launches = report['phases']['transfer_engine'].get('launches', {})
+
     report['card'] = card
     # the profiler's takes that came back short of kernel records (each taken again) and the
     # timings that then fell back to CUDA events (``rollout_rates.launch_device_runs``)
@@ -3239,14 +3438,22 @@ def main() -> int:
         # C-feat on the PPO training path, I on the roofline's peaks, the
         # box variants of B-D and C-feat on the box main path, H's
         # many-mover variant on the adapters' path
-        path_launches = (planning_launches if name in PLANNING_KERNELS else multi_launches if name in MULTI_KERNELS
-                         else train_launches if name in TRAIN_KERNELS else box_launches if name in BOX_KERNELS
-                         else adapter_launches if name in ADAPTER_KERNELS
-                         else measured.get('launches', {}) if name in PEAK_KERNELS else main_launches)
+        path, path_launches = (
+            ('planning_main_path', planning_launches) if name in PLANNING_KERNELS
+            else ('multi_planning_main_path', multi_launches) if name in MULTI_KERNELS
+            else ('ppo_train_main_path', train_launches) if name in TRAIN_KERNELS
+            else ('box_pushing_main_path', box_launches) if name in BOX_KERNELS
+            else ('adapters_main_path', adapter_launches) if name in ADAPTER_KERNELS
+            else ('kernel_I_peaks', measured.get('launches', {})) if name in PEAK_KERNELS
+            else ('main_path', main_launches))
+        # and on every other path that launches it, each counted in its own phase: the sharded
+        # path (28), the reset (32), the mesh vector runner (33), the transfer protocol (34)
+        by_phase = {phase_name: int(d.get(name, 0)) for phase_name, d in (
+            (path, path_launches), ('sharded_main_path', sharded_launches), ('planning_reset_memory', reset_launches),
+            ('vector_env_mesh', mesh_launches), ('transfer_engine', transfer_launches)) if d.get(name, 0)}
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': f'{PKG}/{src}', 'replaces': replaces,
-            # plus its launches on the sharded path (phase 28), where it runs there
-            'launches': int(path_launches.get(name, 0)) + int(sharded_launches.get(name, 0)),
+            'launches': int(path_launches.get(name, 0)), 'launches_by_phase': by_phase,
             'max_abs_err': st.get('max_abs_err'),
             'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'), 'bound_ms': st.get('bound_ms'),
             'bound_by': st.get('bound_by'),

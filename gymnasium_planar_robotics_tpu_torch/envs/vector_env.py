@@ -7,9 +7,20 @@ the new one; the final observation rides in ``info['final_observation']``),
 env 0's top-down render.  The stepping is ``envs/runner.VectorRunner``: the
 fused autoreset step (kernel C, C box, F or H) where a kernel covers the
 configuration (``using_fused``), else the eager ``step_autoreset``; one
-host transfer a step.  ``device_state`` is the state on the device.  A
-device mesh (``mesh=``) is not ported yet (``ROADMAP.md``, the multi-device
-layer).
+host transfer a step.  ``device_state`` is the state on the device.
+
+Over a device mesh (``mesh=``, ``parallel/sharding.make_mesh``: one
+``torch.distributed`` rank a device, NCCL on the card, gloo on the CPU)
+``num_envs`` is the global batch, which must divide by ``mesh.size()``.
+Each rank holds and steps its shard (``sharding.make_sharded_fused_step``
+where a kernel covers the configuration, else ``sharding.sharded_step_fn``
+over the eager step), its draws split by ``sharding.rank_generator``;
+``step`` takes the global actions and every rank returns the global batch,
+gathered with one collective a step, as the JAX package's env hands its
+one process the whole batch.  ``device_state`` is the rank's shard;
+``render`` shows env 0 of the global batch (a collective: every rank calls
+it).  At world size 1 the env is the unsharded one, bit for bit.  The
+tensors live on the mesh's device unless ``device=`` names one.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from gymnasium_planar_robotics_tpu_torch.envs.runner import VectorRunner
 from gymnasium_planar_robotics_tpu_torch.models import planning as planning_model
 from gymnasium_planar_robotics_tpu_torch.models import pushing as pushing_model
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import to_numpy
+from gymnasium_planar_robotics_tpu_torch.parallel import sharding
 
 
 def _autoreset_mode():
@@ -35,16 +47,19 @@ def _autoreset_mode():
         return 'SameStep'
 
 
+def _device(mesh, device):
+    """The envs' device: ``device`` if named, else the mesh's (None: the card)."""
+    return sharding.mesh_device(mesh) if device is None and mesh is not None else device
+
+
 class _TorchVectorEnv(gym.vector.VectorEnv):
     metadata = {'autoreset_mode': _autoreset_mode()}
 
     def __init__(self, config, params, num_envs: int, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError('a device mesh is not ported yet (ROADMAP.md, the multi-device layer)')
         self.config = config
         self.params = params
         self.num_envs = num_envs
-        self._runner = VectorRunner(config, params, num_envs)
+        self._runner = VectorRunner(config, params, num_envs, mesh)
         #: True when steps run through the fused kernel (observable, so a run
         #: on the card can assert that the fast path engaged)
         self.using_fused = self._runner.using_fused
@@ -74,7 +89,7 @@ class _TorchVectorEnv(gym.vector.VectorEnv):
 
         if getattr(self, '_viewer2d', None) is None:
             self._viewer2d = rendering.Planar2DViewer(self.params)
-        return self._viewer2d.render(self._render_state0())
+        return self._viewer2d.render(self._render_state0(self._runner.env0()))
 
     def close_extras(self, **kwargs):
         if getattr(self, '_viewer2d', None) is not None:
@@ -87,7 +102,8 @@ class PlanningVectorEnv(_TorchVectorEnv):
                  **kwargs):
         layout_tiles = np.ones((3, 3)) if layout_tiles is None else np.asarray(layout_tiles)
         config, params = planning_model.make_planning_env(layout_tiles=layout_tiles, num_movers=num_movers,
-                                                          dtype=torch_dtype(dtype), device=device, **kwargs)
+                                                          dtype=torch_dtype(dtype), device=_device(mesh, device),
+                                                          **kwargs)
         super().__init__(config, params, num_envs, mesh)
         m = config.num_movers
         space_dtype = np.dtype(to_numpy(params.v_max).dtype)
@@ -103,14 +119,14 @@ class PlanningVectorEnv(_TorchVectorEnv):
         self.observation_space = gym.vector.utils.batch_space(self.single_observation_space, num_envs)
         self.action_space = gym.vector.utils.batch_space(self.single_action_space, num_envs)
 
-    def _render_state0(self):
-        s = self._state
+    def _render_state0(self, s):
         return {'mover_xy': to_numpy(s.pos[0]), 'mover_vel': to_numpy(s.vel[0]), 'goals': to_numpy(s.goals[0])}
 
 
 class PushingVectorEnv(_TorchVectorEnv):
     def __init__(self, num_envs: int, mesh=None, dtype=None, device=None, **kwargs):
-        config, params = pushing_model.make_pushing_env(dtype=torch_dtype(dtype), device=device, **kwargs)
+        config, params = pushing_model.make_pushing_env(dtype=torch_dtype(dtype), device=_device(mesh, device),
+                                                        **kwargs)
         super().__init__(config, params, num_envs, mesh)
         space_dtype = np.dtype(to_numpy(params.v_max).dtype)
         limit = float(params.j_max if config.learn_jerk else params.a_max)
@@ -125,8 +141,7 @@ class PushingVectorEnv(_TorchVectorEnv):
         self.observation_space = gym.vector.utils.batch_space(self.single_observation_space, num_envs)
         self.action_space = gym.vector.utils.batch_space(self.single_action_space, num_envs)
 
-    def _render_state0(self):
-        s = self._state
+    def _render_state0(self, s):
         return {
             'mover_xy': to_numpy(s.pos[0])[None],
             'mover_vel': to_numpy(s.vel[0])[None],

@@ -416,15 +416,58 @@ def _noisy_collision_checks(config: PlanningConfig, params: PlanningParams, pos:
                              mover_safety_offset)
 
 
-def _first_accepted(cands: torch.Tensor, accepts: torch.Tensor, block: int):
-    """First accepted of K candidate sets ``[K, B, M, 2]`` (the last one
-    where none is): (sample [B, M, 2], accepted [B], trials [B] int32), as
-    the JAX package's bounded rejection sampler returns them when it draws
-    ``block`` sets per round: trials count whole rounds, K on a stall."""
-    k, b = accepts.shape
-    ok = accepts.any(0)
-    idx = torch.where(ok, torch.argmax(accepts.to(torch.int32), dim=0), k - 1)
-    sample = cands.gather(0, idx[None, :, None, None].expand(1, b, *cands.shape[2:]))[0]
+#: The most test entries a reset's candidate tests take in one tensor op.
+#: A (set, env) has one entry per mover pair (the pair test's f32
+#: temporaries) and one per mover and table cell (the dense wall rule's
+#: ``[.., Tx, Ty]`` bool temporaries, which dominate on large tables): the
+#: sets are tested a chunk of whole rounds at a time, and where one round of
+#: the batch exceeds the bound, a chunk of envs at a time.
+RESET_CHUNK_ENTRIES = 1 << 26
+
+
+def reset_chunks(num_movers: int, cells: int, batch: int, k: int, block: int) -> tuple[int, int]:
+    """(sets, envs) a reset tests at once, for ``num_movers`` movers on a
+    table of ``cells`` cells: the most envs (up to ``batch``) of which one
+    round of ``block`` sets stays within ``RESET_CHUNK_ENTRIES`` (at least
+    one), then the most whole rounds of them that do (at least one round,
+    at most all ``k`` sets)."""
+    per = num_movers * (num_movers - 1) // 2 + num_movers * cells
+    envs = min(batch, max(1, RESET_CHUNK_ENTRIES // (block * per)))
+    return min(k, block * max(1, RESET_CHUNK_ENTRIES // (block * envs * per))), envs
+
+
+def _first_accepted(sets, accept, k: int, batch: int, chunk: tuple[int, int], block: int):
+    """First accepted of ``k`` candidate sets (the last one where none is):
+    (sample [B, M, 2], accepted [B], trials [B] int32), as the JAX package's
+    bounded rejection sampler returns them when it draws ``block`` sets per
+    round: trials count whole rounds, K on a stall.  ``sets(lo, hi, e0,
+    e1)`` makes sets ``[hi - lo, e1 - e0, M, 2]`` of envs ``[e0, e1)``,
+    ``accept`` tests them (``[hi - lo, e1 - e0]``); they run ``chunk`` =
+    (sets, envs) at a time, the result carried across the set chunks with
+    ``torch.where`` (no host read) and the env chunks joined."""
+    n_sets, n_envs = chunk
+    parts = []
+    for e0 in range(0, batch, n_envs):
+        e1 = min(e0 + n_envs, batch)
+        sample = ok = idx = None
+        for lo in range(0, k, n_sets):
+            hi = min(lo + n_sets, k)
+            cands = sets(lo, hi, e0, e1)
+            accepts = accept(cands)
+            ok_c = accepts.any(0)
+            i_c = torch.where(ok_c, torch.argmax(accepts.to(torch.int32), dim=0), hi - lo - 1)
+            s_c = cands.gather(0, i_c[None, :, None, None].expand(1, *cands.shape[1:]))[0]
+            if sample is None:
+                sample, ok, idx = s_c, ok_c, i_c + lo
+                continue
+            # a set of this chunk where none came before: its first accepted
+            # one, or on the last chunk its last set
+            take = ~ok if hi == k else ok_c & ~ok
+            sample = torch.where(take[:, None, None], s_c, sample)
+            idx = torch.where(take, i_c + lo, idx)
+            ok = ok | ok_c
+        parts.append((sample, ok, idx))
+    sample, ok, idx = parts[0] if len(parts) == 1 else (torch.cat(x) for x in zip(*parts))
     return sample, ok, torch.where(ok, block * ((idx + block) // block), k).to(torch.int32)
 
 
@@ -443,7 +486,11 @@ def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator:
 
     With M > 1 the JAX package draws 8 sets per round: the first accepted
     of all ``8 * ceil(max_reset_trials / 8)`` sets has the same
-    distribution, and ``reset_trials`` counts whole rounds as it does.
+    distribution, and ``reset_trials`` counts whole rounds as it does.  The
+    uniforms of every set are drawn at once; the sets are formed and tested
+    a chunk of sets and envs at a time (``reset_chunks``), which bounds the
+    tests' memory (``RESET_CHUNK_ENTRIES``) and leaves the result as one
+    chunk's.
 
     Returns ``(state, obs, info)`` with ``mover_collision`` and
     ``wall_collision`` from the noisy re-check, ``reset_stalled`` (no set
@@ -472,11 +519,16 @@ def reset(config: PlanningConfig, params: PlanningParams, batch: int, generator:
             ok = ok & (sqrt((d * d).sum(-1)) >= params.min_goal_dist).all(-1)
         return ok
 
+    chunk = reset_chunks(m, params.grid.tile_x.numel(), batch, k, block)
+
     def sample(accept):
         u = draw_uniforms(2 * m * k, batch, device, generator).to(dtype).reshape(k, m, 2, batch).permute(0, 3, 1, 2)
         lo, hi = params.min_xy, params.max_xy
-        cands = torch.maximum(lo, u * (hi - lo) + lo)  # [k, B, M, 2]
-        return _first_accepted(cands, accept(cands), block)
+
+        def sets(i, j, e0, e1):  # [j - i, e1 - e0, M, 2]
+            return torch.maximum(lo, u[i:j, e0:e1] * (hi - lo) + lo)
+
+        return _first_accepted(sets, accept, k, batch, chunk, block)
 
     def given(xy, accept):
         xy = torch.as_tensor(xy, dtype=dtype, device=device).reshape(-1, m, 2).expand(batch, m, 2)

@@ -11,8 +11,8 @@ enqueue a launch and the card's time per launch back to back.
 M-mover planning (``--family multi``): ``planning.make_fused_rollout`` of
 the M-mover main configuration (4x4 table, 4 movers, circle; bench.py:401)
 over 64 steps at K = 1 (kernel H once a step), at 4096 and 65,536 envs; and
-kernel H's device ms per launch at 2, 4, 8 and 12 movers (3x3, 4x4, 6x6
-and 8x8 tables) at both widths, on a state eight random steps
+kernel H's device ms per launch at 2, 4, 8, 12 and 24 movers (3x3, 4x4,
+6x6, 8x8 and 16x16 tables) at both widths, on a state eight random steps
 into a rollout, in the layout the tree's wrapper picks (a tree that does
 not take M movers reports the error), and at 4 movers also without the
 control cycles.  ``--family layouts``: the same launches in every lane
@@ -243,7 +243,9 @@ def rates(repeats: int, profile: bool = False, device: str = 'cuda:0') -> dict:
 
 
 MULTI_M = 4  # the M-mover main configuration (bench.py:401): 4x4 table, circle r=0.11, cand_k=16
-MULTI_TABLES = {2: 3, 4: 4, 8: 6, 12: 8}  # movers -> side of the full square table kernel H is timed on
+# movers -> side of the full square table kernel H is timed on; 24 movers (row 32 of LANE_TABLE) on 16x16, where
+# random starts are accepted about 98% of the time (init_batch at 65,536 envs tests its sets in bounded chunks)
+MULTI_TABLES = {2: 3, 4: 4, 8: 6, 12: 8, 24: 16}
 
 
 def multi_rollout_state(m: int, b: int, seed: int, device: str = 'cuda:0', steps: int = 8):

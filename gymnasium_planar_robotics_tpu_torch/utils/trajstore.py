@@ -111,6 +111,18 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """True when the native library is loaded, or builds and loads now
+    (``lib()``); False, without raising, where no compiler is found or the
+    build or the load fails.  It selects nothing: the writer and the reader
+    stay native unless ``native=False`` is asked for."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _flatten(tree, leaves: list) -> str:
     """Append ``tree``'s leaves to ``leaves`` in JAX's order; its structure."""
     if tree is None:

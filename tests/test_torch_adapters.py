@@ -18,6 +18,7 @@ stand beside the JAX package's.
 """
 
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -270,8 +271,13 @@ def test_vector_env_matches_jax_through_truncation(family):
 
 
 def test_vector_env_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match='multi-device'):
-        tvec.PushingVectorEnv(2, mesh=object(), device='cpu')
+    """The mesh is ported (``tests/test_torch_vector_env_mesh.py``); for
+    both vector envs a batch that does not split into the mesh's equal
+    shards raises, as the JAX package's ``NamedSharding`` does."""
+    mesh = SimpleNamespace(size=lambda: 2, get_local_rank=lambda: 0, device_type='cpu')
+    for cls in (tvec.PlanningVectorEnv, tvec.PushingVectorEnv):
+        with pytest.raises(ValueError, match='NamedSharding'):
+            cls(7, mesh=mesh, device='cpu')
 
 
 def test_parallel_env_matches_jax():

@@ -1,7 +1,7 @@
 """The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 
-Reads the source of every ``.py`` file of ``gymnasium_planar_robotics_tpu_torch``
-and of ``chip_smoke.py`` and checks every import statement (comments and
+Reads the source of every ``.py`` file of ``gymnasium_planar_robotics_tpu_torch``,
+of ``chip_smoke.py`` and of the test modules that run on gloo ranks, and checks every import statement (comments and
 docstrings may name the JAX package), then imports every module of the port
 in a fresh interpreter and checks that neither ``jax`` nor the JAX package
 (nor ``triton``) was loaded.
@@ -16,7 +16,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'gymnasium_planar_robotics_tpu_torch'
-FILES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+# the port, the smoke script, and the test modules that run on gloo ranks
+# (and on the card's machine) without JAX
+FILES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py'] + [
+    ROOT / 'tests' / f'{m}.py' for m in ('torch_sharding_worker', 'torch_sharding_cases', 'torch_vector_mesh_cases')]
 FORBIDDEN = ('jax', 'jaxlib', 'gymnasium_planar_robotics_tpu')
 
 
@@ -56,9 +59,11 @@ def test_every_module_imports_without_jax():
 
 
 def test_runner_and_package_import_without_gym_pettingzoo_mujoco():
-    """The package, its lazy surface's registry and ``envs/runner`` import
-    with ``gymnasium``, ``pettingzoo`` and ``mujoco`` hidden (the card's
-    machine has none of them), and the runners step on the CPU there."""
+    """The package, its lazy surface's registry, ``envs/runner`` and
+    ``tools/transfer_eval`` import with ``gymnasium``, ``pettingzoo`` and
+    ``mujoco`` hidden (the card's machine has none of them), and the
+    runners step on the CPU there, the vector runner also over a
+    world-size-1 gloo mesh."""
     code = (
         'import sys\n'
         "for name in ('gymnasium', 'pettingzoo', 'mujoco', 'matplotlib'):\n"
@@ -79,6 +84,13 @@ def test_runner_and_package_import_without_gym_pettingzoo_mujoco():
         'v.reset()\n'
         'out = v.step(np.zeros((3, 4)))\n'
         "assert not v.using_fused and out[1].shape == (3,) and 'final_observation' in out[4]\n"
+        'from gymnasium_planar_robotics_tpu_torch.parallel import sharding\n'
+        "vm = runner.VectorRunner(cfg, prm, 4, sharding.make_mesh('cpu'))\n"
+        'vm.reset()\n'
+        'out = vm.step(np.zeros((4, 4)))\n'
+        "assert vm.local_envs == 4 and out[1].shape == (4,) and vm.env0().pos.shape == (1, 2, 2)\n"
+        'from gymnasium_planar_robotics_tpu_torch.tools import transfer_eval\n'
+        "policy, _ = transfer_eval.scripted_pursuit_policy('cpu')\n"
         'try:\n'
         '    envs.register_gymnasium_envs()\n'
         'except ImportError:\n'

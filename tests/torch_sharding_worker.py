@@ -1,9 +1,10 @@
 """One rank of the sharding tests: joins a gloo group on a ``FileStore``,
-runs ``torch_sharding_cases.run_rank`` (or the sharded PPO example) on its
-shard and writes its outputs to ``rank<r>.npz``.  Imports torch, numpy and
+runs ``torch_sharding_cases.run_rank`` (``vector``:
+``torch_vector_mesh_cases.run_rank``; ``example``: the sharded PPO example)
+on its shard and writes its outputs to ``<mode>_rank<r>.npz``.  Imports torch, numpy and
 the port only; the JAX half stays in the pytest process.
 
-    python tests/torch_sharding_worker.py RANK WORLD DIR [example]
+    python tests/torch_sharding_worker.py RANK WORLD DIR [cases | vector | example]
 """
 
 import contextlib
@@ -45,7 +46,12 @@ def main():
             mesh = sharding.make_mesh('cpu')
             with np.load(os.path.join(out_dir, 'inputs.npz')) as z:
                 inputs = dict(z)
-            out = cases.run_rank(mesh, inputs, world)
+            if mode == 'vector':
+                import torch_vector_mesh_cases as vector_cases
+
+                out = vector_cases.run_rank(mesh, inputs, world)
+            else:
+                out = cases.run_rank(mesh, inputs, world)
         np.savez(os.path.join(out_dir, f'{mode}_rank{rank}.npz'), **out)
     finally:
         dist.destroy_process_group()
