@@ -55,7 +55,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning as kplan
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import planning_multi as kmulti
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
-from gymnasium_planar_robotics_tpu_torch.utils import meshes
+from gymnasium_planar_robotics_tpu_torch.utils import meshes, profiling
 
 REWARD_SUCCESS = 50.0  # benchmark_planning_env.py:220
 
@@ -709,12 +709,14 @@ def _make_multi_rollout(config: PlanningConfig, params: PlanningParams, step_imp
     scale = params.accel_scale.to(torch.float32).reshape(m, 1)
     max_steps = float(config.max_episode_steps)
 
+    @profiling.spanned(profiling.ROLLOUT)
     def rollout(state: PlanningState, actions, seed: int):
         b = state.pos.shape[0]
         actions = torch.clamp(actions.to(torch.float32).reshape(-1, b, 2 * m), -limit, limit)
         action_planes = actions.permute(0, 2, 1).contiguous()  # [T, 2M, B]
         planes = state_to_planes(config, state)
         rews, terms, truncs = [], [], []
+        restarts = [] if profiling.TRACER.counters_on else None
         for t in range(action_planes.shape[0]):
             out = step_impl(planes, action_planes[t], seed + t)
             collided = torch.maximum(out[18 * m + 1], out[18 * m + 2]) > 0.5
@@ -723,7 +725,11 @@ def _make_multi_rollout(config: PlanningConfig, params: PlanningParams, step_imp
                                     torch.where(unreached == 0.0, REWARD_SUCCESS, -unreached)))
             terms.append(collided | (unreached == 0.0))
             truncs.append(planes[8 * m] + 1.0 >= max_steps)
+            if restarts is not None:
+                restarts.append(out[18 * m + 4 : 18 * m + 6])
             planes = out[:8 * m + 1]
+        if restarts is not None:
+            profiling.count_restarts(restarts)
         return planes_to_state(config, planes, scale), torch.stack(rews), torch.stack(terms), torch.stack(truncs)
 
     return rollout
@@ -737,6 +743,7 @@ def _make_rollout(config: PlanningConfig, params: PlanningParams, steps_per_laun
     limit, scale = _limit(config, params), _scale(params)
     max_steps = float(config.max_episode_steps)
 
+    @profiling.spanned(profiling.ROLLOUT)
     def rollout(state: PlanningState, actions, seed: int):
         b = state.pos.shape[0]
         actions = torch.clamp(actions.to(torch.float32).reshape(-1, b, 2), -limit, limit)
@@ -751,13 +758,18 @@ def _make_rollout(config: PlanningConfig, params: PlanningParams, steps_per_laun
             wall, reached, trunc = torch.cat(sig, dim=1)
         else:
             walls_, reach, truncs = [], [], []
+            restarts = [] if profiling.TRACER.counters_on else None
             for t in range(action_planes.shape[0]):
                 out = step_impl(planes, action_planes[t], seed + t)
                 walls_.append(out[19])
                 reach.append(out[20])
                 truncs.append(torch.where(planes[8] + 1.0 >= max_steps, 1.0, 0.0))
+                if restarts is not None:
+                    restarts.append(out[21:23])
                 planes = out[:9]
             wall, reached, trunc = torch.stack(walls_), torch.stack(reach), torch.stack(truncs)
+            if restarts is not None:
+                profiling.count_restarts(restarts)
         rew = torch.where(wall > 0.5, -REWARD_SUCCESS, torch.where(reached > 0.5, REWARD_SUCCESS, -1.0))
         return planes_to_state(config, planes, scale), rew, torch.maximum(wall, reached) > 0.5, trunc > 0.5
 
@@ -824,6 +836,12 @@ def make_reactive_rollout(config: PlanningConfig, params: PlanningParams, policy
     a_max, scale = float(params.a_max), _scale(params)
     max_steps = float(config.max_episode_steps)
 
+    @profiling.spanned(profiling.POLICY)
+    def act(pol, x, obs_vec):
+        action, aux = policy_step(pol, x, obs_vec)
+        return torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous(), aux
+
+    @profiling.spanned(profiling.ROLLOUT)
     def rollout(state: PlanningState, pol, generator, seed: int, policy_xs=None):
         planes = state_to_planes(config, state)
         # first observation from the state planes (noise-free): vel, achieved
@@ -831,8 +849,7 @@ def make_reactive_rollout(config: PlanningConfig, params: PlanningParams, policy
         obs_vecs, auxs, outs, goals = [], [], [], []
         for t in range(num_steps):
             obs_vec = torch.cat([obs, planes[6:8]])
-            action, aux = policy_step(pol, generator if policy_xs is None else policy_xs[t], obs_vec)
-            action = torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous()
+            action, aux = act(pol, generator if policy_xs is None else policy_xs[t], obs_vec)
             out = kplan.planning_autoreset(planes, action, kc, seed=seed + t,
                                            generator=common.seeded_generator(planes, seed + t))
             obs_vecs.append(obs_vec)
@@ -843,6 +860,8 @@ def make_reactive_rollout(config: PlanningConfig, params: PlanningParams, policy
         # rewards and flags once per rollout over [T, B] (they do not feed
         # back into the loop): fewer launches per step on the card
         outs, goals = torch.stack(outs), torch.stack(goals)
+        if profiling.TRACER.counters_on:
+            profiling.count_restarts(outs[:, 21:23])
         final_vec = torch.cat([outs[:, 13:17], goals[:, :2]], dim=1)  # [T, 6, B]
         wall, reached = outs[:, 19] > 0.5, outs[:, 20] > 0.5
         if dense_reward:

@@ -44,7 +44,7 @@ from gymnasium_planar_robotics_tpu_torch.ops.kernels import draw_uniforms
 from gymnasium_planar_robotics_tpu_torch.ops.kernels import pushing as kpush
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.dynamics import sqrt
 from gymnasium_planar_robotics_tpu_torch.ops.kernels.noise import noise_probe
-from gymnasium_planar_robotics_tpu_torch.utils import meshes
+from gymnasium_planar_robotics_tpu_torch.utils import meshes, profiling
 
 REWARD_WALL_COLLISION = -50.0
 
@@ -745,6 +745,7 @@ def _make_rollout(config: PushingConfig, params: PushingParams, steps_per_launch
     thr = float(params.threshold_pos)
     max_steps = float(config.max_episode_steps)
 
+    @profiling.spanned(profiling.ROLLOUT)
     def rollout(state: PushingState, actions, seed: int):
         b = state.pos.shape[0]
         actions = torch.clamp(actions.to(torch.float32).reshape(-1, b, 2), -limit, limit)
@@ -760,6 +761,7 @@ def _make_rollout(config: PushingConfig, params: PushingParams, steps_per_launch
             wall, reached, trunc = torch.cat(sig, dim=1)
         else:
             walls, reach, truncs = [], [], []
+            restarts = [] if profiling.TRACER.counters_on else None
             for t in range(T):
                 out = step_impl(planes, action_planes[t], seed + t)
                 # reference scoring from the pre-reset observation: achieved
@@ -769,8 +771,12 @@ def _make_rollout(config: PushingConfig, params: PushingParams, steps_per_launch
                 reach.append(torch.where(torch.sqrt(ddx * ddx + ddy * ddy) <= thr, 1.0, 0.0))
                 truncs.append(torch.where(planes[18] + 1.0 >= max_steps, 1.0, 0.0))
                 walls.append(out[33])
+                if restarts is not None:
+                    restarts.append(out[34:36])
                 planes = out[:19]
             wall, reached, trunc = torch.stack(walls), torch.stack(reach), torch.stack(truncs)
+            if restarts is not None:
+                profiling.count_restarts(restarts)
         rew = torch.where(wall > 0.5, REWARD_WALL_COLLISION, torch.where(reached > 0.5, 0.0, -1.0))
         return planes_to_state(planes), rew, wall > 0.5, trunc > 0.5
 
@@ -836,20 +842,30 @@ def make_reactive_rollout(config: PushingConfig, params: PushingParams, policy_s
     a_max, thr = float(params.a_max), float(params.threshold_pos)
     max_steps = float(config.max_episode_steps)
 
+    @profiling.spanned(profiling.POLICY)
+    def act(pol, x, feat):
+        action, aux = policy_step(pol, x, feat)
+        return torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous(), aux
+
+    @profiling.spanned(profiling.ROLLOUT)
     def rollout(state: PushingState, pol, generator, seed: int, policy_xs=None):
         planes = state_to_planes(state)
         feat0 = kpush.feature_block(*planes[0:4], planes[8], planes[9], planes[16], planes[17])
         feat, auxs, blocks, walls, steps = feat0, [], [], [], []
+        restarts = [] if profiling.TRACER.counters_on else None
         for t in range(num_steps):
-            action, aux = policy_step(pol, generator if policy_xs is None else policy_xs[t], feat)
-            action = torch.clamp(action.to(torch.float32), -a_max, a_max).contiguous()
+            action, aux = act(pol, generator if policy_xs is None else policy_xs[t], feat)
             out, block = kpush.pushing_autoreset(planes, action, kc, seed=seed + t, emit_features=True,
                                                  generator=common.seeded_generator(planes, seed + t))
             auxs.append(aux)
             blocks.append(block)
             walls.append(out[33])
             steps.append(planes[18])
+            if restarts is not None:
+                restarts.append(out[34:36])
             planes, feat = out[:19], block[0]
+        if restarts is not None:
+            profiling.count_restarts(restarts)
         # rewards and flags once per rollout over [T, B] (they do not feed
         # back into the loop): fewer launches per step on the card
         blocks = torch.stack(blocks)  # [T, 2, 12, B]

@@ -6,13 +6,17 @@ tensor launches the hand-written CUDA kernel (``csrc/``) or raises.  There is
 no fallback from the kernel to the plain version.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else.  While the program's spans are on
+(``utils/profiling``), every ``dispatch`` runs inside a ``gprt.launch``
+span.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from gymnasium_planar_robotics_tpu_torch.utils import profiling
 
 LAUNCHES = {
     'noise_probe': 0, 'pushing_cycles': 0, 'pushing_autoreset': 0, 'pushing_autoreset_features': 0,
@@ -102,6 +106,7 @@ def noise_ptr(uniforms: torch.Tensor | None, n: int, b: int, device) -> int | No
     return uniforms.data_ptr()
 
 
+@profiling.spanned(profiling.LAUNCH)
 def dispatch(inputs: tuple, n_noise: int, uniforms, seed: int | None, generator, plain, cuda):
     """One kernel call by the device of its tensors.
 
