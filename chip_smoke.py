@@ -103,12 +103,22 @@ phase:
    ``pushing.make_reactive_rollout`` (dense shaping) with the recipe
    ``baseline`` of ``tools/train_push_strong.py`` ((128, 128) trunk, 25
    rollout steps, lr 3e-4, 4 epochs) at 2048 envs for 20 train steps,
-   counters set to 0 before and read after (500 C-feat launches, no other
-   env kernel but A); then a constant-policy reactive rollout against
+   counters set to 0 before and read after (500 C-feat and 500 P launches,
+   no other env kernel but A); then a constant-policy reactive rollout against
    ``make_fused_rollout`` at K=1, 4096 envs, T=64, bit for bit;
-14. env-steps/s of the reactive rollout with a (256, 256) policy against
+14. kernel P (the reactive policy step, ``ops/kernels/policy``) against
+   its plain version (the torch ops, TF32 off) on the same inputs at
+   (12, (256, 256), 2) x 65,536 envs and the training phase's (12, (128,
+   128), 2) x 2048: raw, logp and value within 2e-6 of the plain version's
+   largest magnitude, the action its own raw clamped bit for bit, one
+   launch a call; its time by CUDA events (five groups of 20 launches),
+   the plain version's, the torch ops' busy time on the card (the
+   profiler's kernel records, ``library_ms``), the bound and the
+   compiler's registers; then env-steps/s of the reactive rollout with a
+   (256, 256) policy (``ppo.sample_action_pm``: kernel P) against
    ``make_fused_rollout`` at K=1, 4096 and 65,536 envs, T=64, ten
-   alternating repeats (medians, with the host's enqueue time);
+   alternating repeats (medians, with the host's enqueue time), one P
+   launch a step;
 15. PPO learns on the card: 1-mover planning (3x3, ``a_max`` 3, dense
    shaping, (64, 64) trunk, 16 rollout steps, lr 1e-3, 256 envs), 110
    train steps over ``planning.make_reactive_rollout``; the mean reward of
@@ -210,13 +220,13 @@ host enqueues A, E or F slower than the card runs it, that is the host's
 rate: their phases, and B's, also give the profiler's device time a
 launch).  The line
 before the last is a JSON object with one entry per kernel (A-H, C-feat,
-I's two probes and the box variants of B, C, C-feat and D): its
+I's two probes, the box variants of B, C, C-feat and D, and P): its
 launches on its own path (``launches``) and, by phase, on its path, the
 sharded path of phase 28 and phases 32-34 (``launches_by_phase``), its largest error against the plain version (both
 noise modes), its time in the mode its path launches (Philox; kernel A:
 the profiler's device time at 3 pairs x 4096 envs), the plain version's
 time, its bound in that mode and, for kernel A, ``torch.randn`` of the same
-count (``library_ms``):
+count, for kernel P the torch ops' busy time (``library_ms``):
 the larger of its bytes (state, action and output planes; the Philox mode
 reads no uniforms) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 counted from this run's inputs (Philox's integer work is not counted, so
@@ -280,12 +290,14 @@ KERNELS = {
     'pushing_autoreset_features_box': ('csrc/pushing_autoreset.cu',
                                        'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1066'),
     'pushing_rollout_box': ('csrc/pushing_rollout.cu', 'gymnasium_planar_robotics_tpu/ops/pallas_step.py:1083'),
+    # kernel P: the reactive policy step, which the JAX package leaves to XLA
+    'policy_mlp': ('csrc/policy_mlp.cu', 'gymnasium_planar_robotics_tpu/models/ppo.py:85'),
 }
 PUSHING_KERNELS = ('noise_probe', 'pushing_cycles', 'pushing_autoreset', 'pushing_rollout')
 PLANNING_KERNELS = ('planning_cycles', 'planning_autoreset', 'planning_rollout')
 MULTI_KERNELS = ('planning_multi_autoreset',)
 ADAPTER_KERNELS = ('planning_multi_autoreset_many',)  # counted on the adapters' path (phase 27)
-TRAIN_KERNELS = ('pushing_autoreset_features',)
+TRAIN_KERNELS = ('pushing_autoreset_features', 'policy_mlp')
 PEAK_KERNELS = ('peak_fma', 'peak_transc')
 BOX_KERNELS = ('pushing_cycles_box', 'pushing_autoreset_box', 'pushing_rollout_box', 'pushing_autoreset_features_box')
 # kernel A's (pairs, envs) on the paths: the main path's observation, the
@@ -1989,7 +2001,10 @@ def main() -> int:
         expected = TRAIN_STEPS * pcfg.rollout_steps
         require(launches['pushing_autoreset_features'] == expected,
                 f'C-feat launched {launches["pushing_autoreset_features"]} times, expected {expected}')
-        others = {k: v for k, v in launches.items() if k not in ('pushing_autoreset_features', 'noise_probe') and v}
+        require(launches['policy_mlp'] == expected,
+                f'the policy kernel launched {launches["policy_mlp"]} times, expected {expected}')
+        others = {k: v for k, v in launches.items()
+                  if k not in ('pushing_autoreset_features', 'noise_probe', 'policy_mlp') and v}
         require(not others, f'other env kernels launched on the training path: {others}')
         loss = [float(m['loss']) for m in metrics]
         reward = [float(m['reward_mean']) for m in metrics]
@@ -2036,7 +2051,59 @@ def main() -> int:
 
     train_launches = report['phases']['ppo_train_main_path'].get('launches', {})
 
-    # -- 14. reactive rollout rate ----------------------------------------------------
+    # -- 14. kernel P, then the reactive rollout rate ---------------------------------
+    from gymnasium_planar_robotics_tpu_torch.ops.kernels import policy as kpolicy
+    from gymnasium_planar_robotics_tpu_torch.tools.rollout_rates import path_device_ms
+
+    @phase('policy_kernel')
+    def _():
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32, as the policy's precision
+        res, errs = {}, []
+        try:
+            with torch.no_grad():
+                for hidden, b in (((256, 256), B_LARGE), ((128, 128), B_TRAIN)):
+                    g = torch.Generator(device=dev).manual_seed(40)
+                    pol = PPO.init_params(PPO.PPOConfig(obs_dim=12, action_dim=2, hidden=hidden), g, device=dev)
+                    for p in pol.parameters():  # biases and log_std drawn too, so that every term counts
+                        if p.dim() == 1:
+                            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
+                    x, eps = torch.randn((12, b), generator=g, device=dev), torch.randn((2, b), generator=g, device=dev)
+                    args = (x, eps, *pol.params_pm(), 10.0)
+                    before = kernels.LAUNCHES['policy_mlp']
+                    got = kpolicy.policy_mlp(*args)
+                    require(kernels.LAUNCHES['policy_mlp'] == before + 1,
+                            f'{hidden}: {kernels.LAUNCHES["policy_mlp"] - before} launches for one call')
+                    want = kpolicy.policy_mlp_plain(*args)
+                    gaps = {}
+                    for name, k, w in zip(('raw', 'logp', 'value'), got[1:], want[1:]):
+                        err, _ = compare(k, w, 0.0, math.inf)
+                        errs.append(err)
+                        gaps[name] = err / float(w.abs().max())
+                        require(gaps[name] <= 2e-6, f'{hidden} x {b}: {name} {gaps[name]:.3e} of its largest magnitude')
+                    require(torch.equal(got[0], torch.clamp(got[1], -10.0, 10.0)), f'{hidden}: action is not clamp(raw)')
+                    dims = (12, *hidden)
+                    flops = 2 * (sum(dims[i] * dims[i + 1] for i in range(len(hidden))) + hidden[-1] * 3)
+                    ms, ms_groups = time_groups(lambda: kpolicy.policy_mlp(*args))
+                    plain_ms = time_ms(lambda: kpolicy.policy_mlp_plain(*args), 20)
+                    library_ms = path_device_ms(lambda: kpolicy.policy_mlp_plain(*args))
+                    # the necessary bytes: 12 features and 2 noise values in; action, raw, logp, value out
+                    bound_ms, bound_by = bound((12 + 2 + 2 + 2 + 1 + 1) * 4 * b, flops * b)
+                    res[f'{hidden[0]}x{hidden[1]},B={b}'] = {
+                        'gap_of_largest': gaps, 'max_abs_err': max(errs[-3:]), 'ms': ms, 'ms_groups': ms_groups,
+                        'ms_spread': spread(ms_groups), 'plain_ms': plain_ms, 'library_ms': library_ms,
+                        'bound_ms': bound_ms, 'bound_by': bound_by, 'x_bound': ms / bound_ms,
+                        'flops_per_env': flops, 'tflops': flops * b / ms / 1e9}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        main = res[f'256x256,B={B_LARGE}']
+        kstats['policy_mlp'].update(max_abs_err=max(errs), ms=main['ms'], plain_ms=main['plain_ms'],
+                                    bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                                    library_ms=main['library_ms'])
+        ptxas = {k: v for k, v in report['phases']['card_build'].get('ptxas', {}).items() if 'policy_mlp' in k}
+        return {'tol': 'raw, logp, value within 2e-6 of the plain version\'s largest magnitude; action == clamp(raw)',
+                'shapes': res, 'ptxas': ptxas}
+
     @phase('reactive_rollout_rate')
     def _():
         cfg, prm = P.make_pushing_env(device=dev)
@@ -2044,11 +2111,12 @@ def main() -> int:
         policy = PPO.init_params(pcfg, torch.Generator(device=dev).manual_seed(9), device=dev)
 
         def policy_step(pol, eps_t, obs_pm):
-            # bench.py's training-rollout policy: a Gaussian action, the
-            # value carried as a PPO rollout would
-            mu, log_std, value = PPO.apply_pm(pol, obs_pm)
-            return torch.clamp(mu + torch.exp(log_std)[:, None] * eps_t, -10.0, 10.0), value
+            # the benchmark's reactive policy: a Gaussian action by kernel P,
+            # the value carried as a PPO rollout would
+            action, _, _, value = PPO.sample_action_pm(pol, obs_pm, eps_t, 10.0)
+            return action, value
 
+        kernels.reset_launches()
         reactive = P.make_reactive_rollout(cfg, prm, policy_step, T_ROLL)
         fused = P.make_fused_rollout(cfg, prm)
         rates = {}
@@ -2078,7 +2146,12 @@ def main() -> int:
                         'host_ms_per_step': statistics.median(host[name]) / T_ROLL}
                 rates[f'B={b},policy_host_ms_per_step'] = (rates[f'B={b},reactive']['host_ms_per_step']
                                                           - rates[f'B={b},fused_k1']['host_ms_per_step'])
-        return {'T': T_ROLL, 'hidden': list(pcfg.hidden), 'card': card, 'repeats': 10, 'rates': rates}
+        torch.cuda.synchronize()
+        calls = 2 * 11 * T_ROLL  # two widths, a warm-up and ten repeats, a launch a step
+        require(kernels.LAUNCHES['policy_mlp'] == calls,
+                f'the policy kernel launched {kernels.LAUNCHES["policy_mlp"]} times, expected {calls}')
+        return {'T': T_ROLL, 'hidden': list(pcfg.hidden), 'card': card, 'repeats': 10, 'rates': rates,
+                'policy_launches': kernels.LAUNCHES['policy_mlp']}
 
     # -- 15. PPO learns on 1-mover planning ----------------------------------------------
     @phase('ppo_planning_learns')
@@ -3458,7 +3531,8 @@ def main() -> int:
             'ms': st.get('ms'), 'plain_ms': st.get('plain_ms'), 'bound_ms': st.get('bound_ms'),
             'bound_by': st.get('bound_by'),
             # torch.randn beside kernel A (another stream, never called by
-            # the port); no single PyTorch call computes any of the others
+            # the port) and the torch ops' busy time beside kernel P; no
+            # PyTorch call computes any of the others
             'library_ms': st.get('library_ms'),
         })
     report['kernels'] = kernel_rows

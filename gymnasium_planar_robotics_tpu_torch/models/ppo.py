@@ -25,9 +25,10 @@ import torch
 from torch import nn
 
 from gymnasium_planar_robotics_tpu_torch.models import common
+from gymnasium_planar_robotics_tpu_torch.ops.kernels import policy as kpolicy
 from gymnasium_planar_robotics_tpu_torch.parallel import sharding
 
-_HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+_HALF_LOG_2PI = kpolicy.HALF_LOG_2PI
 _HALF_LOG_2PIE = 0.5 * math.log(2 * math.pi * math.e)
 
 
@@ -70,11 +71,16 @@ class ActorCritic(nn.Module):
     def forward_pm(self, x: torch.Tensor):
         """Plane-major ``forward``: ``x [F, B] -> (mu [A, B], log_std,
         value [B])``, the layout the kernels' feature planes come in."""
-        for layer in self.trunk:
-            x = torch.tanh(torch.addmm(layer.bias[:, None], layer.weight, x))
-        mu = torch.addmm(self.mu.bias[:, None], self.mu.weight, x)
-        value = torch.addmm(self.value.bias[:, None], self.value.weight, x)[0]
-        return mu, self.log_std, value
+        trunk, mu_head, value_head, log_std = self.params_pm()
+        mu, value = kpolicy.forward_plain(x, trunk, mu_head, value_head)
+        return mu, log_std, value
+
+    def params_pm(self):
+        """``(trunk [(weight, bias)], (mu.weight, mu.bias), (value.weight,
+        value.bias), log_std)``: the parameters themselves, as
+        ``ops/kernels/policy`` takes them."""
+        return ([(layer.weight, layer.bias) for layer in self.trunk], (self.mu.weight, self.mu.bias),
+                (self.value.weight, self.value.bias), self.log_std)
 
 
 def init_params(cfg: PPOConfig, generator: torch.Generator | None = None, dtype=torch.float32,
@@ -144,25 +150,27 @@ def apply_pm(policy: ActorCritic, x: torch.Tensor):
     return policy.forward_pm(x)
 
 
-def _noise(noise_or_generator, like: torch.Tensor) -> torch.Tensor:
-    """Given standard normals, or ones drawn like ``like`` from a generator
-    (on the generator's device, then moved), or from the default generator of
-    ``like``'s device."""
+def _noise(noise_or_generator, shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Given standard normals, or ones of ``shape`` and ``dtype`` drawn from
+    a generator (on the generator's device, then moved to ``device``), or
+    from the default generator of ``device``."""
     if isinstance(noise_or_generator, torch.Tensor):
         return noise_or_generator
-    gdev = noise_or_generator.device if noise_or_generator is not None else like.device
-    return torch.randn(like.shape, generator=noise_or_generator, device=gdev, dtype=like.dtype).to(like.device)
+    gdev = noise_or_generator.device if noise_or_generator is not None else device
+    return torch.randn(shape, generator=noise_or_generator, device=gdev, dtype=dtype).to(device)
 
 
 def sample_action_pm(policy: ActorCritic, obs_pm: torch.Tensor, noise_or_generator, scale: float):
     """Plane-major ``sample_action``: ``obs_pm [F, B] -> (action [A, B], raw
     [A, B], logp [B], value [B])``; the exploration noise is given ``[A, B]``
-    or drawn from a ``torch.Generator``."""
-    mu, log_std, value = apply_pm(policy, obs_pm)
-    std = torch.exp(log_std)[:, None]
-    raw = mu + std * _noise(noise_or_generator, mu)
-    logp = (-0.5 * ((raw - mu) / std) ** 2 - log_std[:, None] - _HALF_LOG_2PI).sum(0)
-    return torch.clamp(raw, -scale, scale), raw, logp, value
+    or drawn from a ``torch.Generator``.  On the card, one launch of kernel P
+    (``ops/kernels/policy``), which has no backward: it raises with autograd
+    recording, and a caller that differentiates the step calls
+    ``policy_mlp_plain``.  On the CPU, its plain torch ops."""
+    trunk, mu, value, log_std = policy.params_pm()
+    eps = _noise(noise_or_generator, (mu[0].shape[0], obs_pm.shape[1]), log_std.dtype, obs_pm.device)
+    # the kernel reads whole planes: a shard's noise is a strided view of the global draw
+    return kpolicy.policy_mlp(obs_pm.contiguous(), eps.contiguous(), trunk, mu, value, log_std, scale)
 
 
 def sample_action(policy: ActorCritic, obs: torch.Tensor, noise_or_generator, scale: float):
@@ -170,7 +178,7 @@ def sample_action(policy: ActorCritic, obs: torch.Tensor, noise_or_generator, sc
     log-prob, value)``.  The PPO ratio is taken on the raw sample; clipping
     only protects the env."""
     mu, log_std, value = apply(policy, obs)
-    raw = mu + torch.exp(log_std) * _noise(noise_or_generator, mu)
+    raw = mu + torch.exp(log_std) * _noise(noise_or_generator, mu.shape, mu.dtype, mu.device)
     return torch.clamp(raw, -scale, scale), raw, _gaussian_logp(raw, mu, log_std), value
 
 

@@ -23,7 +23,7 @@ LAUNCHES = {
     'pushing_rollout': 0, 'pushing_cycles_box': 0, 'pushing_autoreset_box': 0, 'pushing_autoreset_features_box': 0,
     'pushing_rollout_box': 0,
     'planning_cycles': 0, 'planning_autoreset': 0, 'planning_rollout': 0, 'planning_multi_autoreset': 0,
-    'planning_multi_autoreset_many': 0, 'peak_fma': 0, 'peak_transc': 0,
+    'planning_multi_autoreset_many': 0, 'peak_fma': 0, 'peak_transc': 0, 'policy_mlp': 0,
 }
 
 

@@ -160,6 +160,9 @@ def lib() -> ctypes.CDLL:
         handle.gprt_peak.argtypes = [p, p, i64, i32, i32, p]
         handle.gprt_peak_chains.restype = i32
         handle.gprt_peak_chains.argtypes = [i32]
+        # (ptrs, dims, depth, action_dim, batch, scale, tile, stream): ptrs and dims host arrays
+        handle.gprt_policy_mlp.restype = i32
+        handle.gprt_policy_mlp.argtypes = [p, p, i32, i32, i64, ctypes.c_float, i32, p]
         handle.gprt_split_layout.restype = ctypes.c_char_p
         handle.gprt_split_layout.argtypes = []
         handle.gprt_multi_const_names.restype = ctypes.c_char_p
